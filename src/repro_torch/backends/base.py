@@ -1,0 +1,70 @@
+"""The attention-backend protocol: one contract for every way attention is
+computed.
+
+A backend is a stateless singleton describing ONE attention algorithm: how
+to run it over a full sequence (``apply``), how to prefill a prompt into a
+decode state (``prefill``), how to advance that state by one token
+(``decode_step``) and how to check a state's health.  The model layer and
+the serve engine resolve backends exclusively through
+``repro_torch.backends.registry``.  Methods take projected heads: q
+``[b, h, n, d]``, k/v ``[b, hk, n, ·]`` (single-token: ``[b, h, d]``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+class AttentionBackend:
+    """Base class + protocol of one attention algorithm."""
+
+    name: str = ""
+    state_kind: str = "kv"  # "kv" | "moments"
+    impls: Tuple[str, ...] = ("torch",)
+
+    def validate(self, cfg) -> None:
+        """Raise ``ValueError`` for configs this backend cannot execute."""
+        if cfg.attn_impl != "auto" and cfg.attn_impl not in self.impls:
+            raise ValueError(
+                f"attention backend {self.name!r} has impls {self.impls}; "
+                f"attn_impl={cfg.attn_impl!r} is not one of them"
+            )
+
+    def resolve_impl(self, cfg, device: torch.device) -> str:
+        """Concrete impl for a run on ``device``: ``cfg.attn_impl`` unless
+        "auto"."""
+        if cfg.attn_impl != "auto":
+            return cfg.attn_impl
+        return self.impls[0]
+
+    def init_cache(self, cfg, batch: int, n_max: int, device) -> Any:
+        """Zero decode state for ``batch`` rows."""
+        raise NotImplementedError(self.name)
+
+    def apply(self, q: Tensor, k: Tensor, v: Tensor, cfg, *, causal: bool = True) -> Tensor:
+        """Full-sequence attention.  Returns ``[b, h, n, dv]``."""
+        raise NotImplementedError(self.name)
+
+    def prefill(self, q: Tensor, k: Tensor, v: Tensor, cfg, n_max: int):
+        """Causal full-sequence pass that also returns the decode state:
+        ``(out [b, h, n, dv], cache)``."""
+        raise NotImplementedError(self.name)
+
+    def decode_step(self, cache, q: Tensor, k: Tensor, v: Tensor, cfg, pos: Tensor):
+        """One autoregressive step (the new token attends to itself).
+        Returns ``(out [b, h, dv], new_cache)``."""
+        raise NotImplementedError(self.name)
+
+    def state_health(self, cache, cfg) -> Tensor:
+        """``[b]`` bool: True where every floating leaf of the row is finite."""
+        ok = None
+        for leaf in cache:
+            if leaf is None or not leaf.is_floating_point():
+                continue
+            row = torch.isfinite(leaf).reshape(leaf.shape[0], -1).all(dim=1)
+            ok = row if ok is None else ok & row
+        return ok

@@ -1,0 +1,36 @@
+"""Architecture registry of the port.
+
+Each ``configs/<arch>.py`` exports ``CONFIG`` (the published config) and
+``reduced()`` (a tiny same-family config for CPU tests).  Only the
+architectures in ``ARCHS`` are ported; other names raise.
+"""
+
+from __future__ import annotations
+
+import importlib
+from repro_torch.models.config import ModelConfig
+
+ARCHS = ("smollm-135m",)
+
+
+def _module(arch: str):
+    if arch not in ARCHS:
+        raise ValueError(f"architecture {arch!r} is not yet ported (have {ARCHS})")
+    return importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}"
+    )
+
+
+def get_config(arch: str, **overrides) -> ModelConfig:
+    """Full published config, with ``overrides`` replaced."""
+    cfg = _module(arch).CONFIG
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg
+
+
+def get_reduced(arch: str, **overrides) -> ModelConfig:
+    cfg = _module(arch).reduced()
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg

@@ -1,0 +1,19 @@
+"""Model layer of the port: config, layers, attention, blocks, decoder LM."""
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import (
+    lm_apply,
+    lm_decode_step,
+    lm_init,
+    lm_init_caches,
+    lm_prefill,
+)
+
+__all__ = [
+    "ModelConfig",
+    "lm_apply",
+    "lm_decode_step",
+    "lm_init",
+    "lm_init_caches",
+    "lm_prefill",
+]

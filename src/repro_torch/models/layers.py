@@ -1,0 +1,94 @@
+"""Primitive layers: norms, embeddings, RoPE, MLPs (plain functions on tensors).
+
+Params are nested dicts of tensors with the JAX package's names and layouts;
+``*_apply(params, x, ...) -> y``.  Initialisers draw from an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def trunc_normal(gen: torch.Generator, shape, std: float, dtype=torch.float32) -> Tensor:
+    """``std`` × a standard normal truncated to [-2, 2], drawn on ``gen``'s device."""
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (x * std).to(dtype)
+
+
+def dense_init(gen: torch.Generator, shape, in_axes: int = 1, dtype=torch.float32):
+    """Projection weight with fan-in init; the first ``in_axes`` axes are
+    contracted."""
+    fan_in = math.prod(shape[:in_axes])
+    return {"w": trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype)}
+
+
+def norm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def norm_apply(params, x: Tensor, kind: str = "rmsnorm", eps: float = 1e-6) -> Tensor:
+    """RMSNorm in float32, cast back to x's dtype."""
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not yet ported to torch")
+    dtype = x.dtype
+    x = x.float()
+    ms = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(ms + eps) * params["scale"].float()
+    return y.to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32):
+    return {"w": trunc_normal(gen, (vocab, d), d**-0.5, dtype)}
+
+
+def embed_apply(params, ids: Tensor, dtype=torch.bfloat16) -> Tensor:
+    return F.embedding(ids, params["w"]).to(dtype)
+
+
+def unembed_apply(params, x: Tensor) -> Tensor:
+    """Logits, always float32: the hidden state meets the float32 table."""
+    return torch.einsum("...d,vd->...v", x.float(), params["w"].float())
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponent)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
+    """x: [..., n, hd] (positions [n] or broadcastable), rotate-half
+    convention, computed in float32."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)
+    angles = positions[..., :, None].float() * freqs  # [..., n, hd/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return y.to(x.dtype)
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype=torch.float32):
+    if act != "silu":
+        raise NotImplementedError(f"mlp act {act!r} is not yet ported to torch")
+    return {
+        "w_gate": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
+        "w_up": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
+        "w_down": dense_init(gen, (d_ff, d), dtype=dtype)["w"],
+    }
+
+
+def mlp_apply(params, x: Tensor, act: str) -> Tensor:
+    """SiLU-gated MLP in x's dtype."""
+    if act != "silu":
+        raise NotImplementedError(f"mlp act {act!r} is not yet ported to torch")
+    dtype = x.dtype
+    gate = x @ params["w_gate"].to(dtype)
+    up = x @ params["w_up"].to(dtype)
+    return (F.silu(gate) * up) @ params["w_down"].to(dtype)
