@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-Builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version, drives smollm-135m's full-width inference forward
-and its serving engine (random weights from a seed), cross-checks the two,
-and prints one JSON line describing every ported kernel followed by the
-device line.  Any failed phase exits non-zero.  Needs a CUDA device.
+Builds the CUDA kernels from the sources in this checkout (one nvcc per
+source, in parallel), holds each against its plain PyTorch version, drives
+smollm-135m's full-width inference forward, its serving engine and its
+training step (random weights from a seed), cross-checks them, and prints
+one JSON line describing every ported kernel followed by the device line.
+Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
 """
@@ -13,6 +14,8 @@ device line.  Any failed phase exits non-zero.  Needs a CUDA device.
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -28,6 +31,7 @@ TF32_FLOPS = 495e12
 HBM_BYTES = 3.35e12
 
 MAIN = dict(b=4, hk=3, g=3, n=2048, d=64, dv=64)  # phase 3's main-path launch
+TRAIN_ATTN = dict(MAIN, n=1024)  # each layer's attention launch in phase 7's step
 EDGE = [  # (b, h, hk, n, d, dv, order): the JAX kernel tests' sweep + order 1
     (1, 2, 1, 256, 128, 128, 2),
     (2, 4, 2, 256, 64, 64, 2),
@@ -37,10 +41,31 @@ EDGE = [  # (b, h, hk, n, d, dv, order): the JAX kernel tests' sweep + order 1
     (1, 2, 2, 256, 64, 256, 2),    # dv=256: 32 value tiles
     (1, 2, 2, 256, 64, 64, 1),     # order 1
 ]
+GRAD_EDGE = [  # (order, b, h, hk, n, d, dv): tests/test_kernels.py's GRAD_SWEEP
+    (1, 1, 2, 1, 256, 64, 64),
+    (2, 2, 4, 2, 256, 64, 64),     # GQA g=2
+    (2, 1, 8, 1, 128, 128, 128),   # MQA, G=8
+    (2, 1, 2, 1, 300, 64, 64),     # sequence padding 300 -> 384
+    (1, 1, 2, 1, 200, 48, 80),     # d 48 -> 64, sequence padding
+]
+TRAIN = dict(b=4, n=1024, steps=8, lr=2e-3, warmup=2)  # phase 7
 PROMPT_LENS = (100, 256, 300, 384, 512, 700)
 MAX_NEW = 32
 F32_TOL, BF16_TOL = 1e-4, 1e-2
 NEAR_TIE = 1e-3
+
+
+def ptxas_summary(log: str, head_dim: int = 64):
+    """ptxas's resource lines for the kernels instantiated at ``head_dim``."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(taylor_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+                      r"I(\S+?)EEEv", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>" if f"Li{head_dim}E" in m.group(2) else None
+        elif name and ("Used" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -69,6 +94,46 @@ def taylor_fwd_cost(bk, g, n, d, dv, chunk, itemsize, order=2):
     ops = bk * (g * n * chunk * 2 * (d + dv) + g * n * (quad + lin) + n * (quad + lin))
     nbytes = itemsize * (bk * g * n * d + bk * n * d + bk * n * dv + bk * g * n * dv)
     return ops, nbytes
+
+
+def taylor_bwd_cost(bk, g, n, d, dv, chunk, itemsize, order=2):
+    """{kernel: (operations, bytes)} of the backward pair, from the loops of
+    csrc/taylor_bwd.cu (chunk = its C), counting every term once (not once
+    per value tile): full C×C intra tiles, state/carry reads and updates.
+    Bytes: each input read once, each output written once; den/dden are
+    pass 1's outputs and pass 2's inputs, and not the pair's."""
+    sq = 2 * d * d if order >= 2 else 0           # one d×d contraction
+    cube = 2 * d * d * dv if order >= 2 else 0    # one d×d×dv contraction
+    lin = 2 * d * dv
+    rows = g * n
+    dq_ops = bk * (
+        rows * chunk * (2 * d + 2 * dv + 2 * d)    # scores, dp, ds·K
+        + rows * (2 * d + sq + 2 * dv)             # den (q·z1, q z2 q), Σ dout·out
+        + rows * (lin + cube + 2 * d + sq)         # dq: S1, S2, z1, z2 terms
+        + n * (lin + cube + sq + d)                # state update (no S0)
+    )
+    dkv_ops = bk * (
+        n * (2 * lin + 2 * cube + sq)              # carry reads for dk and dv
+        + rows * chunk * (2 * d + 2 * dv + 2 * dv + 2 * d)  # scores, Pᵀdnum, dp, dsᵀQ
+        + rows * (lin + cube + sq + 2 * d + dv)    # carry update
+    )
+    f32 = 4
+    inputs = itemsize * bk * (g * n * d + n * d + n * dv + g * n * dv)  # q, k, v, dout
+    out_b = itemsize * bk * g * n * dv
+    rows_b = 2 * f32 * bk * g * n                                       # den, dden
+    dq_b = f32 * bk * g * n * d
+    dkdv_b = f32 * bk * n * (d + dv)
+    return {
+        "taylor_bwd_dq": (dq_ops, inputs + out_b + dq_b + rows_b),
+        "taylor_bwd_dkv": (dkv_ops, inputs + rows_b + dkdv_b),
+        "pair": (dq_ops + dkv_ops, inputs + out_b + dq_b + dkdv_b),
+    }
+
+
+def bound_ms(flops, nbytes):
+    """(least ms on the card, what bounds it): f32 CUDA-core peak vs HBM."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def rel_err(torch, out, ref) -> float:
@@ -115,7 +180,8 @@ def phase_kernel(torch, K, ops, ref_mod, ln):
         q = torch.randn(b, h, n, d, device="cuda", generator=gen)
         k = torch.randn(b, hk, n, d, device="cuda", generator=gen)
         v = torch.randn(b, hk, n, dv, device="cuda", generator=gen)
-        out = ops.taylor_attention_kernel(q, k, v, order=order)
+        with torch.no_grad():
+            out = ops.taylor_attention_kernel_trainable(q, k, v, ops.TaylorConfig(order=order))
         ref = ref_mod.taylor_attention_ref(
             ln(q).reshape(b, hk, h // hk, n, d), ln(k), v, order=order
         ).reshape(b, h, n, dv)
@@ -126,6 +192,183 @@ def phase_kernel(torch, K, ops, ref_mod, ln):
         if not err < F32_TOL:
             fail(f"edge case {(b, h, hk, n, d, dv, order)} rel err {err}")
     return rows
+
+
+def phase_backward(torch, K, ops, ref_mod, ln):
+    """Phase 3b: the backward kernels against their plain versions on the
+    card (phase 3's shape in f32 and bf16, the training step's in bf16),
+    then the trainable wrapper against autograd of the plain forward, and
+    the padded rows and columns of the raw gradients, which must be 0."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for m, dtype in ((MAIN, torch.float32), (MAIN, torch.bfloat16),
+                     (TRAIN_ATTN, torch.bfloat16)):
+        bk = m["b"] * m["hk"]
+        q = ln(torch.randn(bk, m["g"], m["n"], m["d"], device="cuda", generator=gen)).to(dtype)
+        k = ln(torch.randn(bk, m["n"], m["d"], device="cuda", generator=gen)).to(dtype)
+        v = torch.randn(bk, m["n"], m["dv"], device="cuda", generator=gen).to(dtype)
+        dout = torch.randn(bk, m["g"], m["n"], m["dv"], device="cuda", generator=gen).to(dtype)
+        out = K.taylor_fwd(q, k, v, alpha=3.0)
+        b = lambda *x: [t[None] for t in x]
+        dq, den, dden = K.taylor_bwd_dq(q, k, v, dout, out, alpha=3.0)
+        dk, dv = K.taylor_bwd_dkv(q, k, v, dout, den, dden, alpha=3.0)
+        r_dq, r_den, r_dden = (t[0] for t in ref_mod.taylor_bwd_dq_ref(*b(q, k, v, dout, out)))
+        # pass 2 against its plain version on the SAME inputs (pass 1's rows)
+        r_dk, r_dv = (t[0] for t in ref_mod.taylor_bwd_dkv_ref(*b(q, k, v, dout, den, dden)))
+        torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "") + ("" if m is MAIN else f" n={m['n']}")
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        errs = {"dq": rel_err(torch, dq, r_dq), "den": rel_err(torch, den, r_den),
+                "dden": rel_err(torch, dden, r_dden), "dk": rel_err(torch, dk, r_dk),
+                "dv": rel_err(torch, dv, r_dv)}
+        abs_err = {"taylor_bwd_dq": float((dq - r_dq).abs().max()),
+                   "taylor_bwd_dkv": max(float((dk - r_dk).abs().max()),
+                                         float((dv - r_dv).abs().max()))}
+        ms = {
+            "taylor_bwd_dq": cuda_ms(torch, lambda: K.taylor_bwd_dq(q, k, v, dout, out,
+                                                                     alpha=3.0), 10),
+            "taylor_bwd_dkv": cuda_ms(torch, lambda: K.taylor_bwd_dkv(
+                q, k, v, dout, den, dden, alpha=3.0), 10),
+            "pair": cuda_ms(torch, lambda: K.taylor_bwd(q, k, v, dout, out, alpha=3.0), 10),
+        }
+        plain = {
+            "taylor_bwd_dq": cuda_ms(torch, lambda: ref_mod.taylor_bwd_dq_ref(
+                *b(q, k, v, dout, out)), 3),
+            "taylor_bwd_dkv": cuda_ms(torch, lambda: ref_mod.taylor_bwd_dkv_ref(
+                *b(q, k, v, dout, den, dden)), 3),
+            "pair": cuda_ms(torch, lambda: ref_mod.taylor_attention_bwd_ref(
+                *b(q, k, v, dout, out)), 3),
+        }
+        cost = taylor_bwd_cost(bk, m["g"], m["n"], m["d"], m["dv"], K.BWD_CHUNK,
+                               q.element_size())
+        print(f"[3b] taylor_bwd {name} {m}: rel_err " +
+              " ".join(f"{k_}={e:.3e}" for k_, e in errs.items()) + f" (tol {tol})")
+        rows[name] = {}
+        for kname in ("taylor_bwd_dq", "taylor_bwd_dkv", "pair"):
+            flops, nbytes = cost[kname]
+            bms, by = bound_ms(flops, nbytes)
+            print(f"[3b]   {kname} {name}: kernel_ms={ms[kname]:.4f} "
+                  f"plain_ms={plain[kname]:.4f} bound_ms={bms:.4f} ({by}) "
+                  f"gflop={flops / 1e9:.2f} mb={nbytes / 1e6:.1f} "
+                  f"achieved_tflops={flops / ms[kname] / 1e9:.2f}")
+            rows[name][kname] = dict(ms=ms[kname], plain_ms=plain[kname], bound_ms=bms,
+                                     bound_by=by, max_abs_err=abs_err.get(kname))
+        bad = {k_: e for k_, e in errs.items() if not e < tol}
+        if bad:
+            fail(f"taylor_bwd {name} disagrees with its plain version: {bad}")
+    for order, b, h, hk, n, d, dv in GRAD_EDGE:
+        q = torch.randn(b, h, n, d, device="cuda", generator=gen, requires_grad=True)
+        k = torch.randn(b, hk, n, d, device="cuda", generator=gen, requires_grad=True)
+        v = torch.randn(b, hk, n, dv, device="cuda", generator=gen, requires_grad=True)
+        t = torch.randn(b, h, n, dv, device="cuda", generator=gen)
+        cfg = ops.TaylorConfig(order=order)
+        before = K.taylor_bwd.dq_launches
+        o = ops.taylor_attention_kernel_trainable(q, k, v, cfg, backward="cuda")
+        got = torch.autograd.grad((o * t).sum(), (q, k, v))
+        ref = ref_mod.taylor_attention_ref(
+            ln(q).reshape(b, hk, h // hk, n, d), ln(k), v, order=order
+        ).reshape(b, h, n, dv)
+        want = torch.autograd.grad((ref * t).sum(), (q, k, v))
+        torch.cuda.synchronize()
+        errs = [rel_err(torch, a, w) for a, w in zip(got, want)]
+        print(f"[3b] trainable wrapper (order,b,h,hk,n,d,dv)={(order, b, h, hk, n, d, dv)} "
+              f"f32 grad rel_err dq,dk,dv = {', '.join(f'{e:.3e}' for e in errs)}")
+        if K.taylor_bwd.dq_launches != before + 1:
+            fail("the trainable wrapper did not launch the backward kernels")
+        if not max(errs) < F32_TOL:
+            fail(f"trainable wrapper gradients disagree at {(order, b, h, hk, n, d, dv)}")
+        qp, kp, vp, dims = ops._kernel_layout(ln(q.detach()), ln(k.detach()), v.detach())
+        if (dims.n_pad, dims.d_pad, dims.dv_pad) == (n, d, dv):
+            continue
+        alpha = ops._effective_alpha(3.0, dims)
+        doutp = ops._grouped_value_layout(t, dims)
+        outp = K.taylor_fwd(qp, kp, vp, alpha=alpha, order=order)
+        gq, gk, gv = K.taylor_bwd(qp, kp, vp, doutp, outp, alpha=alpha, order=order)
+        pads = [gq[..., n:, :], gq[..., d:], gk[:, n:], gk[..., d:], gv[:, n:], gv[..., dv:]]
+        nonzero = sum(int(torch.count_nonzero(x)) for x in pads)
+        print(f"[3b] padded layout (n,d,dv) {(n, d, dv)} -> "
+              f"{(dims.n_pad, dims.d_pad, dims.dv_pad)}: {sum(x.numel() for x in pads)} "
+              f"padded gradient entries, {nonzero} nonzero")
+        if nonzero:
+            fail(f"padded gradient rows/columns are not exactly zero at {(n, d, dv)}")
+    return rows
+
+
+def phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init,
+                make_train_step, make_loss_fn, loss_and_grads, tree_leaves):
+    """Phase 7: full-width training steps on one fixed batch, through the
+    kernels; then the kernel gradients against the torch recompute's."""
+    tr = TRAIN
+    task = make_task("bigram", cfg.vocab, tr["n"], tr["b"], seed=0)
+    batch = {k_: torch.from_numpy(x).cuda() for k_, x in task.batch_at(0).items()}
+    opt = adamw(cosine_warmup(tr["lr"], tr["warmup"], tr["steps"]))
+    state = train_state_init(torch.Generator().manual_seed(0), cfg, opt)
+    step = make_train_step(cfg, opt)
+    per_layer = {"fwd": 2 if cfg.remat == "full" else 1, "dq": 1, "dkv": 1}
+    expect = tuple(per_layer[x] * cfg.n_layers for x in ("fwd", "dq", "dkv"))
+    counters = lambda: (K.taylor_fwd.launches, K.taylor_bwd.dq_launches,
+                        K.taylor_bwd.dkv_launches)
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(tr["steps"]):
+        c0 = counters()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])  # waits for the step
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = tuple(a - b for a, b in zip(counters(), c0))
+        losses.append(loss)
+        print(f"[7] step {i + 1}: loss={loss:.4f} {times[-1] * 1e3:.1f} ms "
+              f"launches fwd,dq,dkv={got}")
+        if got != expect:
+            fail(f"training step launched (fwd, dq, dkv) = {got}, expected {expect}")
+        if not math.isfinite(loss):
+            fail(f"loss is not finite at step {i + 1}")
+    launches = dict(zip(("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"), counters()))
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(times[1:]) / (len(times) - 1)
+    tokens = tr["b"] * tr["n"]
+    print(f"[7] smollm-135m training {cfg.dtype} remat={cfg.remat} b={tr['b']} n={tr['n']}: "
+          f"{tr['steps']} steps on one batch, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"first step {times[0] * 1e3:.1f} ms, then {steady * 1e3:.1f} ms/step = "
+          f"{tokens / steady:.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    tcfg = cfg.replace(attn_impl="torch")
+    tstep = make_train_step(tcfg, opt)
+    tstep(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tm = tstep(state, batch)
+    float(tm["loss"])
+    torch.cuda.synchronize()
+    torch_step = time.perf_counter() - t0
+    print(f"[7] one training step with attn_impl='torch' (chunked torch forward + "
+          f"torch recompute backward): {torch_step * 1e3:.1f} ms vs {steady * 1e3:.1f} ms "
+          f"through the kernels")
+
+    cfg32 = cfg.replace(dtype="float32")
+    c0 = counters()
+    _, _, g_cuda = loss_and_grads(make_loss_fn(cfg32.replace(attn_impl="cuda")),
+                                  state.params, batch)
+    if counters()[1] == c0[1]:
+        fail("the float32 gradient check did not run the backward kernels")
+    _, _, g_torch = loss_and_grads(make_loss_fn(cfg32.replace(attn_impl="torch")),
+                                   state.params, batch)
+    errs = [rel_err(torch, a, b) for a, b in zip(tree_leaves(g_cuda), tree_leaves(g_torch))]
+    worst = max(errs)
+    print(f"[7] float32 gradients, kernels vs torch recompute, over {len(errs)} leaves: "
+          f"max rel_err {worst:.3e}, median {sorted(errs)[len(errs) // 2]:.3e} (tol 1e-3)")
+    if not worst < 1e-3:
+        fail(f"kernel gradients disagree with the torch recompute: {worst}")
+    return dict(launches=launches, losses=losses, step_ms=steady * 1e3,
+                first_step_ms=times[0] * 1e3, tokens_per_s=tokens / steady,
+                peak_gib=peak / 2**30, torch_step_ms=torch_step * 1e3, grad_rel_err=worst)
 
 
 def serve_requests(torch, ServeEngine, Request, params, cfg):
@@ -179,8 +422,13 @@ def main() -> int:
     from repro_torch.kernels.taylor_attention import kernel as K
     from repro_torch.kernels.taylor_attention import ops
     from repro_torch.kernels.taylor_attention import ref as ref_mod
+    from repro_torch.data import make_task
     from repro_torch.models import lm_apply, lm_decode_step, lm_init, lm_init_caches
+    from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import loss_and_grads, make_loss_fn, make_train_step
+    from repro_torch.train import train_state_init
+    from repro_torch.tree import tree_leaves
 
     # ---- 1. device ----
     smi = subprocess.run(
@@ -193,15 +441,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 2. build ----
+    # ---- 2. build (one nvcc per source, in parallel) ----
     t0 = time.perf_counter()
     K.build()
-    print(f"[2] built taylor_fwd in {time.perf_counter() - t0:.1f} s")
-    print(K.build_log.strip())
+    print(f"[2] built {', '.join(K.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_summary(K.build_log):
+        print(f"[2] {line}")
 
-    # ---- 3. kernel against its plain version ----
+    # ---- 3. kernels against their plain versions ----
     ln = layernorm_no_affine
     krows = phase_kernel(torch, K, ops, ref_mod, ln)
+    brows = phase_backward(torch, K, ops, ref_mod, ln)
 
     # ---- 4. full-width forward through the kernel ----
     cfg = get_config("smollm-135m")
@@ -209,7 +459,8 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (4, 1024), generator=gen).cuda()
     K.taylor_fwd.launches = 0
-    logits, _ = lm_apply(params, {"tokens": tokens}, cfg)
+    with torch.no_grad():
+        logits, _ = lm_apply(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize()
     launches = K.taylor_fwd.launches
     print(f"[4] lm_apply smollm-135m b=4 n=1024 {cfg.dtype}: taylor_fwd launches={launches}")
@@ -217,12 +468,13 @@ def main() -> int:
         fail(f"lm_apply launched taylor_fwd {launches} times, expected {cfg.n_layers}")
     if logits.shape != (4, 1024, cfg.vocab) or not torch.isfinite(logits).all():
         fail("lm_apply logits have the wrong shape or are not finite")
-    ref_logits, _ = lm_apply(params, {"tokens": tokens}, cfg.replace(attn_impl="torch"))
+    infer = torch.no_grad()(lm_apply)
+    ref_logits, _ = infer(params, {"tokens": tokens}, cfg.replace(attn_impl="torch"))
     fwd_err = rel_err(torch, logits, ref_logits)
     agree = float((logits.argmax(-1) == ref_logits.argmax(-1)).float().mean())
-    fwd_ms = cuda_ms(torch, lambda: lm_apply(params, {"tokens": tokens}, cfg), 3)
+    fwd_ms = cuda_ms(torch, lambda: infer(params, {"tokens": tokens}, cfg), 3)
     ref_ms = cuda_ms(
-        torch, lambda: lm_apply(params, {"tokens": tokens}, cfg.replace(attn_impl="torch")), 3
+        torch, lambda: infer(params, {"tokens": tokens}, cfg.replace(attn_impl="torch")), 3
     )
     print(f"[4] logits vs attn_impl='torch': rel_err={fwd_err:.3e} argmax_agree={agree:.4f} "
           f"forward_ms={fwd_ms:.2f} forward_ms(torch attention)={ref_ms:.2f}")
@@ -233,16 +485,18 @@ def main() -> int:
     if not fwd_err < 5e-2:
         fail(f"kernel forward disagrees with the torch forward: rel err {fwd_err}")
     cfg32 = cfg.replace(dtype="float32")
-    err32 = rel_err(torch, lm_apply(params, {"tokens": tokens}, cfg32)[0],
-                    lm_apply(params, {"tokens": tokens}, cfg32.replace(attn_impl="torch"))[0])
+    err32 = rel_err(torch, infer(params, {"tokens": tokens}, cfg32)[0],
+                    infer(params, {"tokens": tokens}, cfg32.replace(attn_impl="torch"))[0])
     print(f"[4] float32 activations: logits rel_err kernel vs torch = {err32:.3e} (tol 1e-3)")
     if not err32 < 1e-3:
         fail(f"float32 kernel forward disagrees with the torch forward: {err32}")
     qa = torch.randn(4, cfg.n_heads, 1024, 64, device="cuda", dtype=torch.bfloat16)
     ka, va = (torch.randn(4, cfg.n_kv_heads, 1024, 64, device="cuda", dtype=torch.bfloat16)
               for _ in range(2))
-    layer_ms = cuda_ms(torch, lambda: ops.taylor_attention_kernel(qa, ka, va), 5)
-    print(f"[4] one layer's taylor_attention_kernel at b=4 n=1024 bf16 (with layout and "
+    with torch.no_grad():
+        layer_ms = cuda_ms(torch, lambda: ops.taylor_attention_kernel_trainable(qa, ka, va), 5)
+    del logits, ref_logits
+    print(f"[4] one layer's taylor_attention_kernel_trainable at b=4 n=1024 bf16 (with layout and "
           f"LayerNorm): {layer_ms:.4f} ms; x{cfg.n_layers} layers = "
           f"{cfg.n_layers * layer_ms:.2f} ms of the {fwd_ms:.2f} ms forward")
 
@@ -271,20 +525,28 @@ def main() -> int:
 
     # ---- 6. cross-check in float32: engine tokens vs lm_apply argmax ----
     prompts, outs, _, _ = serve_requests(torch, ServeEngine, Request, params, cfg32)
-    mismatches, near_ties = cross_check(torch, lm_apply, params, cfg32, prompts, outs)
+    mismatches, near_ties = cross_check(torch, infer, params, cfg32, prompts, outs)
     print(f"[6] f32 engine tokens vs lm_apply argmax over {len(outs) * MAX_NEW} positions: "
           f"mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}")
     if mismatches:
         fail(f"{mismatches} engine tokens differ from the kernel forward's argmax")
 
-    # ---- 7. kernels line ----
+    # ---- 7. full-width training through the kernels ----
+    del params
+    train = phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init,
+                        make_train_step, make_loss_fn, loss_and_grads, tree_leaves)
+
+    # ---- 8. kernels line ----
     row = krows["bfloat16"]
-    print(json.dumps({"kernels": [{
+    shape = dict(MAIN, dtype="bfloat16")
+    src = "src/repro_torch/kernels/taylor_attention/"
+    kernels = [{
         "name": "taylor_fwd",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/taylor_attention/csrc/taylor_fwd.cu",
+        "source": src + "csrc/taylor_fwd.cu",
         "replaces": "src/repro/kernels/taylor_attention/kernel.py:107",
-        "launches": launches,
+        "launches": train["launches"]["taylor_fwd"],
+        "launches_by_path": {"lm_apply": launches, "train_8_steps": train["launches"]["taylor_fwd"]},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -292,10 +554,27 @@ def main() -> int:
         "bound_by": "operations",
         "library_ms": None,
         "bound_tf32_ms": row["bound_tf32_ms"],
-        "shape": dict(MAIN, dtype="bfloat16"),
-    }]}))
+        "shape": shape,
+    }]
+    for name, line in (("taylor_bwd_dq", 55), ("taylor_bwd_dkv", 158)):
+        b = brows["bfloat16"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "csrc/taylor_bwd.cu",
+            "replaces": f"src/repro/kernels/taylor_attention/kernel_bwd.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": b["max_abs_err"],
+            "ms": b["ms"],
+            "plain_ms": b["plain_ms"],
+            "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            "library_ms": None,
+            "shape": shape,
+        })
+    print(json.dumps({"kernels": kernels}))
 
-    # ---- 8. device line ----
+    # ---- 9. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

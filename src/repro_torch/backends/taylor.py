@@ -4,11 +4,13 @@ Two impls, selected by ``ModelConfig.attn_impl``:
 
   * ``"torch"`` — the plain PyTorch chunked scan / parallel form of
     ``core/taylor.py`` (every ported TaylorConfig variant).
-  * ``"cuda"``  — the hand-written CUDA forward kernel of
-    ``kernels/taylor_attention`` for the full-sequence forward
-    (``apply``).  Causal self-attention only, head dim ≤ 128, full second
-    moment, standard (+1) expansion; a forced "cuda" outside this envelope
-    is rejected by ``validate``.
+  * ``"cuda"``  — the hand-written CUDA kernels of
+    ``kernels/taylor_attention`` for the full-sequence forward and its
+    gradient (``apply``, through ``taylor_attention_kernel_trainable``: the
+    backward kernel pair inside its envelope, d_v ≤ 128, and the torch
+    recompute outside it).  Causal self-attention only, head dim ≤ 128,
+    full second moment, standard (+1) expansion; a forced "cuda" outside
+    this envelope is rejected by ``validate``.
 
 ``"auto"`` picks the kernel on a CUDA device inside the envelope and the
 PyTorch paths otherwise.  Prefill and decode always run the moment-state
@@ -29,7 +31,7 @@ from repro_torch.core import (
     taylor_prefill_state,
 )
 from repro_torch.kernels.taylor_attention.kernel import MAX_HEAD_DIM
-from repro_torch.kernels.taylor_attention.ops import taylor_attention_kernel
+from repro_torch.kernels.taylor_attention.ops import taylor_attention_kernel_trainable
 
 
 def _kernel_fits(cfg) -> bool:
@@ -44,7 +46,7 @@ def _kernel_fits(cfg) -> bool:
 
 
 class TaylorBackend(AttentionBackend):
-    """Order-1/2 Taylor linear attention (PyTorch scan + CUDA forward kernel)."""
+    """Order-1/2 Taylor linear attention (PyTorch scan + CUDA kernels)."""
 
     name = "taylor"
     state_kind = "moments"
@@ -91,9 +93,8 @@ class TaylorBackend(AttentionBackend):
                 "non-causal taylor attention is not yet ported to torch"
             )
         if self.resolve_impl(cfg, q.device) == "cuda":
-            t = cfg.taylor
-            return taylor_attention_kernel(
-                q, k, v, alpha=t.alpha, order=t.order, normalize_qk=t.normalize_qk
+            return taylor_attention_kernel_trainable(
+                q, k, v, cfg.taylor, chunk=cfg.attn_chunk, backward="auto"
             )
         return taylor_attention(q, k, v, cfg.taylor, causal=True, chunk=cfg.attn_chunk)
 

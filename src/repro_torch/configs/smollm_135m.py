@@ -25,5 +25,5 @@ CONFIG = ModelConfig(
 def reduced() -> ModelConfig:
     return CONFIG.replace(
         d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=128,
-        n_groups=3, dtype="float32", attn_chunk=16, max_seq=256,
+        n_groups=3, dtype="float32", remat="none", attn_chunk=16, max_seq=256,
     )

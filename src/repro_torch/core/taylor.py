@@ -232,7 +232,9 @@ def taylor_attention_chunked(
 
     The sequence length must be a multiple of ``chunk``.  Returns
     out [b, h, n, v] (and the final TaylorState if requested — the
-    prefill→decode handoff)."""
+    prefill→decode handoff).  Without a state in or out, the output's
+    gradient is the two-pass recompute of ``core/taylor_vjp.py``, which
+    keeps O(n·d) residuals."""
     _check_ported(cfg)
     b, h, n, d = q.shape
     h_kv = k.shape[1]
@@ -243,6 +245,12 @@ def taylor_attention_chunked(
     q, k = _norm_qk(q, k, cfg)
     qg = _group(q, h_kv)  # [b, hk, g, n, d]
     g = qg.shape[2]
+    if initial_state is None and not return_state:
+        # Training/eval: the custom backward saves only (q, k, v) instead of
+        # every chunk's state (decay and sym_state raised above).
+        from repro_torch.core.taylor_vjp import taylor_chunked_core  # noqa: PLC0415 (cycle)
+
+        return _ungroup(taylor_chunked_core(qg, k, v, cfg, chunk)).to(v.dtype)
     # chunk-major layout for the scan: [nc, b, hk, (g,) c, ...]
     qs = qg.reshape(b, h_kv, g, nc, chunk, d).movedim(3, 0)
     ks = k.reshape(b, h_kv, nc, chunk, d).movedim(2, 0)

@@ -1,14 +1,18 @@
-"""Hand-written CUDA forward kernel for causal Taylor attention: build + binding.
+"""Hand-written CUDA kernels for causal Taylor attention: build + binding.
 
-``taylor_fwd`` is the raw kernel entry in kernel layout (grouped, padded,
-pre-normalised).  On a CUDA tensor it launches ``csrc/taylor_fwd.cu``
-(compiled with ``nvcc`` for ``sm_90a`` at first use, loaded with ctypes)
-and counts the launch in ``taylor_fwd.launches``; on a CPU tensor it runs
-the plain PyTorch version (``ref.taylor_attention_ref``).  A failed build
-or launch raises — nothing falls back to the plain version on the card.
+``taylor_fwd`` and ``taylor_bwd`` are the raw kernel entries in kernel
+layout (grouped, padded, pre-normalised).  On CUDA tensors they launch the
+kernels of ``csrc/`` (compiled with ``nvcc`` for ``sm_90a`` at first use,
+one shared library per source, loaded with ctypes) and count each launch
+(``taylor_fwd.launches``, ``taylor_bwd.dq_launches``,
+``taylor_bwd.dkv_launches``); on CPU tensors they run the plain PyTorch
+versions of ``ref.py``.  A failed build or launch raises — nothing falls
+back to the plain version on the card.
 
-It replaces the TPU kernel ``repro/kernels/taylor_attention/kernel.py::
-_taylor_fwd_kernel``; the design notes are at the top of the CUDA source.
+They replace the TPU kernels of ``repro/kernels/taylor_attention/``:
+``kernel.py::_taylor_fwd_kernel`` (``csrc/taylor_fwd.cu``) and
+``kernel_bwd.py::_taylor_bwd_dq_kernel`` / ``_taylor_bwd_dkv_kernel``
+(``csrc/taylor_bwd.cu``); the design notes are at the top of each source.
 """
 
 from __future__ import annotations
@@ -20,13 +24,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.taylor_attention.ref import taylor_attention_ref
+from repro_torch.kernels.taylor_attention.ref import (
+    taylor_attention_ref,
+    taylor_bwd_dkv_ref,
+    taylor_bwd_dq_ref,
+)
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "taylor_fwd.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"taylor_fwd": CSRC / "taylor_fwd.cu", "taylor_bwd": CSRC / "taylor_bwd.cu"}
 # <repo>/build/repro_torch: listed in .gitignore, made at first use.
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -34,13 +43,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# Head dim -> (value tile, chunk) of one block; mirrors ``Tiles<D>`` in the
-# CUDA source.  The wrapper pads d up to a key, dv to a multiple of the value
-# tile and n to a multiple of the chunk.
+# Head dim -> (value tile, chunk) of one forward block; mirrors ``Tiles<D>`` in
+# taylor_fwd.cu (the backward uses the same value tiles and a chunk of
+# BWD_CHUNK, which divides every forward chunk).  The wrapper pads d up to a
+# key, dv to a multiple of the value tile and n to a multiple of the chunk.
 TILES = {16: (16, 128), 32: (32, 128), 64: (8, 128), 128: (1, 64)}
 MAX_HEAD_DIM = max(TILES)
+BWD_CHUNK = 64
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 build_log = ""
 
 
@@ -50,47 +61,96 @@ def _nvcc() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); cannot build taylor_fwd")
+        raise RuntimeError("nvcc not found (set CUDA_HOME); cannot build the kernels")
     return found
 
 
-def build() -> Path:
-    """Compile ``csrc/taylor_fwd.cu`` into a shared library (cached by content).
+def _lib_path(name: str) -> Path:
+    key = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
-    Returns the library path.  The compiler's output (``-Xptxas=-v``:
-    registers, shared memory, spills) is kept in ``build_log``."""
+
+def build(*names: str) -> Dict[str, Path]:
+    """Compile the named sources (default: all of ``SOURCES``) into shared
+    libraries, cached by content; one ``nvcc`` per source, all started
+    together.
+
+    Returns the library path of each name.  The compiler's output
+    (``-Xptxas=-v``: registers, shared memory, spills) is kept in
+    ``build_log``."""
     global build_log
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"taylor_fwd_{key.hexdigest()[:16]}.so"
-    if lib_path.exists():
-        return lib_path
+    names = names or tuple(SOURCES)
+    paths = {name: _lib_path(name) for name in names}
+    todo = {name: path for name, path in paths.items() if not path.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, lib_path)
-    build_log += f"\nbuilt {lib_path.name} in {time.perf_counter() - t0:.1f} s\n"
-    return lib_path
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log = proc.communicate()[0]
+        build_log += f"--- nvcc {SOURCES[name].name}\n{log}"
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode})")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+    build_log += (f"built {', '.join(p.name for p in todo.values())} in "
+                  f"{time.perf_counter() - t0:.1f} s\n")
+    return paths
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def _library(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build(name)[name]))
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.taylor_fwd_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p,
-        ]
-        lib.taylor_fwd_launch.restype = ctypes.c_int
-        lib.taylor_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.taylor_fwd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        f = ctypes.c_float
+        if name == "taylor_fwd":
+            lib.taylor_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, p]
+            lib.taylor_fwd_launch.restype = i
+        else:
+            for fn in (lib.taylor_bwd_dq_launch, lib.taylor_bwd_dkv_launch):
+                fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
+                fn.restype = i
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes = [i]
+        err_fn.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _check(lib_name: str, what: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(_library(lib_name), f"{lib_name}_error_string")(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for all-CPU tensors, False for all-CUDA ones; raises otherwise."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if all(t.is_cuda for t in tensors):
+        return False
+    raise ValueError("the Taylor kernels need all-CPU or all-CUDA tensors, got "
+                     + ", ".join(str(t.device) for t in tensors))
+
+
+def _check_cuda_inputs(what: str, *tensors: torch.Tensor) -> None:
+    dtype = tensors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(
+        t.dtype != dtype for t in tensors
+    ):
+        raise TypeError(f"{what} takes float32 or bfloat16 tensors of one dtype, got "
+                        + ", ".join(str(t.dtype) for t in tensors))
 
 
 def taylor_fwd(
@@ -124,18 +184,11 @@ def taylor_fwd(
         raise ValueError(f"order must be 1 or 2, got {order}")
     if k.shape != (bk, n, d) or v.shape[:2] != (bk, n):
         raise ValueError(f"shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}")
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+    if _on_cpu(q, k, v):
         return taylor_attention_ref(
             q[None], k[None], v[None], alpha=alpha, order=order
         )[0]
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError(f"taylor_fwd needs all-CPU or all-CUDA tensors, got "
-                         f"{q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
-        torch.float32, torch.bfloat16
-    ):
-        raise TypeError(f"taylor_fwd takes float32 or bfloat16 q/k/v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_cuda_inputs("taylor_fwd", q, k, v)
     if d not in TILES:
         raise ValueError(f"head dim {d} not in the kernel's tiles {sorted(TILES)}")
     dvt, chunk = TILES[d]
@@ -144,18 +197,138 @@ def taylor_fwd(
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((bk, g, n, dv), dtype=v.dtype, device=v.device)
     a = 1.0 / (alpha * d**0.5)
-    lib = _library()
+    lib = _library("taylor_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.taylor_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bk, g, n, d, dv, a, order, int(q.dtype == torch.bfloat16), stream,
         )
-    if err != 0:
-        msg = lib.taylor_fwd_error_string(err).decode()
-        raise RuntimeError(f"taylor_fwd launch failed: {msg} ({err})")
+    _check("taylor_fwd", "taylor_fwd", err)
     taylor_fwd.launches += 1
     return out
 
 
 taylor_fwd.launches = 0
+
+
+def _bwd_checks(q, k, v, dout, order, *more) -> bool:
+    """Validates a backward launch; True when it runs the plain version (all
+    tensors, ``more`` included, on the CPU)."""
+    bk, g, n, d = q.shape
+    dv = v.shape[-1]
+    if order not in (1, 2):
+        raise ValueError(f"order must be 1 or 2, got {order}")
+    if k.shape != (bk, n, d) or v.shape[:2] != (bk, n) or dout.shape != (bk, g, n, dv):
+        raise ValueError(f"shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}, "
+                         f"dout {dout.shape}")
+    if _on_cpu(q, k, v, dout, *more):
+        return True
+    _check_cuda_inputs("taylor_bwd", q, k, v, dout)
+    if d not in TILES:
+        raise ValueError(f"head dim {d} not in the kernel's tiles {sorted(TILES)}")
+    dvt = TILES[d][0]
+    if n % BWD_CHUNK or dv % dvt:
+        raise ValueError(f"n={n} must be a multiple of {BWD_CHUNK} and dv={dv} of {dvt}")
+    return False
+
+
+def _launch_bwd(fn_name: str, tensors, outs, bk, g, n, d, dv, alpha, order) -> None:
+    lib = _library("taylor_bwd")
+    a = 1.0 / (alpha * d**0.5)
+    bf16 = int(tensors[0].dtype == torch.bfloat16)
+    with torch.cuda.device(tensors[0].device):
+        stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+        err = getattr(lib, fn_name)(
+            *(t.data_ptr() for t in tensors), *(t.data_ptr() for t in outs),
+            bk, g, n, d, dv, a, order, bf16, stream,
+        )
+    _check("taylor_bwd", fn_name, err)
+
+
+def taylor_bwd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    out: torch.Tensor, *, alpha: float, order: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward pass 1 (kernel layout): ``(dq, den, dden)`` float32.
+
+    ``dq [bk, g, n, d]``; ``den`` (clamped) and ``dden`` ``[bk, g, n]`` feed
+    pass 2.  Counts its launch in ``taylor_bwd.dq_launches``."""
+    bk, g, n, d = q.shape
+    if out.shape != dout.shape:
+        raise ValueError(f"out {out.shape} and dout {dout.shape} differ in shape")
+    if _bwd_checks(q, k, v, dout, order, out):
+        return tuple(t[0] for t in taylor_bwd_dq_ref(
+            q[None], k[None], v[None], dout[None], out[None], alpha=alpha, order=order))
+    _check_cuda_inputs("taylor_bwd", q, out)
+    ins = [t.contiguous() for t in (q, k, v, dout, out)]
+    dq = torch.zeros((bk, g, n, d), dtype=torch.float32, device=q.device)
+    den = torch.empty((bk, g, n), dtype=torch.float32, device=q.device)
+    dden = torch.empty_like(den)
+    _launch_bwd("taylor_bwd_dq_launch", ins, (dq, den, dden), bk, g, n, d,
+                v.shape[-1], alpha, order)
+    taylor_bwd.dq_launches += 1
+    return dq, den, dden
+
+
+def taylor_bwd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    den: torch.Tensor, dden: torch.Tensor, *, alpha: float, order: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward pass 2 (kernel layout): ``(dk [bk, n, d], dv [bk, n, dv])``
+    float32 from pass 1's ``den``/``dden``.  Counts its launch in
+    ``taylor_bwd.dkv_launches``."""
+    bk, g, n, d = q.shape
+    if _bwd_checks(q, k, v, dout, order, den, dden):
+        dk, dv_ = taylor_bwd_dkv_ref(q[None], k[None], v[None], dout[None], den[None],
+                                     dden[None], alpha=alpha, order=order)
+        return dk[0], dv_[0]
+    if den.dtype != torch.float32 or dden.dtype != torch.float32 or not (
+        den.shape == dden.shape == (bk, g, n)
+    ):
+        raise ValueError("den and dden must be float32 [bk, g, n] (pass 1's rows)")
+    ins = [t.contiguous() for t in (q, k, v, dout, den, dden)]
+    dk = torch.zeros((bk, n, d), dtype=torch.float32, device=q.device)
+    dv_ = torch.empty((bk, n, v.shape[-1]), dtype=torch.float32, device=q.device)
+    _launch_bwd("taylor_bwd_dkv_launch", ins, (dk, dv_), bk, g, n, d, v.shape[-1],
+                alpha, order)
+    taylor_bwd.dkv_launches += 1
+    return dk, dv_
+
+
+def taylor_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    out: torch.Tensor,
+    *,
+    alpha: float,
+    order: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``taylor_fwd`` in kernel layout, via the two-pass pair.
+
+    Args:
+      q: grouped, pre-normalised queries ``[bk, g, n, d]``.
+      k: pre-normalised keys ``[bk, n, d]``.
+      v: values ``[bk, n, dv]``.
+      dout: output cotangent ``[bk, g, n, dv]`` (zero in padded rows/columns).
+      out: the saved forward output ``[bk, g, n, dv]``.
+      alpha: the forward's logit scale, ``a = 1 / (alpha·√d)``.
+      order: Taylor order, 1 or 2.
+
+    On CUDA tensors ``d`` must be a key of ``TILES``, ``dv`` a multiple of
+    its value tile and ``n`` of ``BWD_CHUNK``, and q/k/v/dout/out float32 or
+    bfloat16 of one dtype.  On CPU tensors it runs the plain version
+    (``ref.taylor_attention_bwd_ref``).
+
+    Returns:
+      ``(dq [bk, g, n, d], dk [bk, n, d], dv [bk, n, dv])`` float32.
+    """
+    dq, den, dden = taylor_bwd_dq(q, k, v, dout, out, alpha=alpha, order=order)
+    dk, dv_ = taylor_bwd_dkv(q, k, v, dout, den, dden, alpha=alpha, order=order)
+    return dq, dk, dv_
+
+
+taylor_bwd.dq_launches = 0
+taylor_bwd.dkv_launches = 0

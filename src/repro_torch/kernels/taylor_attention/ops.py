@@ -1,28 +1,32 @@
-"""Wrapper around the Taylor-attention forward kernel.
+"""Wrappers around the Taylor-attention kernels.
 
-Handles everything the raw kernel (``kernel.taylor_fwd``) does not:
+Handles everything the raw kernels (``kernel.taylor_fwd``,
+``kernel.taylor_bwd``) do not:
 
   * LayerNorm (no affine) of q/k — the paper's prescription;
   * GQA reshaping ([b, h, n, d] + [b, hk, n, d] -> grouped kernel layout);
-  * zero-padding to what the CUDA kernel's tiles need (``kernel.TILES``):
+  * zero-padding to what the CUDA kernels' tiles need (``kernel.TILES``):
     the head dim up to 16/32/64/128, d_v to a multiple of the value tile,
     the sequence to a multiple of the chunk.  Zero features and zero
     key/value rows are exact no-ops; the logit scale keeps the TRUE head
     dim (``_effective_alpha``).
 
-Training needs the backward kernels, which are not yet ported: a call on
-tensors that require grad raises.
+``taylor_attention_kernel`` is the forward alone and refuses tensors that
+require grad; ``taylor_attention_kernel_trainable`` is the training entry
+point, whose backward is the CUDA kernel pair inside its envelope and the
+torch recompute (``core/taylor_vjp.py``) outside it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.feature_map import layernorm_no_affine
-from repro_torch.kernels.taylor_attention.kernel import TILES, taylor_fwd
+from repro_torch.core.feature_map import TaylorConfig, layernorm_no_affine
+from repro_torch.kernels.taylor_attention.kernel import TILES, taylor_bwd, taylor_fwd
 
 
 class KernelDims(NamedTuple):
@@ -88,6 +92,14 @@ def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     )
 
 
+def _grouped_value_layout(x: torch.Tensor, dims: KernelDims) -> torch.Tensor:
+    """[b,h,n,dv]-shaped tensors (out, dout) -> the padded grouped layout,
+    under the SAME contract as ``_kernel_layout`` pads v."""
+    x = x.reshape(dims.b, dims.hk, dims.g, dims.n, dims.dv)
+    x = _pad(_pad(x, 4, dims.dv_pad), 3, dims.n_pad)
+    return x.reshape(dims.b * dims.hk, dims.g, dims.n_pad, dims.dv_pad)
+
+
 def _effective_alpha(alpha: float, dims: KernelDims) -> float:
     """The kernel derives its scale from the PADDED head dim; compensate so
     the logits use the TRUE head dim d."""
@@ -122,14 +134,134 @@ def taylor_attention_kernel(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "taylor_attention_kernel is forward-only until the backward "
-            "kernels are ported; call it under torch.no_grad()"
+            "taylor_attention_kernel is forward-only; train through "
+            "taylor_attention_kernel_trainable"
         )
     if normalize_qk:
         q = layernorm_no_affine(q).to(q.dtype)
         k = layernorm_no_affine(k).to(k.dtype)
+    return _forward_kernel(q, k, v, alpha, order)
+
+
+def _forward_kernel(q, k, v, alpha: float, order: int) -> torch.Tensor:
+    """The forward kernel on pre-normalised q/k, in and out of its layout."""
     qp, kp, vp, dims = _kernel_layout(q, k, v)
     out = taylor_fwd(qp, kp, vp, alpha=_effective_alpha(alpha, dims), order=order)
     out = out.reshape(dims.b, dims.hk, dims.g, dims.n_pad, dims.dv_pad)
     out = out[:, :, :, : dims.n, : dims.dv]
     return out.reshape(dims.b, dims.h, dims.n, dims.dv)
+
+
+def _kernel_bwd_ok(cfg: TaylorConfig, dims: KernelDims) -> bool:
+    """The CUDA backward's envelope, the reference's (``_pallas_bwd_ok``):
+    d ≤ 128 and d_v ≤ 128 after padding, full (non-symmetric) second
+    moment."""
+    return dims.d_pad <= 128 and dims.dv_pad <= 128 and not cfg.sym_state
+
+
+def _bwd_torch(q, k, v, dout, cfg: TaylorConfig, chunk: int):
+    """The torch recompute backward (``core/taylor_vjp.py``) on pre-normalised
+    q/k.  The sequence is padded at its end to a multiple of ``chunk`` (zero
+    k/v/dout rows change no real row's gradient)."""
+    from repro_torch.core.taylor_vjp import _bwd_rule  # noqa: PLC0415 (cycle)
+
+    b, h, n, d = q.shape
+    hk = k.shape[1]
+    n_pad = _round_up(n, chunk)
+    qg = _pad(q.reshape(b, hk, h // hk, n, d), 3, n_pad)
+    dog = _pad(dout.reshape(b, hk, h // hk, n, v.shape[-1]), 3, n_pad)
+    # the recompute is written for the FULL second moment; sym_state is an
+    # exact compression, so dropping it changes nothing.
+    bcfg = dataclasses.replace(cfg, sym_state=False)
+    dq, dk, dv = _bwd_rule(bcfg, chunk, qg, _pad(k, 2, n_pad), _pad(v, 2, n_pad), dog)
+    return (dq[:, :, :, :n].reshape(q.shape), dk[:, :, :n], dv[:, :, :n])
+
+
+class _TrainableKernel(torch.autograd.Function):
+    """Forward: the CUDA kernel; backward: the CUDA pair or the torch
+    recompute.  Takes pre-normalised q/k; saves (q, k, v, out)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg: TaylorConfig, chunk: int, backward: str):
+        out = _forward_kernel(q, k, v, cfg.alpha, cfg.order)
+        ctx.cfg, ctx.chunk, ctx.backward = cfg, chunk, backward
+        # out is a residual: pass 1 derives the denominator cotangent from it
+        # instead of recomputing the numerator.
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        cfg = ctx.cfg
+        dims = _layout_dims(q, k, v)
+        if ctx.backward == "cuda":
+            if not _kernel_bwd_ok(cfg, dims):  # not assert: survives -O
+                raise ValueError(f"CUDA backward envelope exceeded: {dims} / {cfg}")
+        elif ctx.backward == "torch" or not _kernel_bwd_ok(cfg, dims):
+            return (*_bwd_torch(q, k, v, dout, cfg, ctx.chunk), None, None, None)
+
+        qp, kp, vp, _ = _kernel_layout(q, k, v)
+        # dout/out padded under the SAME contract as v: padded dout rows and
+        # columns are zero, so every gradient of a padded row vanishes.
+        dq, dk, dv = taylor_bwd(
+            qp, kp, vp,
+            _grouped_value_layout(dout.to(v.dtype), dims),
+            _grouped_value_layout(out, dims),
+            alpha=_effective_alpha(cfg.alpha, dims),
+            order=cfg.order,
+        )
+        dq = dq.reshape(dims.b, dims.hk, dims.g, dims.n_pad, dims.d_pad)
+        dq = dq[:, :, :, : dims.n, : dims.d].reshape(q.shape).to(q.dtype)
+        dk = dk.reshape(dims.b, dims.hk, dims.n_pad, dims.d_pad)
+        dk = dk[:, :, : dims.n, : dims.d].to(k.dtype)
+        dv = dv.reshape(dims.b, dims.hk, dims.n_pad, dims.dv_pad)
+        dv = dv[:, :, : dims.n, : dims.dv].to(v.dtype)
+        return dq, dk, dv, None, None, None
+
+
+def taylor_attention_kernel_trainable(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cfg: Optional[TaylorConfig] = None,
+    chunk: int = 128,
+    backward: str = "auto",
+) -> torch.Tensor:
+    """Differentiable Taylor attention: CUDA forward + two-pass backward.
+
+    Training entry point.  Its gradient is the CUDA kernel pair
+    (``csrc/taylor_bwd.cu``) whenever the config fits the pair's envelope
+    (d ≤ 128 and d_v ≤ 128 after padding, full second moment), and the
+    exact torch recompute (``core/taylor_vjp.py``) otherwise; the choice is
+    made from the shapes and config, before any launch.  On CPU tensors
+    both kernels run their plain versions (``ref.py``).
+
+    Args:
+      q: queries ``[b, h, n, d]``.
+      k: keys ``[b, hk, n, d]`` with ``h % hk == 0`` (GQA/MQA).
+      v: values ``[b, hk, n, dv]``.
+      cfg: TaylorConfig (alpha/order/normalize_qk).  ``minus_one`` is
+        rejected: the kernels hardcode the +1 expansion.
+      chunk: chunk of the torch recompute backward.
+      backward: "auto" (the CUDA pair inside its envelope, else torch),
+        "cuda" (force; raises outside the envelope) or "torch" (force the
+        recompute oracle).
+
+    Returns:
+      Attention output ``[b, h, n, dv]`` in v's dtype, differentiable
+      w.r.t. q, k and v.  LayerNorm runs outside the autograd Function, so
+      autograd differentiates it.
+    """
+    cfg = cfg or TaylorConfig()
+    if backward not in ("auto", "cuda", "torch"):
+        raise ValueError(f"backward must be auto|cuda|torch, got {backward!r}")
+    if cfg.minus_one:
+        raise NotImplementedError(
+            "taylor_attention_kernel_trainable does not support minus_one; "
+            "use taylor_attention_chunked"
+        )
+    if cfg.normalize_qk:
+        q = layernorm_no_affine(q).to(q.dtype)
+        k = layernorm_no_affine(k).to(k.dtype)
+    return _TrainableKernel.apply(q, k, v, cfg, chunk, backward)

@@ -1,6 +1,6 @@
 """Model layer of the port: config, layers, attention, blocks, decoder LM."""
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, count_params
 from repro_torch.models.lm import (
     lm_apply,
     lm_decode_step,
@@ -11,6 +11,7 @@ from repro_torch.models.lm import (
 
 __all__ = [
     "ModelConfig",
+    "count_params",
     "lm_apply",
     "lm_decode_step",
     "lm_init",

@@ -2,7 +2,7 @@
 ``repro.models.config.ModelConfig``).
 
 A model is a repeating ``pattern`` of blocks applied ``n_groups`` times plus
-an optional ``tail``.  This slice runs decoder-only models of ``"attn"``
+an optional ``tail``.  The port runs decoder-only models of ``"attn"``
 blocks on the ``taylor`` backend; per-layer schedules, MoE, SSM,
 encoder-decoder and VLM fields are not yet ported.
 """
@@ -16,6 +16,7 @@ from repro_torch.core.feature_map import TaylorConfig
 
 BLOCK_KINDS = ("attn",)
 ATTN_IMPLS = ("auto", "torch", "cuda")
+REMATS = ("none", "full", "dots_saveable")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +56,13 @@ class ModelConfig:
     #   "cuda"  — force the CUDA kernel; configs outside its envelope raise
     attn_impl: str = "auto"
 
-    # --- numerics ---
+    # --- numerics / training ---
     dtype: str = "bfloat16"        # activation dtype
     param_dtype: str = "float32"
+    # "full": each block's activations are recomputed in the backward
+    # (torch.utils.checkpoint per block); "none": all are kept;
+    # "dots_saveable" is not yet ported (lm_apply raises)
+    remat: str = "full"
     max_seq: int = 131072
 
     def __post_init__(self):
@@ -70,6 +75,8 @@ class ModelConfig:
             raise ValueError(
                 f"attn_impl must be auto|torch|cuda, got {self.attn_impl!r}"
             )
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {self.remat!r}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -88,3 +95,16 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count of ``lm_init(cfg)``, from the shapes alone."""
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    block = (
+        2 * d                              # norm1, norm2
+        + d * h * hd + 2 * d * hk * hd     # wq, wk, wv
+        + h * hd * d                       # wo
+        + 3 * d * cfg.d_ff                 # SiLU-gated MLP
+    )
+    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    return embed + d + cfg.n_layers * block

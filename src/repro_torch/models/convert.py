@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's ``lm_init`` params -> the port's params.
+"""Weight bridge between the JAX package's ``lm_init`` params and the port's.
 
 The JAX tree stacks every block leaf over the depth scan:
 ``blocks/group/r{j}/... [n_groups, run_len, ...]`` (one run per stretch of
@@ -8,6 +8,8 @@ per layer, in layer order.  The caller converts the JAX arrays with
 
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
     params = params_from_jax(tree, cfg, device="cpu")
+
+and ``params_to_numpy`` goes back (numpy arrays in the JAX tree layout).
 """
 
 from __future__ import annotations
@@ -19,12 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+from repro_torch.tree import tree_map
 
 
 def _runs(kinds):
@@ -56,14 +53,51 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
     for gi in range(cfg.n_groups):
         for j, (_, run_len) in enumerate(_runs(cfg.pattern)):
             for r in range(run_len):
-                blocks.append(_map(group[f"r{j}"], lambda x: to_t(x[gi, r])))
+                blocks.append(tree_map(lambda x: to_t(x[gi, r]), group[f"r{j}"]))
     for i in range(len(cfg.tail)):
-        blocks.append(_map(tree["blocks"]["tail"][f"t{i}"], to_t))
+        blocks.append(tree_map(to_t, tree["blocks"]["tail"][f"t{i}"]))
     params = {
-        "embed": _map(tree["embed"], to_t),
-        "final_norm": _map(tree["final_norm"], to_t),
+        "embed": tree_map(to_t, tree["embed"]),
+        "final_norm": tree_map(to_t, tree["final_norm"]),
         "blocks": blocks,
     }
     if "unembed" in tree:
-        params["unembed"] = _map(tree["unembed"], to_t)
+        params["unembed"] = tree_map(to_t, tree["unembed"])
     return params
+
+
+def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """Inverse of ``params_from_jax``: the port's params as numpy arrays in
+    the JAX ``lm_init`` tree layout (block leaves stacked over
+    ``[n_groups, run_len, ...]``)."""
+    to_np = lambda t: t.detach().cpu().numpy()
+    per_group = len(cfg.pattern)
+    blocks = params["blocks"]
+    group = {}
+    offset = 0
+    for j, (_, run_len) in enumerate(_runs(cfg.pattern)):
+        rows = [[blocks[gi * per_group + offset + r] for r in range(run_len)]
+                for gi in range(cfg.n_groups)]
+        group[f"r{j}"] = _stack(rows)
+        offset += run_len
+    n_group = cfg.n_groups * per_group
+    tree = {
+        "embed": tree_map(to_np, params["embed"]),
+        "final_norm": tree_map(to_np, params["final_norm"]),
+        "blocks": {
+            "group": group,
+            "tail": {f"t{i}": tree_map(to_np, blocks[n_group + i])
+                     for i in range(len(cfg.tail))},
+        },
+    }
+    if "unembed" in params:
+        tree["unembed"] = tree_map(to_np, params["unembed"])
+    return tree
+
+
+def _stack(rows):
+    """[[layer dict] * run_len] * n_groups -> one dict of [n_groups, run_len, ...]."""
+    first = rows[0][0]
+    if isinstance(first, dict):
+        return {k: _stack([[layer[k] for layer in row] for row in rows]) for k in first}
+    return np.stack([np.stack([t.detach().cpu().numpy() for t in row]) for row in rows])

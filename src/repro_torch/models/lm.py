@@ -1,4 +1,4 @@
-"""Decoder-only LM: init, full-sequence forward, prefill and decode.
+"""Decoder-only LM: init, full-sequence (training) forward, prefill and decode.
 
 Params (the JAX package's names, one dict per layer instead of stacked
 leaves)::
@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backends import resolve_backend
 from repro_torch.core import TaylorState
@@ -34,6 +35,7 @@ from repro_torch.models.layers import (
     norm_init,
     unembed_apply,
 )
+from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
 
@@ -89,11 +91,7 @@ def lm_init(
 
 def tree_to(params, device):
     """Move every tensor of a param tree (nested dicts and lists) to ``device``."""
-    if isinstance(params, dict):
-        return {k: tree_to(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [tree_to(v, device) for v in params]
-    return params.to(device)
+    return tree_map(lambda t: t.to(device), params)
 
 
 # ---------------------------------------------------------------------------
@@ -120,15 +118,28 @@ def _logits(params, x: Tensor, cfg: ModelConfig) -> Tensor:
     return logits
 
 
-@torch.no_grad()
+def _remat(fn, cfg: ModelConfig):
+    """Per-block rematerialisation: under ``remat="full"`` a block keeps only
+    its input for the backward and reruns itself there."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    raise NotImplementedError(f"remat={cfg.remat!r} is not yet ported to torch")
+
+
 def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
-    """Full-sequence inference forward.  Returns (logits [b, n, vocab] f32, aux)."""
+    """Full training/eval forward.  Returns (logits [b, n, vocab] f32, aux).
+
+    Differentiable w.r.t. the params; run it under ``torch.no_grad()`` for
+    inference."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    block = _remat(block_apply, cfg)
     for kind, p in zip(_layer_kinds(cfg), params["blocks"]):
-        x, a = block_apply(p, kind, x, cfg, positions)
+        x, a = block(p, kind, x, cfg, positions)
         aux = aux + a
     return _logits(params, x, cfg), aux
 

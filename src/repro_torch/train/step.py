@@ -1,0 +1,82 @@
+"""Loss + train step (functional over the param tree)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import lm_apply, lm_init
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+Tensor = torch.Tensor
+
+
+class TrainState(NamedTuple):
+    step: Tensor  # int32 0-d
+    params: Any
+    opt_state: Any
+
+
+def train_state_init(
+    gen: torch.Generator, cfg: ModelConfig, optimizer: Optimizer, device=None
+) -> TrainState:
+    """Random params (``lm_init``) and a fresh optimizer state on ``device``
+    (``None``: the CUDA card; raises without one)."""
+    device = resolve_device(device)
+    params = lm_init(gen, cfg, device=device)
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        params=params,
+        opt_state=optimizer.init(params),
+    )
+
+
+def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
+    """Mean token NLL.  logits fp32 [b, n, v]; labels int [b, n]."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
+    """loss_fn(params, batch) -> (nll + aux_weight·aux, metrics)."""
+
+    def loss_fn(params, batch: Dict[str, Tensor]):
+        logits, aux = lm_apply(params, batch, cfg)
+        nll = cross_entropy(logits, batch["labels"])
+        loss = nll + aux_weight * aux
+        return loss, {"loss": nll, "aux_loss": aux}
+
+    return loss_fn
+
+
+def loss_and_grads(loss_fn, params, batch: Dict[str, Tensor]):
+    """(loss, metrics, grads): ``torch.autograd.grad`` over the param leaves.
+
+    The leaves are detached views that require grad, so ``params`` itself is
+    left as it is."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, aux_weight: float = 0.01):
+    """Returns train_step(state, batch) -> (state, metrics)."""
+    loss_fn = make_loss_fn(cfg, aux_weight)
+
+    def train_step(state: TrainState, batch: Dict[str, Tensor]):
+        loss, metrics, grads = loss_and_grads(loss_fn, state.params, batch)
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            params = apply_updates(state.params, updates)
+        metrics = dict(metrics, total_loss=loss)
+        return TrainState(state.step + 1, params, opt_state), metrics
+
+    return train_step

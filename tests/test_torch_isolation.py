@@ -40,6 +40,25 @@ def test_importing_the_port_loads_no_jax():
     assert len(mods) >= 20
 
 
+def test_training_modules_stand_alone():
+    # the training modules are among those checked above, and none
+    # of the port pulls in ml_dtypes (the JAX checkpoint store's bf16 codec)
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert {"repro_torch.core.taylor_vjp", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedules", "repro_torch.data.synthetic",
+            "repro_torch.train.step", "repro_torch.train.loop",
+            "repro_torch.checkpoint.store", "repro_torch.quickstart"} <= mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
+        "sys.exit(1 if 'ml_dtypes' in sys.modules else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_no_source_file_imports_jax_or_repro():
     assert len(PORT_FILES) > 20
     for path in PORT_FILES:
