@@ -17,24 +17,72 @@
 //
 // What bounds it on this card: arithmetic.  Per (batch·kv-head) at order 2 the state
 // read costs G·N·2D²·DV and the state update N·2D²·DV operations, against O(N·(G·D+DV))
-// bytes, so at the main path's D = DV = 64 it does ~2000 operations per byte.  The
-// second-moment contractions are triple products (q_e·q_f·S2[e,f,v]), which this
-// kernel evaluates on the CUDA cores in float32; its roof is the f32 CUDA-core peak.
+// bytes (~2000 operations per byte at the main path's D = DV = 64).  Those two D²·DV
+// contractions (with the z2 read and update, 94% of the operations at the main path's
+// shape) run on the tensor cores as split-precision TF32 mma.sync products.  The rest
+// stays as f32 FMAs on the CUDA cores: the causal C×C intra-chunk tile, the first
+// moments, the S1/z1/s0 updates.  chip_smoke.py prints two bounds: its bound_ms takes
+// the contractions at the TF32 tensor-core peak times the split products this kernel
+// issues for each (below) plus the rest at the f32 CUDA-core peak; a second bound takes
+// everything at the f32 CUDA-core peak.  The TF32 peak is wgmma's; the mma.sync products
+// used here issue at a lower rate, and the intra-chunk tile on the CUDA cores is the
+// largest remaining part (PERF.md has the breakdown).
 //
-// What the design does about the TPU design's assumptions:
-//   * The TPU kernel carries the moments across a sequential grid axis in VMEM.  Here
-//     each block owns one (batch·kv-head, DV tile) and loops over the chunks itself, so
-//     nothing has to survive between blocks.
-//   * S2 is D²·DV·4 bytes (1 MiB per head at D = DV = 64) and cannot live in one
-//     block's shared memory.  The value dimension is split across blocks (DVT columns
-//     each) so that every block's S2 slab is D²·DVT·4 = 128 KiB, resident in shared
-//     memory for the whole sequence.  Each block recomputes the denominator (z1, z2,
-//     the intra-chunk row sums) for itself, as each TPU program does per DV tile.
-//   * The triple-product read is a loop over e (q_e from shared memory) around an
-//     unrolled loop over f (q_f in registers), with S2 and z2 read as broadcast float4
-//     loads, so each shared-memory load feeds several FMAs.
-//   * Queries sit in shared memory with a row stride of D+4 floats so that threads
-//     reading different rows hit different banks.
+// The two contractions.  In both, the operand that holds f32 data and must be split is
+// the A operand (16 rows), split once per k-step and reused across all of a warp's
+// n-tiles; the other operand is exact in TF32 for bf16 inputs.
+//   * State read, per chunk and head: T[(e,v), i] = Σ_f S2[e,f,v]·Q[i,f], A = the
+//     resident S2 slab (rows (e,v), depth f), B = the chunk's queries.  Where DVT ≥ 8
+//     an A tile is two values of e × 8 values of v, so the fold num[i,v] += q_ie·T[(e,v),i]
+//     (1/D of the product, CUDA cores) keeps each lane on one v.  Where DVT = 1
+//     (D = 128) an A tile is 16 values of e, read as S2[f,e] (S2 is symmetric in e, f;
+//     the transposed read puts a fragment row in 8 banks instead of 1), and the fold
+//     sums over e, so the 8 lanes that share a row are added by shuffles.  The
+//     denominator's q·z2·q is the same e-row scheme on z2, once per row and head.  Warp
+//     w takes a quarter of the rows and half of the A tiles; the halves are added in a
+//     fixed order, so the output repeats bit for bit.
+//   * State update, after every head has read the chunk (causality): S2[e,f,v] +=
+//     Σ_j (k_je·v_jv)·K[j,f] with A = the products k_e·v made in registers, B = K from
+//     shared memory, and z2[e,f] += Σ_j k_je·K[j,f] the same way (A = k_e; one product
+//     for bf16 inputs, where it is exact).  The accumulators are loaded from the slab,
+//     summed over the chunk's C rows and stored back.
+//   * The read's results go through a small shared buffer (rn, rd) to the row threads,
+//     which add the intra-chunk and first-moment terms and write the output.
+//
+// Why mma.sync and not wgmma: wgmma takes B only from shared memory (A from registers or
+// shared memory), so every operand that needs a split must be A, split in registers, and
+// a split B would be stored twice (hi and lo; S2 in B would be 256 KiB at DVT = 8, over
+// the 227 KB a block can use).  With f32 inputs both operands of both contractions are
+// f32.  mma.sync takes both operands from registers, so one code path splits either on
+// the fly from the f32 slabs, for both input types.  A wgmma version for bf16 inputs
+// (A = the split S2 or k_e·v in the warpgroup register layout, B = Q or K in shared
+// memory) is left for later; it would lift the contractions to wgmma's issue rate.
+//
+// Split precision (error budget): one TF32 product keeps ~11 bits, ~2e-4 relative error
+// on these contractions, over the 1e-4 the plain-version check allows.  An f32 operand
+// x is split as hi = x rounded to TF32 (to nearest, on the bits: cvt.rna.tf32.f32
+// compiles to a much longer sequence) and lo = x − hi (exact), of which the tensor core
+// reads the top 19 bits, so x = hi + lo up to 2^-21·|x|; then a·b ≈ a_hi·b_hi +
+// a_lo·b_hi + a_hi·b_lo (a_lo·b_lo, ~2^-22, is dropped): ~2e-7 relative, the f32
+// accumulation's own order.  For bfloat16 inputs q and k are exact in TF32, so two
+// products suffice (one for the z2 update); S2 (read) and k_e·v (update) are f32 and
+// are always split.  tests/test_torch_kernels_split.py emulates the scheme in numpy
+// against float64.
+//
+// Shared memory (one block per SM): the S2 slab (D²·DVT·4 = 128 KiB at D = 64) stays
+// resident for the whole sequence.  Keys sit at a row stride of D+8 floats and queries
+// at D+4, so that fragments that walk down rows hit distinct banks; at DVT = 8 (D = 64)
+// every fragment load of the read and the update is free of bank conflicts.  Global
+// loads are 16 bytes wide.
+//
+// The sequential chunk axis: the TPU kernel carries the moments across a sequential
+// grid axis in VMEM.  Here each block owns one (batch·kv-head, DV tile) and loops over
+// the chunks itself, so nothing has to survive between blocks; the value dimension is
+// split across blocks (DVT columns each) so that each block's S2 slab fits.
+//
+// Left for later: the intra-chunk tile on the tensor cores, 96 blocks on 132 SMs at the
+// main path's shape, S2's symmetry (e ≤ f halves both contractions), wgmma with TMA
+// loads.
 //
 // Interface: a plain C function, loaded with ctypes.  It launches on the caller's stream,
 // allocates nothing (the caller owns q, k, v and out) and returns cudaGetLastError().
@@ -42,9 +90,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -69,7 +121,79 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src) {
   }
 }
 
-// Tile table: head dim D -> (value tile DVT, chunk C).  Mirrored in kernel.py (_TILES).
+// 16 loaded bytes of T as f32 at d (16-byte aligned).
+__device__ __forceinline__ void unpack(const uint4& r, float* d, float) {
+  *reinterpret_cast<float4*>(d) = make_float4(__uint_as_float(r.x), __uint_as_float(r.y),
+                                              __uint_as_float(r.z), __uint_as_float(r.w));
+}
+__device__ __forceinline__ void unpack(const uint4& r, float* d, __nv_bfloat16) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int u = 0; u < 4; u += 2)
+    *reinterpret_cast<float4*>(d + 2 * u) = make_float4(
+        __uint_as_float(w[u] << 16), __uint_as_float(w[u] & 0xffff0000u),
+        __uint_as_float(w[u + 1] << 16), __uint_as_float(w[u + 1] & 0xffff0000u));
+}
+
+// Copies rows × W elements (source row stride ld) into shared memory as f32 (row
+// stride dst_ld, a multiple of 4), 16 bytes per global load where W allows it (the
+// wrapper keeps q, k, v 16-byte aligned).
+template <int W, typename T>
+__device__ __forceinline__ void load_rows(float* dst, int dst_ld, const T* src, int ld,
+                                          int rows) {
+  constexpr int V = W * sizeof(T) >= 16 ? 16 / sizeof(T) : 1;
+  for (int i = threadIdx.x; i < rows * (W / V); i += kThreads) {
+    const int r = i / (W / V), col = (i % (W / V)) * V;
+    const T* p = src + (long)r * ld + col;
+    if constexpr (V == 1) dst[r * dst_ld + col] = to_f32(*p);
+    else unpack(*reinterpret_cast<const uint4*>(p), dst + r * dst_ld + col, T());
+  }
+}
+
+// ---- TF32 tensor-core products (mma.sync m16n8k8, f32 accumulation) ----
+//
+// Fragments (lane = 4·g + t): A (16×8, row-major) a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4); B (8×8) b0 (t, g), b1 (t+4, g); C (16×8) c0 (g, 2t), c1 (g, 2t+1),
+// c2 (g+8, 2t), c3 (g+8, 2t+1).
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo exactly: hi is x rounded to TF32 (to nearest, ties away from zero, as
+// cvt.rna rounds finite values; cvt.rna itself compiles to a longer sequence), lo the
+// rest, of which the tensor core reads the top 19 bits.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// An operand fragment (4 values for A, 2 for B): split when it holds f32 data, taken
+// as it is when its values are exact in TF32 (bf16 inputs).
+template <int N, bool SPLIT>
+struct Frag {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ void set(int u, float x) {
+    if constexpr (SPLIT) split(x, hi[u], lo[u]);
+    else hi[u] = __float_as_uint(x);
+  }
+};
+
+// d += a·b over the products the split keeps: a_hi·b_hi, and a_lo·b_hi / a_hi·b_lo where
+// a / b is split (a_lo·b_lo is dropped); the small terms first.
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma_split(float (&d)[4], const Frag<4, SA>& a,
+                                          const Frag<2, SB>& b) {
+  if constexpr (SA) mma(d, a.lo, b.hi[0], b.hi[1]);
+  if constexpr (SB) mma(d, a.hi, b.lo[0], b.lo[1]);
+  mma(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// Tile table: head dim D -> (value tile DVT, chunk C).  Mirrored in kernel.py (TILES).
 template <int D> struct Tiles;
 template <> struct Tiles<16> { static constexpr int DVT = 16, C = 128; };
 template <> struct Tiles<32> { static constexpr int DVT = 32, C = 128; };
@@ -80,35 +204,256 @@ template <int D>
 struct Layout {
   static constexpr int DVT = Tiles<D>::DVT;
   static constexpr int C = Tiles<D>::C;
-  static constexpr int QS = D + 4;  // padded query row stride (floats)
+  static constexpr int QS = D + 4;  // query row stride (floats)
+  static constexpr int KST = D + 8; // key row stride (floats)
   static constexpr int s2 = 0;
   static constexpr int z2 = s2 + D * D * DVT;
   static constexpr int s1 = z2 + D * D;
   static constexpr int z1 = s1 + round4(D * DVT);
   static constexpr int s0 = z1 + D;
   static constexpr int k = s0 + round4(DVT);
-  static constexpr int v = k + C * D;
+  static constexpr int v = k + C * KST;
   static constexpr int q = v + round4(C * DVT);
-  static constexpr int total = q + C * QS;  // floats
+  static constexpr int rn = q + C * QS;   // state read, numerator terms [C][DVT]
+  static constexpr int rd = rn + C * DVT; // state read, denominator terms [C]
+  static constexpr int total = rd + C;    // floats
   static constexpr int bytes = total * 4;
 };
 
+static_assert(Layout<16>::bytes <= 232448, "smem over budget at D=16");
+static_assert(Layout<32>::bytes <= 232448, "smem over budget at D=32");
 static_assert(Layout<64>::bytes <= 232448, "smem over budget at D=64");
 static_assert(Layout<128>::bytes <= 232448, "smem over budget at D=128");
-static_assert(Layout<32>::bytes <= 232448, "smem over budget at D=32");
+
+// One 16-row A tile of the state read against the NT query n-tiles of this warp's rows:
+// c[nt][m, n] = Σ_f A[m][f]·Q[n][f], where a0 of k-step s is ap[s·kstep], a1 (row + 8)
+// at +row8 and a2 (f + 4) at +k4; qb points at this lane's b0 (row g, f = t).
+template <bool SPLIT_Q, int D, int NT>
+__device__ __forceinline__ void read_tile(const float* ap, int row8, int k4, int kstep,
+                                          const float* qb, float (&c)[NT][4]) {
+  constexpr int QS = Layout<D>::QS;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) c[nt][x] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < D / 8; ++s) {
+    const float* p = ap + s * kstep;
+    Frag<4, true> a;
+    a.set(0, p[0]);
+    a.set(1, p[row8]);
+    a.set(2, p[k4]);
+    a.set(3, p[row8 + k4]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* bp = qb + nt * 8 * QS + s * 8;
+      Frag<2, SPLIT_Q> b;
+      b.set(0, bp[0]);
+      b.set(1, bp[4]);
+      mma_split(c[nt], a, b);
+    }
+  }
+}
+
+// The second-moment terms of one head's chunk, on the tensor cores:
+//   rn[i][v] = Σ_e q_ie Σ_f q_if S2[e,f,v],   rd[i] = Σ_e q_ie Σ_f q_if z2[e,f].
+// The f32 state is the A operand, split once per warp and reused across the warp's
+// query n-tiles; the queries are B.  Warp w takes the rows (w % 4)·C/4 … and the half
+// w / 4 of the state's tiles; the halves are added in a fixed order (part 0 writes,
+// part 1 adds), so the result repeats bit for bit.  Ends with a block barrier.
+template <bool SPLIT_Q, int D>
+__device__ __forceinline__ void read_second_moments(const float* qs, const float* s2,
+                                                    const float* z2, float* rn, float* rd) {
+  using L = Layout<D>;
+  constexpr int DVT = L::DVT, C = L::C, QS = L::QS;
+  constexpr int NT = C / 32, NVB = DVT >= 8 ? DVT / 8 : 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / 4;
+  const int r0 = (warp % 4) * (C / 4);
+  const float* qb = qs + (r0 + g) * QS + t;
+  const float* qi = qs + (r0 + 2 * t) * QS;  // c0's query row in n-tile 0
+  float c[NT][4];
+  float pn[NVB][NT][2], pz[NT][2];  // partials: numerator (per value block), z2 term
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      pz[nt][h] = 0.f;
+#pragma unroll
+      for (int vb = 0; vb < NVB; ++vb) pn[vb][nt][h] = 0.f;
+    }
+
+  // An "e-row" tile: 16 values of e of a symmetric D×D matrix M, A[e][f] = M[f, e]
+  // (8 banks per fragment row instead of 1).  Its fold sums over e, so each lane holds
+  // part of a row's sum and the 8 lanes g are added below.
+  auto e_rows = [&](const float* m, int e0, float (&p)[NT][2]) {
+    read_tile<SPLIT_Q, D, NT>(m + t * D + e0 + g, 8, 4 * D, 8 * D, qb, c);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* q0 = qi + nt * 8 * QS + e0 + g;
+      p[nt][0] += q0[0] * c[nt][0] + q0[8] * c[nt][2];
+      p[nt][1] += q0[QS] * c[nt][1] + q0[QS + 8] * c[nt][3];
+    }
+  };
+
+  if constexpr (DVT >= 8) {
+    // (e, v) tiles: rows g and g+8 are (2ep, v) and (2ep+1, v), v = vb·8 + g, so the
+    // fold keeps the lane's value column and sums the tile's two values of e.
+#pragma unroll 1
+    for (int ep = part; ep < D / 2; ep += 2) {
+#pragma unroll
+      for (int vb = 0; vb < NVB; ++vb) {
+        read_tile<SPLIT_Q, D, NT>(s2 + (2 * ep * D + t) * DVT + vb * 8 + g, D * DVT,
+                                  4 * DVT, 8 * DVT, qb, c);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float2 qa = *reinterpret_cast<const float2*>(qi + nt * 8 * QS + 2 * ep);
+          const float2 qc = *reinterpret_cast<const float2*>(qi + nt * 8 * QS + QS + 2 * ep);
+          pn[vb][nt][0] += qa.x * c[nt][0] + qa.y * c[nt][2];
+          pn[vb][nt][1] += qc.x * c[nt][1] + qc.y * c[nt][3];
+        }
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int et = part; et < D / 16; et += 2) e_rows(s2, et * 16, pn[0]);
+  }
+#pragma unroll 1
+  for (int et = part; et < D / 16; et += 2) e_rows(z2, et * 16, pz);
+
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        pz[nt][h] += __shfl_xor_sync(0xffffffffu, pz[nt][h], o);
+        if constexpr (DVT == 1) pn[0][nt][h] += __shfl_xor_sync(0xffffffffu, pn[0][nt][h], o);
+      }
+
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    if (part == p) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = r0 + 2 * t + 8 * nt + h;
+          if constexpr (DVT >= 8) {
+#pragma unroll
+            for (int vb = 0; vb < NVB; ++vb) {
+              float& r = rn[i * DVT + vb * 8 + g];
+              r = (p ? r : 0.f) + pn[vb][nt][h];
+            }
+          }
+          if (g == 0) {
+            rd[i] = (p ? rd[i] : 0.f) + pz[nt][h];
+            if constexpr (DVT == 1) rn[i] = (p ? rn[i] : 0.f) + pn[0][nt][h];
+          }
+        }
+    }
+    __syncthreads();
+  }
+}
+
+// One 16-row tile of the state update against all D/8 key n-tiles f, on the tensor
+// cores: M[row][f] += Σ_j A[row][j]·K[j][f] over the chunk's rows j.  aval(j) gives
+// (A[g][j], A[g+8][j]) for this lane; the accumulators are read from the slab at cp (c0),
+// c1 further (column + 1), c2 (row + 8) and 8·cn per n-tile, and written back.
+template <bool SPLIT_A, bool SPLIT_K, int D, typename AVal>
+__device__ __forceinline__ void update_tile(float* cp, int c1, int c2, int cn,
+                                            const float* ks, AVal aval) {
+  using L = Layout<D>;
+  constexpr int C = L::C, KST = L::KST, NT = D / 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float c[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float* p = cp + nt * 8 * cn;
+    c[nt][0] = p[0];
+    c[nt][1] = p[c1];
+    c[nt][2] = p[c2];
+    c[nt][3] = p[c2 + c1];
+  }
+#pragma unroll 4
+  for (int j0 = 0; j0 < C; j0 += 8) {
+    const float2 u = aval(j0 + t), w = aval(j0 + t + 4);
+    Frag<4, SPLIT_A> a;
+    a.set(0, u.x);
+    a.set(1, u.y);
+    a.set(2, w.x);
+    a.set(3, w.y);
+    const float* k0 = ks + (j0 + t) * KST + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      Frag<2, SPLIT_K> b;
+      b.set(0, k0[nt * 8]);
+      b.set(1, k0[4 * KST + nt * 8]);
+      mma_split(c[nt], a, b);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float* p = cp + nt * 8 * cn;
+    p[0] = c[nt][0];
+    p[c1] = c[nt][1];
+    p[c2] = c[nt][2];
+    p[c2 + c1] = c[nt][3];
+  }
+}
+
+// S2[e,f,v] += Σ_j (k_je·v_jv)·K[j,f] and z2[e,f] += Σ_j k_je·K[j,f] over the chunk's
+// rows, after every head has read the chunk.  A holds the f32 products k_e·v (split
+// for either input type) or k_e (exact for bf16 inputs: z2 takes one product); B = K.
+// Units are the S2 tiles ((e, v) tiles as in the read, or e-row tiles where DVT = 1)
+// and then the z2 e-row tiles, dealt to the warps in turn.
+template <bool SPLIT_K, int D>
+__device__ __forceinline__ void update_second_moments(float* s2, float* z2, const float* ks,
+                                                      const float* vs) {
+  using L = Layout<D>;
+  constexpr int DVT = L::DVT, KST = L::KST;
+  constexpr int NVB = DVT >= 8 ? DVT / 8 : 1;
+  constexpr int NS = DVT >= 8 ? D / 2 * NVB : D / 16, NZ = D / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll 1
+  for (int u = warp; u < NS + NZ; u += kWarps) {
+    if (u < NS) {
+      if constexpr (DVT >= 8) {
+        const int e = 2 * (u / NVB), vcol = (u % NVB) * 8 + g;
+        update_tile<true, SPLIT_K, D>(
+            s2 + (e * D + 2 * t) * DVT + vcol, DVT, D * DVT, DVT, ks, [&](int j) {
+              const float2 kk = *reinterpret_cast<const float2*>(ks + j * KST + e);
+              const float vv = vs[j * DVT + vcol];
+              return make_float2(kk.x * vv, kk.y * vv);
+            });
+      } else {
+        const int e = u * 16 + g;
+        update_tile<true, SPLIT_K, D>(s2 + e * D + 2 * t, 1, 8 * D, 1, ks, [&](int j) {
+          const float vv = vs[j];
+          return make_float2(ks[j * KST + e] * vv, ks[j * KST + e + 8] * vv);
+        });
+      }
+    } else {
+      const int e = (u - NS) * 16 + g;
+      update_tile<SPLIT_K, SPLIT_K, D>(z2 + e * D + 2 * t, 1, 8 * D, 1, ks, [&](int j) {
+        return make_float2(ks[j * KST + e], ks[j * KST + e + 8]);
+      });
+    }
+  }
+}
 
 template <typename T, int D, int ORDER>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)  // one block per SM (shared memory)
 taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out, int G, int N,
                   int DV, float a) {
   using L = Layout<D>;
-  constexpr int DVT = L::DVT, C = L::C, QS = L::QS;
+  constexpr int DVT = L::DVT, C = L::C, QS = L::QS, KST = L::KST;
+  constexpr bool kSplit = std::is_same<T, float>::value;  // bf16 q, k are TF32-exact
   constexpr int VPT = DVT >= 4 ? 4 : DVT;  // value columns per thread
   constexpr int NVG = DVT / VPT;           // value-column groups
   constexpr int RPP = kThreads / NVG;      // query rows per pass
-  constexpr int FT = D >= 8 ? 8 : D;       // update tile: f columns
-  constexpr int VT = VPT;                  // update tile: value columns
 
   extern __shared__ __align__(16) float smem[];
   float* s2 = smem + L::s2;
@@ -119,6 +464,8 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ks = smem + L::k;
   float* vs = smem + L::v;
   float* qs = smem + L::q;
+  float* rn = smem + L::rn;
+  float* rd = smem + L::rd;
 
   const int tid = threadIdx.x;
   const long bk = blockIdx.x;
@@ -135,18 +482,14 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < nc; ++c) {
     __syncthreads();  // the previous chunk's update is complete
     const long row0 = (long)c * C;
-    for (int i = tid; i < C * D; i += kThreads) ks[i] = to_f32(kb[row0 * D + i]);
-    for (int i = tid; i < C * DVT; i += kThreads) {
-      const int r = i / DVT, col = i % DVT;
-      vs[i] = to_f32(vb[(row0 + r) * DV + v_off + col]);
-    }
+    load_rows<D>(ks, KST, kb + row0 * D, D, C);
+    load_rows<DVT>(vs, DVT, vb + row0 * DV + v_off, DV, C);
     const float count = (float)(c * C);  // ones of all earlier chunks
 
     for (int g = 0; g < G; ++g) {
-      const T* qg = qb + ((long)g * N + row0) * D;
-      for (int i = tid; i < C * D; i += kThreads)
-        qs[(i / D) * QS + i % D] = to_f32(qg[i]);
+      load_rows<D>(qs, QS, qb + ((long)g * N + row0) * D, D, C);
       __syncthreads();
+      if constexpr (ORDER >= 2) read_second_moments<kSplit, D>(qs, s2, z2, rn, rd);
 
       const int vg = tid % NVG;
       const int vcol = vg * VPT;
@@ -169,7 +512,7 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             float s = 0.f;
 #pragma unroll
             for (int f = 0; f < D; f += 4) {
-              const float4 t = *reinterpret_cast<const float4*>(&ks[j * D + f]);
+              const float4 t = *reinterpret_cast<const float4*>(&ks[j * KST + f]);
               s += qr[f] * t.x + qr[f + 1] * t.y + qr[f + 2] * t.z + qr[f + 3] * t.w;
             }
             s *= a;
@@ -197,34 +540,11 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int x = 0; x < VPT; ++x) num[x] += s0[vcol + x] + a * lin[x];
 
-          // inter-chunk: second moments, Σ_e q_e Σ_f q_f (S2[e,f,:], z2[e,f])
-          if (ORDER >= 2) {
-            float quad[VPT], zq = 0.f;
+          // inter-chunk: second moments, from the tensor-core read
+          if constexpr (ORDER >= 2) {
+            den += half_a2 * rd[i];
 #pragma unroll
-            for (int x = 0; x < VPT; ++x) quad[x] = 0.f;
-#pragma unroll 1
-            for (int e = 0; e < D; ++e) {
-              const float qe = qs[i * QS + e];
-              const float* s2e = s2 + e * D * DVT;
-              const float* z2e = z2 + e * D;
-#pragma unroll
-              for (int f = 0; f < D; f += 4) {
-                const float4 zz = *reinterpret_cast<const float4*>(&z2e[f]);
-                const float zf[4] = {zz.x, zz.y, zz.z, zz.w};
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                  const float qq = qe * qr[f + u];
-                  zq += qq * zf[u];
-                  float sv[VPT];
-                  load_vec<VPT>(sv, s2e + (f + u) * DVT + vcol);
-#pragma unroll
-                  for (int x = 0; x < VPT; ++x) quad[x] += qq * sv[x];
-                }
-              }
-            }
-            den += half_a2 * zq;
-#pragma unroll
-            for (int x = 0; x < VPT; ++x) num[x] += half_a2 * quad[x];
+            for (int x = 0; x < VPT; ++x) num[x] += half_a2 * rn[i * DVT + vcol + x];
           }
 
           if (fabsf(den) < 1e-6f) den = 1e-6f;  // the TPU kernel's clamp
@@ -234,64 +554,20 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int x = 0; x < VPT; ++x) store(op + x, num[x] * inv);
         }
       }
-      __syncthreads();  // qs is reloaded for the next head
+      __syncthreads();  // qs, rn and rd are rewritten for the next head
     }
 
     // ---- absorb this chunk into the moments ----
-    if (ORDER >= 2) {
-      constexpr int FB = D / FT, VB = DVT / VT;
-      for (int tile = tid; tile < D * FB * VB; tile += kThreads) {
-        const int vb_ = tile % VB;
-        const int fb = (tile / VB) % FB;
-        const int e = tile / (VB * FB);
-        const int f0 = fb * FT, v0 = vb_ * VT;
-        float acc[FT][VT];
-#pragma unroll
-        for (int ff = 0; ff < FT; ++ff)
-#pragma unroll
-          for (int x = 0; x < VT; ++x) acc[ff][x] = 0.f;
-        for (int j = 0; j < C; ++j) {
-          const float ke = ks[j * D + e];
-          float kf[FT], vv[VT];
-          load_vec<FT>(kf, ks + j * D + f0);
-          load_vec<VT>(vv, vs + j * DVT + v0);
-#pragma unroll
-          for (int ff = 0; ff < FT; ++ff) kf[ff] *= ke;
-#pragma unroll
-          for (int ff = 0; ff < FT; ++ff)
-#pragma unroll
-            for (int x = 0; x < VT; ++x) acc[ff][x] += kf[ff] * vv[x];
-        }
-#pragma unroll
-        for (int ff = 0; ff < FT; ++ff)
-#pragma unroll
-          for (int x = 0; x < VT; ++x) s2[(e * D + f0 + ff) * DVT + v0 + x] += acc[ff][x];
-      }
-      for (int tile = tid; tile < D * FB; tile += kThreads) {
-        const int e = tile / FB, f0 = (tile % FB) * FT;
-        float acc[FT];
-#pragma unroll
-        for (int ff = 0; ff < FT; ++ff) acc[ff] = 0.f;
-        for (int j = 0; j < C; ++j) {
-          const float ke = ks[j * D + e];
-          float kf[FT];
-          load_vec<FT>(kf, ks + j * D + f0);
-#pragma unroll
-          for (int ff = 0; ff < FT; ++ff) acc[ff] += ke * kf[ff];
-        }
-#pragma unroll
-        for (int ff = 0; ff < FT; ++ff) z2[e * D + f0 + ff] += acc[ff];
-      }
-    }
+    if constexpr (ORDER >= 2) update_second_moments<kSplit, D>(s2, z2, ks, vs);
     for (int idx = tid; idx < D * DVT; idx += kThreads) {
       const int e = idx / DVT, x = idx % DVT;
       float acc = 0.f;
-      for (int j = 0; j < C; ++j) acc += ks[j * D + e] * vs[j * DVT + x];
+      for (int j = 0; j < C; ++j) acc += ks[j * KST + e] * vs[j * DVT + x];
       s1[idx] += acc;
     }
     for (int e = tid; e < D; e += kThreads) {
       float acc = 0.f;
-      for (int j = 0; j < C; ++j) acc += ks[j * D + e];
+      for (int j = 0; j < C; ++j) acc += ks[j * KST + e];
       z1[e] += acc;
     }
     for (int x = tid; x < DVT; x += kThreads) {

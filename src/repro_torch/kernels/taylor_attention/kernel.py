@@ -108,23 +108,29 @@ def build(*names: str) -> Dict[str, Path]:
     return paths
 
 
+def bind(path: Path, name: str) -> ctypes.CDLL:
+    """Loads a shared library built from ``SOURCES[name]`` (or another build
+    of the same source) and declares its C functions' signatures."""
+    lib = ctypes.CDLL(str(path))
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    f = ctypes.c_float
+    if name == "taylor_fwd":
+        lib.taylor_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, p]
+        lib.taylor_fwd_launch.restype = i
+    else:
+        for fn in (lib.taylor_bwd_dq_launch, lib.taylor_bwd_dkv_launch):
+            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
+            fn.restype = i
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [i]
+    err_fn.restype = ctypes.c_char_p
+    return lib
+
+
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        lib = ctypes.CDLL(str(build(name)[name]))
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        f = ctypes.c_float
-        if name == "taylor_fwd":
-            lib.taylor_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, p]
-            lib.taylor_fwd_launch.restype = i
-        else:
-            for fn in (lib.taylor_bwd_dq_launch, lib.taylor_bwd_dkv_launch):
-                fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
-                fn.restype = i
-        err_fn = getattr(lib, f"{name}_error_string")
-        err_fn.argtypes = [i]
-        err_fn.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name] = bind(build(name)[name], name)
     return _libs[name]
 
 
@@ -172,8 +178,9 @@ def taylor_fwd(
 
     On CUDA tensors ``d`` must be a key of ``TILES`` and ``dv``/``n``
     multiples of its value tile and chunk (``ops._kernel_layout`` pads
-    them), and all three tensors contiguous float32 or bfloat16 of one
-    dtype.
+    them), and all three tensors float32 or bfloat16 of one dtype; they
+    are made contiguous and 16-byte aligned (the kernel loads 16 bytes at
+    a time) by a copy where they are not.
 
     Returns:
       ``[bk, g, n, dv]`` in v's dtype.
@@ -194,22 +201,35 @@ def taylor_fwd(
     dvt, chunk = TILES[d]
     if n % chunk or dv % dvt:
         raise ValueError(f"n={n} must be a multiple of {chunk} and dv={dv} of {dvt}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
+    out = launch_fwd(_library("taylor_fwd"), q, k, v, alpha, order)
+    taylor_fwd.launches += 1
+    return out
+
+
+taylor_fwd.launches = 0
+
+
+def launch_fwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               alpha: float, order: int) -> torch.Tensor:
+    """Runs ``taylor_fwd_launch`` of ``lib`` (see ``bind``) on checked,
+    contiguous, 16-byte aligned CUDA tensors; raises on a launch error.
+    Counts nothing: ``taylor_fwd`` is the counted entry."""
+    bk, g, n, d = q.shape
+    dv = v.shape[-1]
     out = torch.empty((bk, g, n, dv), dtype=v.dtype, device=v.device)
     a = 1.0 / (alpha * d**0.5)
-    lib = _library("taylor_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.taylor_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bk, g, n, d, dv, a, order, int(q.dtype == torch.bfloat16), stream,
         )
-    _check("taylor_fwd", "taylor_fwd", err)
-    taylor_fwd.launches += 1
+    if err != 0:
+        raise RuntimeError(f"taylor_fwd launch failed: "
+                           f"{lib.taylor_fwd_error_string(err).decode()} ({err})")
     return out
-
-
-taylor_fwd.launches = 0
 
 
 def _bwd_checks(q, k, v, dout, order, *more) -> bool:
