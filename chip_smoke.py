@@ -37,10 +37,29 @@ FWD_TF32_PRODUCTS = {
     "float32": {"s2_read": 3, "z2_read": 3, "s2_update": 3, "z2_update": 3},
 }
 
+# The same for the backward's contractions (csrc/taylor_bwd.cu): pass 1's S2
+# and z2 reads and its state update, pass 2's carry read (one product for dk
+# and dv), dz2 read and carry update.  Only pass 1's z2 update takes one
+# product for bf16 inputs (A = k_e is exact); pass 2's dz2 update has
+# A = dden·q_e, which is not.
+BWD_TF32_PRODUCTS = {
+    "bfloat16": {"s2_read": 2, "z2_read": 2, "s2_update": 2, "z2_update": 1,
+                 "carry_read": 2, "dz2_read": 2, "ds2_update": 2, "dz2_update": 2},
+    "float32": dict.fromkeys(("s2_read", "z2_read", "s2_update", "z2_update", "carry_read",
+                              "dz2_read", "ds2_update", "dz2_update"), 3),
+}
+
 MAIN = dict(b=4, hk=3, g=3, n=2048, d=64, dv=64)  # phase 3's main-path launch
 TRAIN_ATTN = dict(MAIN, n=1024)  # each layer's attention launch in phase 7's step
 FWD_CASES = ((MAIN, "float32"), (MAIN, "bfloat16"),  # phase 3's forward checks
              (TRAIN_ATTN, "bfloat16"), (TRAIN_ATTN, "float32"))
+# Phase 3b's backward checks: the main path's shapes, then every other head
+# dim the kernels instantiate (d = 16 and 32: several value blocks per tile;
+# d = 128: one value column per tile, atomics straight into dq and dk), in
+# both dtypes, all held to BWD_TOL.
+BWD_CASES = ((MAIN, "float32"), (MAIN, "bfloat16"), (TRAIN_ATTN, "bfloat16"),
+             *((dict(b=1, hk=2, g=3, n=256, d=d, dv=d), dname)
+               for d in (16, 32, 128) for dname in ("float32", "bfloat16")))
 EDGE = [  # (b, h, hk, n, d, dv, order): the JAX kernel tests' sweep + order 1
     (1, 2, 1, 256, 128, 128, 2),
     (2, 4, 2, 256, 64, 64, 2),
@@ -58,11 +77,20 @@ GRAD_EDGE = [  # (order, b, h, hk, n, d, dv): tests/test_kernels.py's GRAD_SWEEP
     (2, 1, 8, 1, 128, 128, 128),   # MQA, G=8
     (2, 1, 2, 1, 300, 64, 64),     # sequence padding 300 -> 384
     (1, 1, 2, 1, 200, 48, 80),     # d 48 -> 64, sequence padding
+    (2, 1, 2, 1, 256, 16, 16),     # d=16: 2 value blocks of 8
+    (2, 1, 4, 2, 256, 32, 32),     # d=32: 4 value blocks of 8
 ]
 TRAIN = dict(b=4, n=1024, steps=8, lr=2e-3, warmup=2)  # phase 7
 PROMPT_LENS = (100, 256, 300, 384, 512, 700)
 MAX_NEW = 32
-F32_TOL, BF16_TOL = 1e-4, 1e-2
+F32_TOL = 1e-4
+# The backward kernels write f32 gradients, and their plain versions compute
+# in f32 from the same bf16 values, so bf16 inputs answer to the same limit as
+# f32 ones.  Sound kernels read <= 3.4e-6 at phase 3b's shapes in either dtype;
+# a copy of csrc/taylor_bwd.cu whose dS2 carry update drops its a_lo·b_hi
+# product reads 2.8e-5 to 3.5e-5 in dk, which 1e-4 would let through.  Hence
+# 1e-5, the next power of ten above the sound readings.
+BWD_TOL = 1e-5
 # The forward's bf16 output against the plain version's, also rounded to bf16:
 # a sound kernel reads <= 6.8e-4 here (one-ulp rounding flips), a kernel that
 # drops its z2 and S1 updates 8.1e-3.
@@ -81,6 +109,23 @@ def ptxas_summary(log: str, head_dim: int = 64):
         elif name and ("Used" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def ptxas_spills(log: str):
+    """(kernel instantiations compiled, ptxas's lines for those that spill)."""
+    count, spills, name = 0, [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(taylor_\w+?_kernel)I(\S+?)EEEv", line)
+        if m:
+            name, count = f"{m.group(1)}<{m.group(2)}>", count + 1
+        elif name and re.search(r"[1-9]\d* bytes spill", line):
+            spills.append(f"{name}: {line.strip()}")
+    return count, spills
+
+
+def case_name(m, dname: str) -> str:
+    """A check's name: its dtype, then n and d where they differ from MAIN's."""
+    return dname + "".join(f" {k_}={m[k_]}" for k_ in ("n", "d") if m[k_] != MAIN[k_])
 
 
 def fail(msg: str) -> None:
@@ -103,40 +148,55 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 def taylor_fwd_cost(bk, g, n, d, dv, chunk, itemsize, order=2):
     """(operations, {contraction: operations}, bytes) of one forward:
-    intra-chunk tiles, state reads and state updates; each input read once
-    and the output written once.  The contractions are those that
-    csrc/taylor_fwd.cu runs on the tensor cores (keys of FWD_TF32_PRODUCTS),
-    counted once each, and are part of the operations."""
+    intra-chunk tiles (the causal triangle only: (chunk + 1) / 2 keys per
+    row, for n a multiple of chunk), state reads and state updates; each
+    input read once and the output written once.  The contractions are those
+    that csrc/taylor_fwd.cu runs on the tensor cores (keys of
+    FWD_TF32_PRODUCTS), counted once each, and are part of the operations."""
     sq, cube = (2 * d * d, 2 * d * d * dv) if order >= 2 else (0, 0)
     lin = 2 * d * dv + 2 * d
+    tri = (chunk + 1) / 2                        # keys j <= i per row of a chunk
     tensor = {"s2_read": bk * g * n * cube, "z2_read": bk * g * n * sq,
               "s2_update": bk * n * cube, "z2_update": bk * n * sq}
-    ops = bk * (g * n * chunk * 2 * (d + dv) + (g + 1) * n * lin) + sum(tensor.values())
+    ops = bk * (g * n * tri * 2 * (d + dv) + (g + 1) * n * lin) + sum(tensor.values())
     nbytes = itemsize * (bk * g * n * d + bk * n * d + bk * n * dv + bk * g * n * dv)
     return ops, tensor, nbytes
 
 
 def taylor_bwd_cost(bk, g, n, d, dv, chunk, itemsize, order=2):
-    """{kernel: (operations, bytes)} of the backward pair, from the loops of
-    csrc/taylor_bwd.cu (chunk = its C), counting every term once (not once
-    per value tile): full C×C intra tiles, state/carry reads and updates.
-    Bytes: each input read once, each output written once; den/dden are
-    pass 1's outputs and pass 2's inputs, and not the pair's."""
+    """{kernel: (operations, {contraction: operations}, bytes)} of the
+    backward pair, from the loops of csrc/taylor_bwd.cu (chunk = its C),
+    counting every term once (not once per value tile): the causal triangle
+    of the C×C intra tiles ((C + 1) / 2 pairs per row, for n a multiple of
+    C), the den/dden rows, the first moments and the folds of the
+    contractions.  The contractions are those that csrc/taylor_bwd.cu runs
+    on the tensor cores (keys of BWD_TF32_PRODUCTS), counted once each (one
+    z2 product serves den and dq, one carry product dk and dv), and are part
+    of the operations.  Bytes: each input read once, each output written
+    once; den/dden are pass 1's outputs and pass 2's inputs, and not the
+    pair's."""
     sq = 2 * d * d if order >= 2 else 0           # one d×d contraction
     cube = 2 * d * d * dv if order >= 2 else 0    # one d×d×dv contraction
+    fold = 2 * d * dv if order >= 2 else 0        # one fold of a d×dv product
     lin = 2 * d * dv
     rows = g * n
+    tri = (chunk + 1) / 2                         # pairs j <= i per row of a chunk
+    dq_tensor = {"s2_read": bk * rows * cube, "z2_read": bk * rows * sq,
+                 "s2_update": bk * n * cube, "z2_update": bk * n * sq}
     dq_ops = bk * (
-        rows * chunk * (2 * d + 2 * dv + 2 * d)    # scores, dp, ds·K
-        + rows * (2 * d + sq + 2 * dv)             # den (q·z1, q z2 q), Σ dout·out
-        + rows * (lin + cube + 2 * d + sq)         # dq: S1, S2, z1, z2 terms
-        + n * (lin + cube + sq + d)                # state update (no S0)
-    )
+        rows * tri * (2 * d + 2 * dv + 2 * d)      # scores, dp, ds·K
+        + rows * (2 * d + 2 * dv)                  # den's q·z1, Σ dout·out
+        + rows * (lin + 2 * d)                     # dq: S1, z1 terms
+        + rows * (fold + (4 * d if order >= 2 else 0))  # folds: S2 read; z2 read (den, dq)
+        + n * (lin + d)                            # S1, z1 update
+    ) + sum(dq_tensor.values())
+    dkv_tensor = {"carry_read": bk * n * cube, "dz2_read": bk * n * sq,
+                  "ds2_update": bk * rows * cube, "dz2_update": bk * rows * sq}
     dkv_ops = bk * (
-        n * (2 * lin + 2 * cube + sq)              # carry reads for dk and dv
-        + rows * chunk * (2 * d + 2 * dv + 2 * dv + 2 * d)  # scores, Pᵀdnum, dp, dsᵀQ
-        + rows * (lin + cube + sq + 2 * d + dv)    # carry update
-    )
+        n * (2 * lin + 2 * fold)                   # dS1 terms of dk, dv; the carry read's folds
+        + rows * tri * (2 * d + 2 * dv + 2 * dv + 2 * d)  # scores, Pᵀdnum, dp, dsᵀQ
+        + rows * (lin + 2 * d + dv)                # dS1, dz1, dS0 update
+    ) + sum(dkv_tensor.values())
     f32 = 4
     inputs = itemsize * bk * (g * n * d + n * d + n * dv + g * n * dv)  # q, k, v, dout
     out_b = itemsize * bk * g * n * dv
@@ -144,9 +204,10 @@ def taylor_bwd_cost(bk, g, n, d, dv, chunk, itemsize, order=2):
     dq_b = f32 * bk * g * n * d
     dkdv_b = f32 * bk * n * (d + dv)
     return {
-        "taylor_bwd_dq": (dq_ops, inputs + out_b + dq_b + rows_b),
-        "taylor_bwd_dkv": (dkv_ops, inputs + rows_b + dkdv_b),
-        "pair": (dq_ops + dkv_ops, inputs + out_b + dq_b + dkdv_b),
+        "taylor_bwd_dq": (dq_ops, dq_tensor, inputs + out_b + dq_b + rows_b),
+        "taylor_bwd_dkv": (dkv_ops, dkv_tensor, inputs + rows_b + dkdv_b),
+        "pair": (dq_ops + dkv_ops, {**dq_tensor, **dkv_tensor},
+                 inputs + out_b + dq_b + dkdv_b),
     }
 
 
@@ -219,7 +280,7 @@ def phase_kernel(torch, K, ops, ref_mod, ln):
         products = FWD_TF32_PRODUCTS[dname]
         f32_ms, _ = bound_ms(flops, nbytes)
         tensor_ms, by = bound_ms(flops, nbytes, tensor, products)
-        name = dname + ("" if m is MAIN else f" n={m['n']}")
+        name = case_name(m, dname)
         print(f"[3] taylor_fwd {name} {m}: "
               + " ".join(f"{k_}_err={e_:.3e}" for k_, e_ in errs.items())
               + (f" (tol {FWD_BF16_TOL}, excess {F32_TOL})" if "excess" in errs
@@ -255,41 +316,58 @@ def phase_kernel(torch, K, ops, ref_mod, ln):
     return rows
 
 
+def bwd_inputs(torch, m, dtype, gen, ln):
+    """Phase 3b's backward inputs at shape ``m``: the forward's and dout."""
+    q, k, v = fwd_inputs(torch, m, dtype, gen, ln)
+    dout = torch.randn(m["b"] * m["hk"], m["g"], m["n"], m["dv"], device="cuda",
+                       generator=gen).to(dtype)
+    return q, k, v, dout
+
+
+def bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn, dkv_fn):
+    """Runs pass 1 (``dq_fn``) and pass 2 (``dkv_fn``, on pass 1's den and
+    dden) and their plain versions on the same inputs.  Returns (rel errors,
+    max abs errors by kernel, failures, (den, dden)).  Every rel error
+    answers to BWD_TOL, for bf16 inputs too: the gradients are f32 either
+    way."""
+    dq, den, dden = dq_fn(q, k, v, dout, out)
+    dk, dv = dkv_fn(q, k, v, dout, den, dden)
+    b = lambda *x: [t[None] for t in x]
+    want = [t[0] for t in ref_mod.taylor_bwd_dq_ref(*b(q, k, v, dout, out))]
+    # pass 2 against its plain version on the SAME inputs (pass 1's rows)
+    want += [t[0] for t in ref_mod.taylor_bwd_dkv_ref(*b(q, k, v, dout, den, dden))]
+    torch.cuda.synchronize()
+    got = (dq, den, dden, dk, dv)
+    errs = {n_: rel_err(torch, a_, w_) for n_, a_, w_ in
+            zip(("dq", "den", "dden", "dk", "dv"), got, want)}
+    abs_err = {"taylor_bwd_dq": float((dq - want[0]).abs().max()),
+               "taylor_bwd_dkv": max(float((dk - want[3]).abs().max()),
+                                     float((dv - want[4]).abs().max()))}
+    bad = {k_: (e_, BWD_TOL) for k_, e_ in errs.items() if not e_ < BWD_TOL}
+    return errs, abs_err, bad, (den, dden)
+
+
 def phase_backward(torch, K, ops, ref_mod, ln):
     """Phase 3b: the backward kernels against their plain versions on the
-    card (phase 3's shape in f32 and bf16, the training step's in bf16),
-    then the trainable wrapper against autograd of the plain forward, and
-    the padded rows and columns of the raw gradients, which must be 0."""
+    card (``BWD_CASES``: phase 3's shape in f32 and bf16, the training
+    step's in bf16, n = 256 at d = 16, 32 and 128 in both), then the
+    trainable wrapper against autograd of the plain forward, and the padded
+    rows and columns of the raw gradients, which must be 0."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for m, dtype in ((MAIN, torch.float32), (MAIN, torch.bfloat16),
-                     (TRAIN_ATTN, torch.bfloat16)):
+    dq_fn = lambda q, k, v, dout, out: K.taylor_bwd_dq(q, k, v, dout, out, alpha=3.0)
+    dkv_fn = lambda q, k, v, dout, den, dden: K.taylor_bwd_dkv(q, k, v, dout, den, dden,
+                                                               alpha=3.0)
+    for m, dname in BWD_CASES:
         bk = m["b"] * m["hk"]
-        q = ln(torch.randn(bk, m["g"], m["n"], m["d"], device="cuda", generator=gen)).to(dtype)
-        k = ln(torch.randn(bk, m["n"], m["d"], device="cuda", generator=gen)).to(dtype)
-        v = torch.randn(bk, m["n"], m["dv"], device="cuda", generator=gen).to(dtype)
-        dout = torch.randn(bk, m["g"], m["n"], m["dv"], device="cuda", generator=gen).to(dtype)
+        q, k, v, dout = bwd_inputs(torch, m, getattr(torch, dname), gen, ln)
         out = K.taylor_fwd(q, k, v, alpha=3.0)
+        errs, abs_err, bad, (den, dden) = bwd_check(torch, ref_mod, q, k, v, dout, out,
+                                                    dq_fn, dkv_fn)
         b = lambda *x: [t[None] for t in x]
-        dq, den, dden = K.taylor_bwd_dq(q, k, v, dout, out, alpha=3.0)
-        dk, dv = K.taylor_bwd_dkv(q, k, v, dout, den, dden, alpha=3.0)
-        r_dq, r_den, r_dden = (t[0] for t in ref_mod.taylor_bwd_dq_ref(*b(q, k, v, dout, out)))
-        # pass 2 against its plain version on the SAME inputs (pass 1's rows)
-        r_dk, r_dv = (t[0] for t in ref_mod.taylor_bwd_dkv_ref(*b(q, k, v, dout, den, dden)))
-        torch.cuda.synchronize()
-        name = str(dtype).replace("torch.", "") + ("" if m is MAIN else f" n={m['n']}")
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        errs = {"dq": rel_err(torch, dq, r_dq), "den": rel_err(torch, den, r_den),
-                "dden": rel_err(torch, dden, r_dden), "dk": rel_err(torch, dk, r_dk),
-                "dv": rel_err(torch, dv, r_dv)}
-        abs_err = {"taylor_bwd_dq": float((dq - r_dq).abs().max()),
-                   "taylor_bwd_dkv": max(float((dk - r_dk).abs().max()),
-                                         float((dv - r_dv).abs().max()))}
         ms = {
-            "taylor_bwd_dq": cuda_ms(torch, lambda: K.taylor_bwd_dq(q, k, v, dout, out,
-                                                                     alpha=3.0), 10),
-            "taylor_bwd_dkv": cuda_ms(torch, lambda: K.taylor_bwd_dkv(
-                q, k, v, dout, den, dden, alpha=3.0), 10),
+            "taylor_bwd_dq": cuda_ms(torch, lambda: dq_fn(q, k, v, dout, out), 10),
+            "taylor_bwd_dkv": cuda_ms(torch, lambda: dkv_fn(q, k, v, dout, den, dden), 10),
             "pair": cuda_ms(torch, lambda: K.taylor_bwd(q, k, v, dout, out, alpha=3.0), 10),
         }
         plain = {
@@ -302,19 +380,24 @@ def phase_backward(torch, K, ops, ref_mod, ln):
         }
         cost = taylor_bwd_cost(bk, m["g"], m["n"], m["d"], m["dv"], K.BWD_CHUNK,
                                q.element_size())
+        products = BWD_TF32_PRODUCTS[dname]
+        name = case_name(m, dname)
         print(f"[3b] taylor_bwd {name} {m}: rel_err " +
-              " ".join(f"{k_}={e:.3e}" for k_, e in errs.items()) + f" (tol {tol})")
+              " ".join(f"{k_}={e:.3e}" for k_, e in errs.items()) + f" (tol {BWD_TOL})")
         rows[name] = {}
         for kname in ("taylor_bwd_dq", "taylor_bwd_dkv", "pair"):
-            flops, nbytes = cost[kname]
-            bms, by = bound_ms(flops, nbytes)
+            flops, tensor, nbytes = cost[kname]
+            f32_ms, _ = bound_ms(flops, nbytes)
+            bms, by = bound_ms(flops, nbytes, tensor, products)
             print(f"[3b]   {kname} {name}: kernel_ms={ms[kname]:.4f} "
-                  f"plain_ms={plain[kname]:.4f} bound_ms={bms:.4f} ({by}) "
-                  f"gflop={flops / 1e9:.2f} mb={nbytes / 1e6:.1f} "
-                  f"achieved_tflops={flops / ms[kname] / 1e9:.2f}")
+                  f"plain_ms={plain[kname]:.4f} bound_ms={bms:.4f} ({by}; tensor cores; "
+                  f"bound/kernel {bms / ms[kname]:.1%}) bound_ms(f32 cores)={f32_ms:.4f} "
+                  f"(bound/kernel {f32_ms / ms[kname]:.1%}) gflop={flops / 1e9:.2f} "
+                  f"(tensor-core share {sum(tensor.values()) / flops:.3f}) "
+                  f"mb={nbytes / 1e6:.1f} achieved_tflops={flops / ms[kname] / 1e9:.2f}")
             rows[name][kname] = dict(ms=ms[kname], plain_ms=plain[kname], bound_ms=bms,
-                                     bound_by=by, max_abs_err=abs_err.get(kname))
-        bad = {k_: e for k_, e in errs.items() if not e < tol}
+                                     bound_by=by, bound_f32_cores_ms=f32_ms,
+                                     max_abs_err=abs_err.get(kname))
         if bad:
             fail(f"taylor_bwd {name} disagrees with its plain version: {bad}")
     for order, b, h, hk, n, d, dv in GRAD_EDGE:
@@ -508,6 +591,9 @@ def main() -> int:
     print(f"[2] built {', '.join(K.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for line in ptxas_summary(K.build_log):
         print(f"[2] {line}")
+    count, spills = ptxas_spills(K.build_log)
+    print(f"[2] ptxas: {count} kernel instantiations (every d and order), "
+          f"{len(spills)} with spills" + "".join(f"\n[2]   {x}" for x in spills))
 
     # ---- 3. kernels against their plain versions ----
     ln = layernorm_no_affine
@@ -614,9 +700,8 @@ def main() -> int:
         "bound_ms": row["bound_ms"],  # tensor cores: the products as the kernel issues them
         "bound_by": row["bound_by"],
         "library_ms": None,
-        "bound_tensor_ms": row["bound_ms"],
         "bound_f32_cores_ms": row["bound_f32_cores_ms"],
-        "ms_train_shape": krows[f"bfloat16 n={TRAIN_ATTN['n']}"]["ms"],
+        "ms_train_shape": krows[case_name(TRAIN_ATTN, "bfloat16")]["ms"],
         "shape": shape,
     }]
     for name, line in (("taylor_bwd_dq", 55), ("taylor_bwd_dkv", 158)):
@@ -630,9 +715,11 @@ def main() -> int:
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
-            "bound_ms": b["bound_ms"],
+            "bound_ms": b["bound_ms"],  # tensor cores: the products as the kernel issues them
             "bound_by": b["bound_by"],
             "library_ms": None,
+            "bound_f32_cores_ms": b["bound_f32_cores_ms"],
+            "ms_train_shape": brows[case_name(TRAIN_ATTN, "bfloat16")][name]["ms"],
             "shape": shape,
         })
     print(json.dumps({"kernels": kernels}))

@@ -27,8 +27,47 @@
 //
 // What bounds it on this card: arithmetic.  Per (batch·kv-head) pass 1 does about
 // (G+1)·N·2D²·DV operations of second-moment work (G state reads for dq, one state
-// update) and pass 2 about (G+2)·N·2D²·DV (two carry reads, G carry updates), against
-// O(N·G·(D+DV)) bytes: ~2.25x the forward's operations at G = 3, on the f32 CUDA cores.
+// update) and pass 2 about (G+1)·N·2D²·DV (one carry read, G carry updates), against
+// O(N·G·(D+DV)) bytes.  Those D²·DV contractions, and the D² ones on z2/dz2, run on the
+// tensor cores as split-precision TF32 mma.sync products (tf32_mma.cuh), in the scheme
+// of taylor_fwd.cu; the rest stays as f32 FMAs on the CUDA cores: the causal C×C
+// intra-chunk tiles (scores, dp, ds·K, Pᵀ·dnum, dsᵀ·Q), the den/dden row pass, the first
+// moments and the folds below.
+//
+// The contractions.  In each, the f32 operand (the state, the carry, or a product made
+// in registers) is the A operand (16 rows), split once per k-step into hi and lo and
+// reused across all of the warp's n-tiles; the other operand, q or k, is B, exact in
+// TF32 for bf16 inputs and split too for f32 inputs.  Products issued per element:
+// bf16 inputs 2 (a_lo·b_hi + a_hi·b_hi), except pass 1's z2 update (A = k_e, exact: 1);
+// f32 inputs 3 (+ a_hi·b_lo).  The folds, sums of 1/D or 1/DVT the size of a product that
+// turn it into a gradient, run on the CUDA cores in f32.
+//   pass 1, per head (warp w: rows (w % 2)·C/2 …, quarter w / 2 of the A tiles):
+//   * z2 read, u[e][i] = Σ_f z2[f,e]·q_if (A = 16 values of e, read as z2[f][e]: z2 is
+//     symmetric, and the transposed read puts a fragment row in 8 banks; B = Q).  One
+//     product serves two terms: the denominator's q·z2·q = Σ_e q_ie·u[e][i] (folded,
+//     summed over the 8 lanes g by shuffles, per warp quarter into rd), and on the lead
+//     tile dq's a²·dden·(z2 q)_d, taken directly (kept in rq until dden is known).
+//   * S2 read for dq, T[(d,v), i] = Σ_e S2[d,e,v]·q_ie (A = the slab's rows (d,v), two
+//     values of d × 8 of v; B = Q), the forward's state read; its fold dq[i,d] +=
+//     a²·Σ_v dnum_iv·T[(d,v), i] sums over v, the lane's g, so the 8 lanes are added by
+//     shuffles (four exchanges for four sums, sum_over_g) into rq, which the dq rows add.
+//   * state update, after every head (causality): S2[e,f,v] += Σ_j (k_je·v_jv)·K[j,f]
+//     (A = k_e·v made in registers) and z2 += KᵀK (A = k_e), the forward's update.
+//   pass 2, per chunk:
+//   * carry read, U[(t,v), j] = Σ_e dS2[t,e,v]·k_je (A = the dS2 slab's rows (t,v);
+//     B = K), one product for two folds: dv[j,v] += Σ_t k_jt·U[(t,v), j] (the lane's v:
+//     registers, then shared atomics into dv) and dk[j,t] += 2·Σ_v v_jv·U[(t,v), j]
+//     (over v: shuffles, into rk).  The lead tile's 2·(dz2 k)_t is the e-row product
+//     on dz2, written to rk first.
+//   * carry update, per head: dS2[e,f,v] += (a²/2)·Σ_i (q_ie·dnum_iv)·Q[i,f] (A = q_e·dnum,
+//     f32) and on the lead tile dz2[e,f] += (a²/2)·Σ_i (dden_i·q_ie)·Q[i,f] (A = dden·q_e,
+//     f32: split for either input type).
+//   Where DVT = 1 (D = 128) the A tiles of the reads are 16 values of d (or t) read as
+//   S2[e][d] (symmetric), the v-folds need no shuffles, and rq/rk, which do not fit
+//   beside the slab there, give way to atomics straight into dq and dk; the lead tile
+//   takes its z2 (dz2) product beside the S2 (dS2) one.  rd, rq and rk are [C]-row
+//   buffers in shared memory; dS2 and dz2 are symmetric (built from (Q⊗Q)ᵀ) up to the
+//   rounding of the split products, as S2 and z2 are.
 //
 // What the design does about the TPU design's assumptions:
 //   * Sequential chunk axis.  The TPU grid carries S2 (pass 1) and dS2 (pass 2) across an
@@ -59,6 +98,15 @@
 //     pads D and DV with zero columns.  Every gradient of a padded row or column is then
 //     a sum of products with a zero factor, so it comes out exactly zero.
 //
+// Shared memory (one block per SM): 228,384 of 232,448 bytes at D = 64.  The rows that a
+// fragment walks across (B of a read: Q in pass 1, K in pass 2) sit at a row stride of
+// D + 4 floats, the rows it walks down (B of an update: K in pass 1, Q in pass 2) at
+// D + 8, so that every B load is free of bank conflicts; the score tile's threads walk
+// the D + 4 operand.
+//
+// Left for later: the intra-chunk tiles on the tensor cores, 96 blocks on 132 SMs at the
+// main path's shape, tile 0's value-independent tail, wgmma with TMA loads for bf16.
+//
 // Interface: plain C functions, loaded with ctypes.  They launch on the caller's stream,
 // allocate nothing (the caller owns all inputs, outputs and the den/dden scratch) and
 // return cudaGetLastError().
@@ -66,11 +114,20 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;                  // the backward's sequence chunk
 constexpr int kGroups = kThreads / kChunk;  // threads per row in row-parallel phases
+// The tensor-core reads: warp w takes the chunk's rows (w % kRowGroups)·C/kRowGroups …
+// and part w / kRowGroups of the A tiles.
+constexpr int kRowGroups = 2;
+constexpr int kParts = kWarps / kRowGroups;
 constexpr float kDenEps = 1e-6f;            // the forward kernel's clamp
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -148,9 +205,15 @@ template <int D>
 struct Dims {
   static constexpr int DVT = VTile<D>::DVT;
   static constexpr int C = kChunk;
-  static constexpr int XS = D + 4;        // padded q/k row stride (floats)
-  static constexpr int BS = C + 1;        // padded score/ds row stride
-  static constexpr int DG = D / kGroups;  // d columns per thread in (row, group) phases
+  static constexpr int QS1 = D + 4, KS1 = D + 8;  // pass 1 row strides: Q read, K absorbed
+  static constexpr int QS2 = D + 8, KS2 = D + 4;  // pass 2: Q absorbed, K read
+  static constexpr int XS = D + 8;                // the q and k slots
+  static constexpr int BS = C + 1;                // padded score/ds row stride
+  static constexpr int RS = D + 4;                // rq / rk row stride
+  static constexpr int DG = D / kGroups;          // d columns per thread in (row, group) phases
+  static constexpr int NVB = DVT >= 8 ? DVT / 8 : 1;  // 8-column value blocks
+  static constexpr int NT = C / kRowGroups / 8;  // n-tiles of a warp's rows in the reads
+  static constexpr bool kRows = DVT >= 8;         // rq / rk in shared memory (else atomics)
 };
 
 // Shared-memory layout (float offsets).  The state (or carry) comes first, so one loop
@@ -172,7 +235,9 @@ struct Layout {
   static constexpr int dden = den + M::C;                      // [C]
   static constexpr int dv = dden + M::C;                       // [C][DVT] (pass 2)
   static constexpr int buf = dv + round4(M::C * M::DVT);       // [C][BS] scores / ds
-  static constexpr int total = buf + round4(M::C * M::BS);
+  static constexpr int r = buf + round4(M::C * M::BS);         // rq / rk [C][RS]
+  static constexpr int rd = r + (M::kRows ? M::C * M::RS : 0); // q·z2·q parts [kParts][C]
+  static constexpr int total = rd + kParts * M::C;
   static constexpr int bytes = total * 4;
 };
 
@@ -181,6 +246,8 @@ static_assert(Layout<32>::bytes <= 232448, "smem over budget at D=32");
 static_assert(Layout<64>::bytes <= 232448, "smem over budget at D=64");
 static_assert(Layout<128>::bytes <= 232448, "smem over budget at D=128");
 static_assert(kGroups * kChunk == kThreads, "row phases map kGroups threads per row");
+static_assert(kChunk % (8 * kRowGroups) == 0 && kWarps % kRowGroups == 0,
+              "the reads deal whole n-tiles of rows and whole parts to the warps");
 
 template <int ORDER>
 __device__ __forceinline__ float poly(float s) {
@@ -192,11 +259,11 @@ __device__ __forceinline__ float dpoly(float s) {
   return ORDER >= 2 ? 1.f + s : 1.f;
 }
 
-// rows x D values of T (row-contiguous) -> shared rows of stride XS, as float32.
-template <typename T, int D>
+// C rows x D values of T (row-contiguous) -> shared rows of stride XS, as float32.
+template <typename T, int D, int XS>
 __device__ void load_rows(float* dst, const T* src) {
   for (int i = threadIdx.x; i < kChunk * D; i += kThreads)
-    dst[(i / D) * Dims<D>::XS + i % D] = to_f32(src[i]);
+    dst[(i / D) * XS + i % D] = to_f32(src[i]);
 }
 
 // This block's value tile of C rows of a [*, DV] tensor starting at row0.
@@ -206,13 +273,17 @@ __device__ void load_vtile(float* dst, const T* src, long row0, int DV, int v_of
     dst[i] = to_f32(src[(row0 + i / DVT) * DV + v_off + i % DVT]);
 }
 
-// buf[i][j] = a·q_i·k_j for j ≤ i, 0 above the diagonal.
-template <int D>
+// buf[i][j] = a·q_i·k_j for j ≤ i, 0 above the diagonal.  Neighbouring threads take
+// neighbouring rows of the operand at row stride D + 4 (float4 reads free of bank
+// conflicts); the other operand's row is the same across a warp.
+template <int D, int QS, int KS>
 __device__ void score_tile(float* buf, const float* qs, const float* ks, float a) {
   using M = Dims<D>;
+  constexpr bool by_q = QS == D + 4;
   for (int idx = threadIdx.x; idx < M::C * M::C; idx += kThreads) {
-    const int i = idx / M::C, j = idx % M::C;
-    buf[i * M::BS + j] = j <= i ? a * dot_smem<D>(qs + i * M::XS, ks + j * M::XS) : 0.f;
+    const int i = by_q ? idx % M::C : idx / M::C;
+    const int j = by_q ? idx / M::C : idx % M::C;
+    buf[i * M::BS + j] = j <= i ? a * dot_smem<D>(qs + i * QS, ks + j * KS) : 0.f;
   }
 }
 
@@ -230,79 +301,392 @@ __device__ void scores_to_ds(float* buf, const float* dnum, const float* dden,
   }
 }
 
-// Adds one chunk of rows x [C][XS] (weights w, or 1 where w is null) and y [C][DVT] to
-// moments:  s2[e][f][v] += c2·Σ x_e x_f y_v,  s1[e][v] += c1·Σ x_e y_v  and, when with_z,
-// z2[e][f] += c2·Σ w x_e x_f,  z1[e] += c1·Σ w x_e.  Pass 1 absorbs (K, V) into the
-// state; pass 2 absorbs (Q, dnum, dden) into the carry.
-template <int D, int ORDER>
-__device__ void absorb(float* s2, float* z2, float* s1, float* z1, const float* xs,
-                       const float* ys, const float* w, float c1, float c2, bool with_z) {
-  using M = Dims<D>;
-  constexpr int DVT = M::DVT, XS = M::XS, C = M::C;
-  constexpr int FT = D >= 8 ? 8 : D;       // tile: f columns
-  constexpr int VT = DVT >= 4 ? 4 : DVT;   // tile: value columns
-  constexpr int FB = D / FT;
-  const int tid = threadIdx.x;
-  if constexpr (ORDER >= 2) {
-    constexpr int VB = DVT / VT;
-    for (int tile = tid; tile < D * FB * VB; tile += kThreads) {
-      const int vb = tile % VB;
-      const int fb = (tile / VB) % FB;
-      const int e = tile / (VB * FB);
-      const int f0 = fb * FT, v0 = vb * VT;
-      float acc[FT][VT];
+// ---- tensor-core routines ----
+
+// One 16-row A tile against NT n-tiles of 8 rows of q or k, over KS k-steps of 8:
+// c[nt][m, n] = Σ_k A[m][k]·X[n][k].  A holds f32 data (split): a0 of k-step s at
+// ap[s·kstep], a1 (row + 8) at +row8, a2 (k + 4) at +k4.  bp points at this lane's b0
+// (row g, column t) of X, rows of stride XS; n-tile nt is 8 rows further.
+template <bool SPLIT_X, int KS, int NT, int XS>
+__device__ __forceinline__ void tile_product(const float* ap, int row8, int k4, int kstep,
+                                             const float* bp, float (&c)[NT][4]) {
 #pragma unroll
-      for (int ff = 0; ff < FT; ++ff)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int x = 0; x < VT; ++x) acc[ff][x] = 0.f;
-      for (int j = 0; j < C; ++j) {
-        const float xe = xs[j * XS + e];
-        float xf[FT], yv[VT];
-        load_vec<FT>(xf, xs + j * XS + f0);
-        load_vec<VT>(yv, ys + j * DVT + v0);
+    for (int x = 0; x < 4; ++x) c[nt][x] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < KS; ++s) {
+    const float* p = ap + s * kstep;
+    Frag<4, true> a;
+    a.set(0, p[0]);
+    a.set(1, p[row8]);
+    a.set(2, p[k4]);
+    a.set(3, p[row8 + k4]);
 #pragma unroll
-        for (int ff = 0; ff < FT; ++ff) xf[ff] *= xe;
-#pragma unroll
-        for (int ff = 0; ff < FT; ++ff)
-#pragma unroll
-          for (int x = 0; x < VT; ++x) acc[ff][x] += xf[ff] * yv[x];
-      }
-#pragma unroll
-      for (int ff = 0; ff < FT; ++ff)
-#pragma unroll
-        for (int x = 0; x < VT; ++x) s2[(e * D + f0 + ff) * DVT + v0 + x] += c2 * acc[ff][x];
-    }
-    if (with_z) {
-      for (int tile = tid; tile < D * FB; tile += kThreads) {
-        const int e = tile / FB, f0 = (tile % FB) * FT;
-        float acc[FT];
-#pragma unroll
-        for (int ff = 0; ff < FT; ++ff) acc[ff] = 0.f;
-        for (int j = 0; j < C; ++j) {
-          const float xe = xs[j * XS + e] * (w ? w[j] : 1.f);
-          float xf[FT];
-          load_vec<FT>(xf, xs + j * XS + f0);
-#pragma unroll
-          for (int ff = 0; ff < FT; ++ff) acc[ff] += xe * xf[ff];
-        }
-#pragma unroll
-        for (int ff = 0; ff < FT; ++ff) z2[e * D + f0 + ff] += c2 * acc[ff];
-      }
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* b = bp + nt * 8 * XS + s * 8;
+      Frag<2, SPLIT_X> f;
+      f.set(0, b[0]);
+      f.set(1, b[4]);
+      mma_split(c[nt], a, f);
     }
   }
+}
+
+// One 16-row tile of a moment update against all D/8 n-tiles f, on the tensor cores:
+// M[row][f] += Σ_j A[row][j]·X[j][f] over the chunk's rows j (X at row stride XS).
+// aval(j) gives (A[g][j], A[g+8][j]) for this lane; the accumulators are read from the
+// slab at cp (c0), c1 further (column + 1), c2 (row + 8) and 8·cn per n-tile, and
+// written back.
+template <bool SPLIT_A, bool SPLIT_X, int D, int XS, typename AVal>
+__device__ __forceinline__ void update_tile(float* cp, int c1, int c2, int cn,
+                                            const float* xs, AVal aval) {
+  constexpr int NT = D / 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float c[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float* p = cp + nt * 8 * cn;
+    c[nt][0] = p[0];
+    c[nt][1] = p[c1];
+    c[nt][2] = p[c2];
+    c[nt][3] = p[c2 + c1];
+  }
+#pragma unroll 4
+  for (int j0 = 0; j0 < kChunk; j0 += 8) {
+    const float2 u = aval(j0 + t), w = aval(j0 + t + 4);
+    Frag<4, SPLIT_A> a;
+    a.set(0, u.x);
+    a.set(1, u.y);
+    a.set(2, w.x);
+    a.set(3, w.y);
+    const float* x0 = xs + (j0 + t) * XS + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      Frag<2, SPLIT_X> b;
+      b.set(0, x0[nt * 8]);
+      b.set(1, x0[4 * XS + nt * 8]);
+      mma_split(c[nt], a, b);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float* p = cp + nt * 8 * cn;
+    p[0] = c[nt][0];
+    p[c1] = c[nt][1];
+    p[c2] = c[nt][2];
+    p[c2 + c1] = c[nt][3];
+  }
+}
+
+// m2[e,f,v] += Σ_j (x_je·scale·y_jv)·X[j,f] and, when with_z, z2[e,f] += Σ_j
+// (scale·w_j·x_je)·X[j,f] over the chunk's rows, on the tensor cores (A = the products
+// made in registers, B = X).  Where W is false, w_j = 1 and the z2 A is x_e itself (scale
+// must be 1), exact in TF32 for bf16 inputs: one product.  Pass 1 absorbs (K, V) into
+// the state; pass 2 absorbs (Q, dnum, dden) into the carry with scale a²/2.  Units are the
+// m2 tiles ((e, v) tiles as in the reads, or 16 values of e where DVT = 1) and then the z2
+// tiles of 16 values of e, dealt to the warps in turn.
+template <bool SPLIT_X, bool W, int D, int XS>
+__device__ __forceinline__ void update_second_moments(float* m2, float* z2, const float* xs,
+                                                      const float* ys, const float* w,
+                                                      float scale, bool with_z) {
+  using M = Dims<D>;
+  constexpr int DVT = M::DVT, NVB = M::NVB;
+  constexpr int NS = DVT >= 8 ? D / 2 * NVB : D / 16, NZ = D / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int units = NS + (with_z ? NZ : 0);
+#pragma unroll 1
+  for (int u = warp; u < units; u += kWarps) {
+    if (u < NS) {
+      if constexpr (DVT >= 8) {
+        const int e = 2 * (u / NVB), vcol = (u % NVB) * 8 + g;
+        update_tile<true, SPLIT_X, D, XS>(
+            m2 + (e * D + 2 * t) * DVT + vcol, DVT, D * DVT, DVT, xs, [&](int j) {
+              const float2 xx = *reinterpret_cast<const float2*>(xs + j * XS + e);
+              const float yy = scale * ys[j * DVT + vcol];
+              return make_float2(xx.x * yy, xx.y * yy);
+            });
+      } else {
+        const int e = u * 16 + g;
+        update_tile<true, SPLIT_X, D, XS>(m2 + e * D + 2 * t, 1, 8 * D, 1, xs, [&](int j) {
+          const float yy = scale * ys[j];
+          return make_float2(xs[j * XS + e] * yy, xs[j * XS + e + 8] * yy);
+        });
+      }
+    } else {
+      const int e = (u - NS) * 16 + g;
+      update_tile<W || SPLIT_X, SPLIT_X, D, XS>(z2 + e * D + 2 * t, 1, 8 * D, 1, xs,
+                                                 [&](int j) {
+        const float ww = W ? scale * w[j] : 1.f;
+        return make_float2(xs[j * XS + e] * ww, xs[j * XS + e + 8] * ww);
+      });
+    }
+  }
+}
+
+// The first moments of the same chunk, on the CUDA cores: s1[e][v] += c1·Σ_j x_je·y_jv
+// and, when with_z, z1[e] += c1·Σ_j w_j·x_je (w_j = 1 where w is null).
+template <int D, int XS>
+__device__ __forceinline__ void update_first_moments(float* s1, float* z1, const float* xs,
+                                                     const float* ys, const float* w,
+                                                     float c1, bool with_z) {
+  constexpr int DVT = Dims<D>::DVT;
+  const int tid = threadIdx.x;
   for (int idx = tid; idx < D * DVT; idx += kThreads) {
     const int e = idx / DVT, x = idx % DVT;
     float acc = 0.f;
-    for (int j = 0; j < C; ++j) acc += xs[j * XS + e] * ys[j * DVT + x];
+    for (int j = 0; j < kChunk; ++j) acc += xs[j * XS + e] * ys[j * DVT + x];
     s1[idx] += c1 * acc;
   }
   if (with_z) {
     for (int e = tid; e < D; e += kThreads) {
       float acc = 0.f;
-      for (int j = 0; j < C; ++j) acc += (w ? w[j] : 1.f) * xs[j * XS + e];
+      for (int j = 0; j < kChunk; ++j) acc += (w ? w[j] : 1.f) * xs[j * XS + e];
       z1[e] += c1 * acc;
     }
   }
+}
+
+// x summed over the 8 lanes g that share t.
+__device__ __forceinline__ float sum_g(float x) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Four sums over the 8 lanes g that share t, of x[h][u] (h, u ∈ {0, 1}), in four
+// exchanges instead of twelve: returns the sum of x[g & 1][(g >> 1) & 1], which lanes g
+// and g ^ 4 both hold.
+__device__ __forceinline__ float sum_over_g(const float (&x)[2][2], int g) {
+  const bool b0 = g & 1, b1 = g & 2;
+  float y[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+    y[u] = (b0 ? x[1][u] : x[0][u]) +
+           __shfl_xor_sync(0xffffffffu, b0 ? x[0][u] : x[1][u], 4);
+  const float z = (b1 ? y[1] : y[0]) + __shfl_xor_sync(0xffffffffu, b1 ? y[0] : y[1], 8);
+  return z + __shfl_xor_sync(0xffffffffu, z, 16);
+}
+
+// Pass 1, one head's chunk: the z2 read.  u[e][i] = Σ_f z2[f,e]·q_if, A = 16 values of
+// e read as z2[f][e], B = Q.  Its fold Σ_e q_ie·u[e][i] (the denominator's q·z2·q) is
+// summed over the lanes g and written per part to rd[part][i]; where rq exists the
+// lead tile also keeps u there (rq[i][e]) for dq's a²·dden·(z2 q) term.
+template <bool SPLIT_Q, int D>
+__device__ __forceinline__ void read_z2(const float* qs, const float* z2, float* rd,
+                                        float* rq, bool lead) {
+  using M = Dims<D>;
+  constexpr int QS = M::QS1, RS = M::RS, NT = M::NT, C = M::C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / kRowGroups;
+  const int r0 = (warp % kRowGroups) * (C / kRowGroups);
+  const float* qb = qs + (r0 + g) * QS + t;
+  float c[NT][4], pz[NT][2] = {};
+#pragma unroll 1
+  for (int et = part; et < D / 16; et += kParts) {
+    const int e = et * 16 + g;
+    tile_product<SPLIT_Q, D / 8, NT, QS>(z2 + t * D + e, 8, 4 * D, 8 * D, qb, c);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int i = r0 + 2 * t + 8 * nt;
+      const float* q0 = qs + i * QS + e;
+      pz[nt][0] += q0[0] * c[nt][0] + q0[8] * c[nt][2];
+      pz[nt][1] += q0[QS] * c[nt][1] + q0[QS + 8] * c[nt][3];
+      if (M::kRows && lead) {
+        rq[i * RS + e] = c[nt][0];
+        rq[(i + 1) * RS + e] = c[nt][1];
+        rq[i * RS + e + 8] = c[nt][2];
+        rq[(i + 1) * RS + e + 8] = c[nt][3];
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float s = sum_g(pz[nt][h]);
+      if (g == 0) rd[part * C + r0 + 2 * t + 8 * nt + h] = s;
+    }
+}
+
+// Pass 1, one head's chunk, once dnum and dden are known: dq's second-moment terms.
+// T[(d,v), i] = Σ_e S2[d,e,v]·q_ie (A = the slab's rows (d,v), B = Q), folded as
+// dq[i,d] = a²·(Σ_v dnum_iv·T[(d,v), i] + dden_i·u[d][i]), the last term on the lead tile
+// only.  Where DVT ≥ 8 an A tile is two values of d × 8 of v (the lane's g is v), the
+// sum over v goes through sum_over_g, and the result to rq[i][d] (the lead's u is read
+// there first).  Where DVT = 1 an A tile is 16 values of d read as S2[e][d], the lead
+// redoes the z2 product beside it, and the result goes by atomics into dqh (this head's
+// dq rows of the chunk).
+template <bool SPLIT_Q, int D>
+__device__ __forceinline__ void read_s2_dq(const float* qs, const float* s2,
+                                           const float* z2, const float* dnum,
+                                           const float* dden, float* rq, float* dqh,
+                                           float a2, bool lead) {
+  using M = Dims<D>;
+  constexpr int DVT = M::DVT, QS = M::QS1, RS = M::RS, NT = M::NT, C = M::C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / kRowGroups;
+  const int r0 = (warp % kRowGroups) * (C / kRowGroups);
+  const float* qb = qs + (r0 + g) * QS + t;
+  float c[NT][4];
+  if constexpr (M::kRows) {
+#pragma unroll 1
+    for (int ep = part; ep < D / 2; ep += kParts) {
+      float x[NT][2][2] = {};
+#pragma unroll
+      for (int vb = 0; vb < M::NVB; ++vb) {
+        const int vc = vb * 8 + g;
+        tile_product<SPLIT_Q, D / 8, NT, QS>(s2 + (2 * ep * D + t) * DVT + vc, D * DVT,
+                                              4 * DVT, 8 * DVT, qb, c);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int i = r0 + 2 * t + 8 * nt;
+          const float dn0 = dnum[i * DVT + vc], dn1 = dnum[(i + 1) * DVT + vc];
+          x[nt][0][0] += dn0 * c[nt][0];
+          x[nt][0][1] += dn0 * c[nt][2];
+          x[nt][1][0] += dn1 * c[nt][1];
+          x[nt][1][1] += dn1 * c[nt][3];
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float s = sum_over_g(x[nt], g);
+        if (g < 4) {
+          const int i = r0 + 2 * t + 8 * nt + (g & 1), d = 2 * ep + (g >> 1);
+          float& r = rq[i * RS + d];
+          r = a2 * (s + (lead ? dden[i] * r : 0.f));
+        }
+      }
+    }
+  } else {
+    float cz[NT][4] = {};
+#pragma unroll 1
+    for (int dt = part; dt < D / 16; dt += kParts) {
+      const int d = dt * 16 + g;
+      tile_product<SPLIT_Q, D / 8, NT, QS>(s2 + t * D + d, 8, 4 * D, 8 * D, qb, c);
+      if (lead) tile_product<SPLIT_Q, D / 8, NT, QS>(z2 + t * D + d, 8, 4 * D, 8 * D, qb, cz);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = r0 + 2 * t + 8 * nt + h;
+          const float dn = dnum[i], dd = lead ? dden[i] : 0.f;
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            atomicAdd(dqh + i * D + d + 8 * u,
+                      a2 * (dn * c[nt][2 * u + h] + dd * cz[nt][2 * u + h]));
+        }
+    }
+  }
+}
+
+// Pass 2, one chunk, before its queries join the carry: the carry read.
+// U[(t,v), j] = Σ_e dS2[t,e,v]·k_je (A = the slab's rows (t,v), B = K), one product for
+// two folds: dv[j,v] += Σ_t k_jt·U[(t,v), j] and dk[j,t] += 2·Σ_v v_jv·U[(t,v), j]; the
+// lead tile adds dk's 2·(dz2 k)_t, the e-row product on dz2.  Where DVT ≥ 8 an A tile is
+// two values of t × 8 of v: the dv fold keeps the lane's v (registers, then shared atomics
+// into dv_s), the dk fold goes through sum_over_g into rk[j][t] (after the dz2 term,
+// written there first).  Where DVT = 1 an A tile is 16 values of t read as dS2[e][t], the
+// dv fold is summed over the lanes and the dk terms go by atomics into dkc (dk's rows of
+// the chunk).  Ends with a block barrier.
+template <bool SPLIT_K, int D>
+__device__ __forceinline__ void read_carry(const float* ks, const float* vs, const float* ds2,
+                                           const float* dz2, float* dv_s, float* rk,
+                                           float* dkc, bool lead) {
+  using M = Dims<D>;
+  constexpr int DVT = M::DVT, XS = M::KS2, RS = M::RS, NT = M::NT, C = M::C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / kRowGroups;
+  const int r0 = (warp % kRowGroups) * (C / kRowGroups);
+  const float* kb = ks + (r0 + g) * XS + t;
+  float c[NT][4];
+  if constexpr (M::kRows) {
+    if (lead) {
+#pragma unroll 1
+      for (int et = part; et < D / 16; et += kParts) {
+        const int e = et * 16 + g;
+        tile_product<SPLIT_K, D / 8, NT, XS>(dz2 + t * D + e, 8, 4 * D, 8 * D, kb, c);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int j = r0 + 2 * t + 8 * nt;
+          rk[j * RS + e] = 2.f * c[nt][0];
+          rk[(j + 1) * RS + e] = 2.f * c[nt][1];
+          rk[j * RS + e + 8] = 2.f * c[nt][2];
+          rk[(j + 1) * RS + e + 8] = 2.f * c[nt][3];
+        }
+      }
+    }
+    __syncthreads();  // rk holds the lead's dz2 term
+    float dvp[M::NVB][NT][2] = {};
+#pragma unroll 1
+    for (int tp = part; tp < D / 2; tp += kParts) {
+      float x[NT][2][2] = {};
+#pragma unroll
+      for (int vb = 0; vb < M::NVB; ++vb) {
+        const int vc = vb * 8 + g;
+        tile_product<SPLIT_K, D / 8, NT, XS>(ds2 + (2 * tp * D + t) * DVT + vc, D * DVT,
+                                              4 * DVT, 8 * DVT, kb, c);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int j = r0 + 2 * t + 8 * nt;
+          const float2 k0 = *reinterpret_cast<const float2*>(ks + j * XS + 2 * tp);
+          const float2 k1 = *reinterpret_cast<const float2*>(ks + (j + 1) * XS + 2 * tp);
+          dvp[vb][nt][0] += k0.x * c[nt][0] + k0.y * c[nt][2];
+          dvp[vb][nt][1] += k1.x * c[nt][1] + k1.y * c[nt][3];
+          const float v0 = vs[j * DVT + vc], v1 = vs[(j + 1) * DVT + vc];
+          x[nt][0][0] += v0 * c[nt][0];
+          x[nt][0][1] += v0 * c[nt][2];
+          x[nt][1][0] += v1 * c[nt][1];
+          x[nt][1][1] += v1 * c[nt][3];
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float s = sum_over_g(x[nt], g);
+        if (g < 4) {
+          const int j = r0 + 2 * t + 8 * nt + (g & 1), tt = 2 * tp + (g >> 1);
+          float& r = rk[j * RS + tt];
+          r = (lead ? r : 0.f) + 2.f * s;
+        }
+      }
+    }
+#pragma unroll
+    for (int vb = 0; vb < M::NVB; ++vb)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          atomicAdd(dv_s + (r0 + 2 * t + 8 * nt + h) * DVT + vb * 8 + g, dvp[vb][nt][h]);
+  } else {
+    float cz[NT][4] = {}, dvp[NT][2] = {};
+#pragma unroll 1
+    for (int tt0 = part * 16; tt0 < D; tt0 += 16 * kParts) {
+      const int tt = tt0 + g;
+      tile_product<SPLIT_K, D / 8, NT, XS>(ds2 + t * D + tt, 8, 4 * D, 8 * D, kb, c);
+      if (lead) tile_product<SPLIT_K, D / 8, NT, XS>(dz2 + t * D + tt, 8, 4 * D, 8 * D, kb, cz);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = r0 + 2 * t + 8 * nt + h;
+          const float vj = vs[j];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            dvp[nt][h] += ks[j * XS + tt + 8 * u] * c[nt][2 * u + h];
+            atomicAdd(dkc + j * D + tt + 8 * u, 2.f * (vj * c[nt][2 * u + h] + cz[nt][2 * u + h]));
+          }
+        }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float s = sum_g(dvp[nt][h]);
+        if (g == 0) atomicAdd(dv_s + r0 + 2 * t + 8 * nt + h, s);
+      }
+  }
+  __syncthreads();  // rk and dv_s hold the carry read
 }
 
 // ---------------------------------------------------------------------------------
@@ -310,7 +694,7 @@ __device__ void absorb(float* s2, float* z2, float* s1, float* z1, const float* 
 // ---------------------------------------------------------------------------------
 
 template <typename T, int D, int ORDER>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)  // one block per SM (shared memory)
 taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const T* __restrict__ out, float* __restrict__ dq,
@@ -318,7 +702,8 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int N, int DV, float a) {
   using L = Layout<D>;
   using M = Dims<D>;
-  constexpr int DVT = M::DVT, C = M::C, XS = M::XS, BS = M::BS, DG = M::DG;
+  constexpr int DVT = M::DVT, C = M::C, QS = M::QS1, KS = M::KS1, BS = M::BS, DG = M::DG;
+  constexpr bool kSplit = std::is_same<T, float>::value;  // bf16 q, k are TF32-exact
 
   extern __shared__ __align__(16) float smem[];
   float* s2 = smem + L::s2;
@@ -332,6 +717,8 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* den_s = smem + L::den;
   float* dden_s = smem + L::dden;
   float* buf = smem + L::buf;
+  float* rq = smem + L::r;
+  float* rd = smem + L::rd;
 
   const int tid = threadIdx.x;
   const long bk = blockIdx.x;
@@ -353,27 +740,25 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < nc; ++c) {
     __syncthreads();  // the previous chunk's state update is complete
     const long row0 = (long)c * C;
-    load_rows<T, D>(ks, kb + row0 * D);
+    load_rows<T, D, KS>(ks, kb + row0 * D);
     load_vtile<T, DVT>(vs, vb, row0, DV, v_off);
     const float count = (float)(c * C);  // ones of all earlier chunks
 
     for (int g = 0; g < G; ++g) {
       const long grow0 = (long)g * N + row0;  // this head's first row of the chunk
-      load_rows<T, D>(qs, qb + grow0 * D);
+      load_rows<T, D, QS>(qs, qb + grow0 * D);
       __syncthreads();
-      score_tile<D>(buf, qs, ks, a);
+      score_tile<D, QS, KS>(buf, qs, ks, a);
+      if constexpr (ORDER >= 2) read_z2<kSplit, D>(qs, z2, rd, rq, lead);
       __syncthreads();
 
       // ---- rows: den (recomputed as the forward does), dden, dnum ----
       {
         const int i = tid / kGroups, part = tid % kGroups;
-        const float* qi = qs + i * XS;
-        float intra = 0.f, lin = 0.f, quad = 0.f, rowdot = 0.f;
+        const float* qi = qs + i * QS;
+        float intra = 0.f, lin = 0.f, rowdot = 0.f;
         for (int j = part; j <= i; j += kGroups) intra += poly<ORDER>(buf[i * BS + j]);
-        for (int e = part; e < D; e += kGroups) {
-          lin += qi[e] * z1[e];
-          if (ORDER >= 2) quad += qi[e] * dot_smem<D>(z2 + e * D, qi);
-        }
+        for (int e = part; e < D; e += kGroups) lin += qi[e] * z1[e];
         const T* dor = dob + (grow0 + i) * DV;
         const T* orow = ob + (grow0 + i) * DV;
         for (int x = part; x < DV; x += kGroups) rowdot += to_f32(dor[x]) * to_f32(orow[x]);
@@ -381,9 +766,12 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int off = 1; off < kGroups; off <<= 1) {
           intra += __shfl_xor_sync(0xffffffffu, intra, off);
           lin += __shfl_xor_sync(0xffffffffu, lin, off);
-          quad += __shfl_xor_sync(0xffffffffu, quad, off);
           rowdot += __shfl_xor_sync(0xffffffffu, rowdot, off);
         }
+        float quad = 0.f;
+        if constexpr (ORDER >= 2)
+#pragma unroll
+          for (int p = 0; p < kParts; ++p) quad += rd[p * C + i];
         float dn = intra + count + a * lin + half_a2 * quad;
         if (fabsf(dn) < kDenEps) dn = kDenEps;
         const float dd = -rowdot / dn;
@@ -400,12 +788,13 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       scores_to_ds<D, ORDER>(buf, dnum, dden_s, vs, a, lead);
+      if constexpr (ORDER >= 2)
+        read_s2_dq<kSplit, D>(qs, s2, z2, dnum, dden_s, rq, dqb + grow0 * D, a2, lead);
       __syncthreads();
 
       // ---- dq rows: thread (row i, DG columns from d0) ----
       {
         const int i = tid % C, d0 = (tid / C) * DG;
-        const float* qi = qs + i * XS;
         float acc[DG];
 #pragma unroll
         for (int dd = 0; dd < DG; ++dd) acc[dd] = 0.f;
@@ -413,57 +802,37 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < C; ++j) {
           const float w = buf[i * BS + j];
           float kv[DG];
-          load_vec<DG>(kv, ks + j * XS + d0);
+          load_vec<DG>(kv, ks + j * KS + d0);
 #pragma unroll
           for (int dd = 0; dd < DG; ++dd) acc[dd] += w * kv[dd];
         }
-        // earlier chunks: a·Σ_v S1[d,v] dnum_v  and  a²·Σ_e q_e Σ_v S2[d,e,v] dnum_v
+        // earlier chunks: a·Σ_v S1[d,v] dnum_v (the S2 and z2 terms are in rq)
         float dn[DVT];
         load_vec<DVT>(dn, dnum + i * DVT);
 #pragma unroll
         for (int dd = 0; dd < DG; ++dd) acc[dd] += a * dot<DVT>(s1 + (d0 + dd) * DVT, dn);
-        if (ORDER >= 2) {
-          float quad[DG];
-#pragma unroll
-          for (int dd = 0; dd < DG; ++dd) quad[dd] = 0.f;
-#pragma unroll 2
-          for (int e = 0; e < D; ++e) {
-            const float qe = qi[e];
-#pragma unroll
-            for (int dd = 0; dd < DG; ++dd)
-              quad[dd] += qe * dot<DVT>(s2 + ((d0 + dd) * D + e) * DVT, dn);
-          }
-#pragma unroll
-          for (int dd = 0; dd < DG; ++dd) acc[dd] += a2 * quad[dd];
-        }
-        if (lead) {  // value-independent terms, once
+        if (lead) {  // value-independent, once
           const float ddi = dden_s[i];
 #pragma unroll
           for (int dd = 0; dd < DG; ++dd) acc[dd] += a * ddi * z1[d0 + dd];
-          if (ORDER >= 2) {
-            float u[DG];
+        }
+        if constexpr (ORDER >= 2 && M::kRows) {
+          float r[DG];
+          load_vec<DG>(r, rq + i * M::RS + d0);
 #pragma unroll
-            for (int dd = 0; dd < DG; ++dd) u[dd] = 0.f;
-            for (int e = 0; e < D; ++e) {  // (z2 q)_d, with z2 symmetric
-              const float qe = qi[e];
-              float zr[DG];
-              load_vec<DG>(zr, z2 + e * D + d0);
-#pragma unroll
-              for (int dd = 0; dd < DG; ++dd) u[dd] += zr[dd] * qe;
-            }
-#pragma unroll
-            for (int dd = 0; dd < DG; ++dd) acc[dd] += a2 * ddi * u[dd];
-          }
+          for (int dd = 0; dd < DG; ++dd) acc[dd] += r[dd];
         }
         float* dqr = dqb + (grow0 + i) * D + d0;
 #pragma unroll
         for (int dd = 0; dd < DG; ++dd) atomicAdd(dqr + dd, acc[dd]);
       }
-      __syncthreads();  // qs, buf and dnum are reused by the next head
+      __syncthreads();  // qs, buf, dnum, rq and rd are reused by the next head
     }
 
     // ---- absorb this chunk's keys/values into the state ----
-    absorb<D, ORDER>(s2, z2, s1, z1, ks, vs, nullptr, 1.f, 1.f, true);
+    if constexpr (ORDER >= 2)
+      update_second_moments<kSplit, false, D, KS>(s2, z2, ks, vs, nullptr, 1.f, true);
+    update_first_moments<D, KS>(s1, z1, ks, vs, nullptr, 1.f, true);
   }
 }
 
@@ -472,7 +841,7 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------------
 
 template <typename T, int D, int ORDER>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)  // one block per SM (shared memory)
 taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ den_in, const float* __restrict__ dden_in,
@@ -480,7 +849,8 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float a) {
   using L = Layout<D>;
   using M = Dims<D>;
-  constexpr int DVT = M::DVT, C = M::C, XS = M::XS, BS = M::BS, DG = M::DG;
+  constexpr int DVT = M::DVT, C = M::C, QS = M::QS2, KS = M::KS2, BS = M::BS, DG = M::DG;
+  constexpr bool kSplit = std::is_same<T, float>::value;
 
   extern __shared__ __align__(16) float smem[];
   float* ds2 = smem + L::s2;
@@ -495,6 +865,7 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dden_s = smem + L::dden;
   float* dv_s = smem + L::dv;
   float* buf = smem + L::buf;
+  float* rk = smem + L::r;
 
   const int tid = threadIdx.x;
   const long bk = blockIdx.x;
@@ -519,45 +890,32 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = N / C - 1; c >= 0; --c) {
     __syncthreads();  // the later chunk's carry update is complete
     const long row0 = (long)c * C;
-    load_rows<T, D>(ks, kb + row0 * D);
+    load_rows<T, D, KS>(ks, kb + row0 * D);
     load_vtile<T, DVT>(vs, vb, row0, DV, v_off);
     for (int i = tid; i < C * DVT; i += kThreads) dv_s[i] = 0.f;
     __syncthreads();
 
     // ---- later chunks read this chunk's k/v through the state: the carry, read
     // before this chunk's own queries are added to it ----
+    if constexpr (ORDER >= 2)
+      read_carry<kSplit, D>(ks, vs, ds2, dz2, dv_s, rk, dkb + row0 * D, lead);
     float dk_acc[DG];
-#pragma unroll
-    for (int tt = 0; tt < DG; ++tt) dk_acc[tt] = 0.f;
     {
-      const float* kj = ks + j * XS;
-      float vj[DVT], dv_acc[DVT];
+      const float* kj = ks + j * KS;
+      float vj[DVT], dv_acc[DVT], carry[DG] = {};
       load_vec<DVT>(vj, vs + j * DVT);
+      if constexpr (ORDER >= 2 && M::kRows) load_vec<DG>(carry, rk + j * M::RS + t0);
 #pragma unroll
       for (int x = 0; x < DVT; ++x) dv_acc[x] = grp == 0 ? ds0[x] : 0.f;
+#pragma unroll
       for (int tt = 0; tt < DG; ++tt) {
         const int t = t0 + tt;
-        const float kt = kj[t];
         float row[DVT];
         load_vec<DVT>(row, ds1 + t * DVT);
-        float dkt = dot_reg<DVT>(row, vj);
+        float dkt = carry[tt] + dot_reg<DVT>(row, vj);
 #pragma unroll
-        for (int x = 0; x < DVT; ++x) dv_acc[x] += kt * row[x];
-        if (ORDER >= 2) {
-#pragma unroll 2
-          for (int e = 0; e < D; ++e) {
-            const float ke = kj[e];
-            load_vec<DVT>(row, ds2 + (t * D + e) * DVT);
-            dkt += 2.f * ke * dot_reg<DVT>(row, vj);
-            const float kk = kt * ke;
-#pragma unroll
-            for (int x = 0; x < DVT; ++x) dv_acc[x] += kk * row[x];
-          }
-        }
-        if (lead) {  // value-independent terms, once
-          dkt += dz1[t];
-          if (ORDER >= 2) dkt += 2.f * dot_smem<D>(dz2 + t * D, kj);
-        }
+        for (int x = 0; x < DVT; ++x) dv_acc[x] += kj[t] * row[x];
+        if (lead) dkt += dz1[t];  // value-independent, once
         dk_acc[tt] = dkt;
       }
 #pragma unroll
@@ -567,14 +925,14 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < G; ++g) {
       const long grow0 = (long)g * N + row0;
       __syncthreads();  // the carry read / the previous head's buffers are done
-      load_rows<T, D>(qs, qb + grow0 * D);
+      load_rows<T, D, QS>(qs, qb + grow0 * D);
       for (int i = tid; i < C * DVT; i += kThreads) {
         const long r = grow0 + i / DVT;
         dnum[i] = to_f32(dob[r * DV + v_off + i % DVT]) / denb[r];
       }
       for (int i = tid; i < C; i += kThreads) dden_s[i] = ddenb[grow0 + i];
       __syncthreads();
-      score_tile<D>(buf, qs, ks, a);
+      score_tile<D, QS, KS>(buf, qs, ks, a);
       __syncthreads();
 
       // ---- intra-chunk dv: Σ_{i ≥ j} p_ij dnum_i (rows split over the groups) ----
@@ -601,13 +959,15 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < C; ++i) {
         const float w = buf[i * BS + j];
         float qv[DG];
-        load_vec<DG>(qv, qs + i * XS + t0);
+        load_vec<DG>(qv, qs + i * QS + t0);
 #pragma unroll
         for (int tt = 0; tt < DG; ++tt) dk_acc[tt] += w * qv[tt];
       }
 
       // ---- this head's queries into the carry (for earlier chunks) ----
-      absorb<D, ORDER>(ds2, dz2, ds1, dz1, qs, dnum, dden_s, a, half_a2, lead);
+      if constexpr (ORDER >= 2)
+        update_second_moments<kSplit, true, D, QS>(ds2, dz2, qs, dnum, dden_s, half_a2, lead);
+      update_first_moments<D, QS>(ds1, dz1, qs, dnum, dden_s, a, lead);
       for (int x = tid; x < DVT; x += kThreads) {
         float acc = 0.f;
         for (int i = 0; i < C; ++i) acc += dnum[i * DVT + x];

@@ -66,7 +66,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    key = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``SOURCES[name]``, named by a hash of the source,
+    every header of ``csrc/`` (the sources include them) and the flags."""
+    key = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
 
@@ -132,12 +137,6 @@ def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = bind(build(name)[name], name)
     return _libs[name]
-
-
-def _check(lib_name: str, what: str, err: int) -> None:
-    if err != 0:
-        msg = getattr(_library(lib_name), f"{lib_name}_error_string")(err).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -253,17 +252,43 @@ def _bwd_checks(q, k, v, dout, order, *more) -> bool:
     return False
 
 
-def _launch_bwd(fn_name: str, tensors, outs, bk, g, n, d, dv, alpha, order) -> None:
-    lib = _library("taylor_bwd")
+def launch_bwd_dq(lib: ctypes.CDLL, q, k, v, dout, out, alpha: float, order: int):
+    """Runs ``taylor_bwd_dq_launch`` of ``lib`` (see ``bind``) on checked,
+    contiguous CUDA tensors: ``(dq, den, dden)`` float32; raises on a launch
+    error.  Counts nothing: ``taylor_bwd_dq`` is the counted entry."""
+    bk, g, n, d = q.shape
+    dq = torch.zeros((bk, g, n, d), dtype=torch.float32, device=q.device)
+    den = torch.empty((bk, g, n), dtype=torch.float32, device=q.device)
+    dden = torch.empty_like(den)
+    _launch_bwd(lib, "taylor_bwd_dq_launch", (q, k, v, dout, out), (dq, den, dden),
+                alpha, order)
+    return dq, den, dden
+
+
+def launch_bwd_dkv(lib: ctypes.CDLL, q, k, v, dout, den, dden, alpha: float, order: int):
+    """Runs ``taylor_bwd_dkv_launch`` of ``lib`` as ``launch_bwd_dq`` does:
+    ``(dk, dv)`` float32."""
+    bk, g, n, d = q.shape
+    dk = torch.zeros((bk, n, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty((bk, n, v.shape[-1]), dtype=torch.float32, device=q.device)
+    _launch_bwd(lib, "taylor_bwd_dkv_launch", (q, k, v, dout, den, dden), (dk, dv),
+                alpha, order)
+    return dk, dv
+
+
+def _launch_bwd(lib, fn_name: str, tensors, outs, alpha, order) -> None:
+    bk, g, n, d = tensors[0].shape
     a = 1.0 / (alpha * d**0.5)
     bf16 = int(tensors[0].dtype == torch.bfloat16)
     with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
         err = getattr(lib, fn_name)(
             *(t.data_ptr() for t in tensors), *(t.data_ptr() for t in outs),
-            bk, g, n, d, dv, a, order, bf16, stream,
+            bk, g, n, d, tensors[2].shape[-1], a, order, bf16, stream,
         )
-    _check("taylor_bwd", fn_name, err)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: {lib.taylor_bwd_error_string(err).decode()} "
+                           f"({err})")
 
 
 def taylor_bwd_dq(
@@ -274,7 +299,6 @@ def taylor_bwd_dq(
 
     ``dq [bk, g, n, d]``; ``den`` (clamped) and ``dden`` ``[bk, g, n]`` feed
     pass 2.  Counts its launch in ``taylor_bwd.dq_launches``."""
-    bk, g, n, d = q.shape
     if out.shape != dout.shape:
         raise ValueError(f"out {out.shape} and dout {dout.shape} differ in shape")
     if _bwd_checks(q, k, v, dout, order, out):
@@ -282,11 +306,7 @@ def taylor_bwd_dq(
             q[None], k[None], v[None], dout[None], out[None], alpha=alpha, order=order))
     _check_cuda_inputs("taylor_bwd", q, out)
     ins = [t.contiguous() for t in (q, k, v, dout, out)]
-    dq = torch.zeros((bk, g, n, d), dtype=torch.float32, device=q.device)
-    den = torch.empty((bk, g, n), dtype=torch.float32, device=q.device)
-    dden = torch.empty_like(den)
-    _launch_bwd("taylor_bwd_dq_launch", ins, (dq, den, dden), bk, g, n, d,
-                v.shape[-1], alpha, order)
+    dq, den, dden = launch_bwd_dq(_library("taylor_bwd"), *ins, alpha, order)
     taylor_bwd.dq_launches += 1
     return dq, den, dden
 
@@ -308,10 +328,7 @@ def taylor_bwd_dkv(
     ):
         raise ValueError("den and dden must be float32 [bk, g, n] (pass 1's rows)")
     ins = [t.contiguous() for t in (q, k, v, dout, den, dden)]
-    dk = torch.zeros((bk, n, d), dtype=torch.float32, device=q.device)
-    dv_ = torch.empty((bk, n, v.shape[-1]), dtype=torch.float32, device=q.device)
-    _launch_bwd("taylor_bwd_dkv_launch", ins, (dk, dv_), bk, g, n, d, v.shape[-1],
-                alpha, order)
+    dk, dv_ = launch_bwd_dkv(_library("taylor_bwd"), *ins, alpha, order)
     taylor_bwd.dkv_launches += 1
     return dk, dv_
 
