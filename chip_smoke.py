@@ -4,8 +4,10 @@
 Builds the CUDA kernels from the sources in this checkout (one nvcc per
 source, in parallel), holds each against its plain PyTorch version, drives
 smollm-135m's full-width inference forward, its serving engine and its
-training step (random weights from a seed), cross-checks them, and prints
-one JSON line describing every ported kernel followed by the device line.
+training step (random weights from a seed), cross-checks them, runs the
+same model on the paper's baselines (softmax, sliding-window softmax,
+elu+1 linear, Taylor order 1), and prints one JSON line describing every
+ported kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -81,6 +83,9 @@ GRAD_EDGE = [  # (order, b, h, hk, n, d, dv): tests/test_kernels.py's GRAD_SWEEP
     (2, 1, 4, 2, 256, 32, 32),     # d=32: 4 value blocks of 8
 ]
 TRAIN = dict(b=4, n=1024, steps=8, lr=2e-3, warmup=2)  # phase 7
+BASELINE_STEPS = 4  # phase 8's training steps per backend, on phase 7's batch
+FLASH_N = 4096  # phase 8's softmax forward on the flash path (n > 2048)
+FLASH_TOL = 1e-4
 PROMPT_LENS = (100, 256, 300, 384, 512, 700)
 MAX_NEW = 32
 F32_TOL = 1e-4
@@ -438,41 +443,70 @@ def phase_backward(torch, K, ops, ref_mod, ln):
     return rows
 
 
-def phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init,
-                make_train_step, make_loss_fn, loss_and_grads, tree_leaves):
-    """Phase 7: full-width training steps on one fixed batch, through the
-    kernels; then the kernel gradients against the torch recompute's."""
-    tr = TRAIN
-    task = make_task("bigram", cfg.vocab, tr["n"], tr["b"], seed=0)
-    batch = {k_: torch.from_numpy(x).cuda() for k_, x in task.batch_at(0).items()}
-    opt = adamw(cosine_warmup(tr["lr"], tr["warmup"], tr["steps"]))
-    state = train_state_init(torch.Generator().manual_seed(0), cfg, opt)
-    step = make_train_step(cfg, opt)
-    per_layer = {"fwd": 2 if cfg.remat == "full" else 1, "dq": 1, "dkv": 1}
-    expect = tuple(per_layer[x] * cfg.n_layers for x in ("fwd", "dq", "dkv"))
-    counters = lambda: (K.taylor_fwd.launches, K.taylor_bwd.dq_launches,
-                        K.taylor_bwd.dkv_launches)
+def taylor_counters(K):
+    """The three kernels' launch counts: (fwd, dq, dkv)."""
+    return K.taylor_fwd.launches, K.taylor_bwd.dq_launches, K.taylor_bwd.dkv_launches
+
+
+def kernel_launches_per_step(cfg):
+    """(fwd, dq, dkv) launches of one training step: one forward per layer,
+    two under remat "full"; none off the Taylor kernels."""
+    if cfg.attention != "taylor":
+        return 0, 0, 0
+    return (2 if cfg.remat == "full" else 1) * cfg.n_layers, cfg.n_layers, cfg.n_layers
+
+
+def train_steps(torch, K, cfg, init_state, step, batch, steps, tag):
+    """Runs ``steps`` training steps from ``init_state()`` with the kernels'
+    counts set to 0 just before, printing each step; fails unless every step
+    launches ``kernel_launches_per_step(cfg)`` and has a finite loss.  Only
+    this frame holds the state, so each step's input state is freed as the
+    next is made.  Returns (state, losses, host seconds per step, launches
+    over the run, peak bytes)."""
+    expect = kernel_launches_per_step(cfg)
+    state = init_state()
     K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    for i in range(tr["steps"]):
-        c0 = counters()
+    for i in range(steps):
+        c0 = taylor_counters(K)
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         loss = float(metrics["loss"])  # waits for the step
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        got = tuple(a - b for a, b in zip(counters(), c0))
+        got = tuple(a - b for a, b in zip(taylor_counters(K), c0))
         losses.append(loss)
-        print(f"[7] step {i + 1}: loss={loss:.4f} {times[-1] * 1e3:.1f} ms "
+        print(f"{tag} step {i + 1}: loss={loss:.4f} {times[-1] * 1e3:.1f} ms "
               f"launches fwd,dq,dkv={got}")
         if got != expect:
-            fail(f"training step launched (fwd, dq, dkv) = {got}, expected {expect}")
+            fail(f"{tag} training step launched (fwd, dq, dkv) = {got}, expected {expect}")
         if not math.isfinite(loss):
-            fail(f"loss is not finite at step {i + 1}")
-    launches = dict(zip(("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"), counters()))
-    peak = torch.cuda.max_memory_allocated()
+            fail(f"{tag} loss is not finite at step {i + 1}")
+    launches = dict(zip(("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"), taylor_counters(K)))
+    return state, losses, times, launches, torch.cuda.max_memory_allocated()
+
+
+def bigram_batch(torch, make_task, cfg):
+    """Phase 7's fixed training batch: ``make_task("bigram", vocab, n, b)``'s
+    step 0, on the card."""
+    task = make_task("bigram", cfg.vocab, TRAIN["n"], TRAIN["b"], seed=0)
+    return {k_: torch.from_numpy(x).cuda() for k_, x in task.batch_at(0).items()}
+
+
+def phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init,
+                make_train_step, make_loss_fn, loss_and_grads, tree_leaves):
+    """Phase 7: full-width training steps on one fixed batch, through the
+    kernels; then the kernel gradients against the torch recompute's."""
+    tr = TRAIN
+    batch = bigram_batch(torch, make_task, cfg)
+    opt = adamw(cosine_warmup(tr["lr"], tr["warmup"], tr["steps"]))
+    step = make_train_step(cfg, opt)
+    counters = lambda: taylor_counters(K)
+    state, losses, times, launches, peak = train_steps(
+        torch, K, cfg, lambda: train_state_init(torch.Generator().manual_seed(0), cfg, opt),
+        step, batch, tr["steps"], "[7]")
     steady = sum(times[1:]) / (len(times) - 1)
     tokens = tr["b"] * tr["n"]
     print(f"[7] smollm-135m training {cfg.dtype} remat={cfg.remat} b={tr['b']} n={tr['n']}: "
@@ -549,6 +583,163 @@ def cross_check(torch, lm_apply, params, cfg, prompts, outs):
             if pred[t] != o[t] and not tie:
                 mismatches += 1
     return mismatches, near_ties
+
+
+def cross_check_decode(torch, lm_prefill, lm_decode_step, slots, params, cfg, prompts, outs):
+    """Each engine token against the argmax of the model's own serving path
+    with the engine's tokens fed back: every request prefilled alone into a
+    slot of one cache, then all decoded together.  For ``linear_elu``, whose
+    decode reads its KV cache with the exact softmax (as the JAX package's
+    does) while ``lm_apply`` runs elu linear attention, this is the oracle
+    past the first token.  Returns (mismatches that are not near-ties,
+    near-ties)."""
+    n_max = max(len(p) for p in prompts) + MAX_NEW
+    caches = slots.init_slot_caches(cfg, len(prompts), n_max)
+    first = []
+    for j, p in enumerate(prompts):
+        lg, c = lm_prefill(params, {"tokens": p.cuda()[None]}, cfg, n_max)
+        caches = slots.write_slot(caches, c, j)
+        first.append(lg[0])
+    logits = [torch.stack(first)]
+    toks = torch.stack([torch.as_tensor(o) for o in outs]).cuda()  # [requests, MAX_NEW]
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=toks.device)
+    for t in range(MAX_NEW - 1):
+        lg, caches = lm_decode_step(params, toks[:, t], caches, pos + t, cfg)
+        logits.append(lg)
+    lg = torch.stack(logits, dim=1)  # [requests, MAX_NEW, vocab]
+    top2 = lg.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
+    wrong = lg.argmax(-1) != toks
+    return int((wrong & ~tie).sum()), int(tie.sum())
+
+
+def phase_baselines(torch, K, infer, serve_fn, cross_fn):
+    """Phase 8: the paper's baselines at full width — smollm-135m on the
+    softmax, softmax_window and linear_elu backends, and taylor order 1
+    through the kernels.  For each: the forward, serving in f32 with every
+    engine token checked, then (with the inference weights freed, so that
+    peak memory compares with phase 7's) training steps whose loss must
+    fall.  For softmax also the flash path (n = 4096) against the forced
+    dense path; for order 1 its f32 logits against attn_impl="torch"."""
+    from repro_torch.backends import softmax as softmax_backend
+    from repro_torch.configs import get_config
+    from repro_torch.core import TaylorConfig
+    from repro_torch.data import make_task
+    from repro_torch.models import lm_decode_step, lm_init, lm_prefill
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.serve import slots
+    from repro_torch.train import make_train_step, train_state_init
+
+    variants = {
+        "softmax": get_config("smollm-135m", backend="softmax"),
+        "softmax_window": get_config("smollm-135m", backend="softmax_window"),
+        "linear_elu": get_config("smollm-135m", backend="linear_elu"),
+        "taylor-1": get_config("smollm-135m", taylor=TaylorConfig(order=1)),
+    }
+    params = lm_init(torch.Generator().manual_seed(0), variants["softmax"])
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, variants["softmax"].vocab, (4, 1024), generator=gen).cuda()
+    summary, launches = {}, {}
+    for name, cfg in variants.items():
+        tag = f"[8] {name}"
+        cfg32 = cfg.replace(dtype="float32")
+        # -- forward --
+        K.taylor_fwd.launches = 0
+        logits, _ = infer(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        fwd_launches = K.taylor_fwd.launches
+        if fwd_launches != (cfg.n_layers if cfg.attention == "taylor" else 0):
+            fail(f"{tag} lm_apply launched taylor_fwd {fwd_launches} times")
+        if logits.shape != (*tokens.shape, cfg.vocab) or not torch.isfinite(logits).all():
+            fail(f"{tag} lm_apply logits have the wrong shape or are not finite")
+        del logits
+        fwd_ms = cuda_ms(torch, lambda: infer(params, {"tokens": tokens}, cfg), 3)
+        print(f"{tag} lm_apply b={tokens.shape[0]} n={tokens.shape[1]} {cfg.dtype}: "
+              f"forward_ms={fwd_ms:.2f} "
+              f"taylor_fwd launches={fwd_launches}")
+        if name == "taylor-1":
+            launches["lm_apply"] = fwd_launches
+            err = rel_err(torch, infer(params, {"tokens": tokens}, cfg32)[0],
+                          infer(params, {"tokens": tokens}, cfg32.replace(attn_impl="torch"))[0])
+            print(f"{tag} float32 logits rel_err kernel vs torch = {err:.3e} (tol 1e-3)")
+            if not err < 1e-3:
+                fail(f"{tag} float32 kernel forward disagrees with the torch forward: {err}")
+        if name == "softmax":
+            long = torch.randint(0, cfg.vocab, (1, FLASH_N), generator=gen).cuda()
+            flash, calls = softmax_backend.flash_softmax_attention, []
+            softmax_backend.flash_softmax_attention = (
+                lambda *a, **kw: calls.append(1) or flash(*a, **kw))
+            try:
+                t0 = time.perf_counter()
+                flash_logits = infer(params, {"tokens": long}, cfg32)[0]
+                torch.cuda.synchronize()
+                flash_s = time.perf_counter() - t0
+            finally:
+                softmax_backend.flash_softmax_attention = flash
+            min_seq = softmax_backend._FLASH_MIN_SEQ
+            softmax_backend._FLASH_MIN_SEQ = FLASH_N  # forces the dense path
+            try:
+                t0 = time.perf_counter()
+                dense_logits = infer(params, {"tokens": long}, cfg32)[0]
+                torch.cuda.synchronize()
+                dense_s = time.perf_counter() - t0
+            finally:
+                softmax_backend._FLASH_MIN_SEQ = min_seq
+            err = rel_err(torch, flash_logits, dense_logits)
+            del flash_logits, dense_logits
+            print(f"{tag} flash path b=1 n={FLASH_N} float32: {len(calls)} flash calls, "
+                  f"logits rel_err vs dense = {err:.3e} (tol {FLASH_TOL}); "
+                  f"lm_apply {flash_s * 1e3:.1f} ms flash, {dense_s * 1e3:.1f} ms dense "
+                  f"(host clock, one call each)")
+            if len(calls) != cfg.n_layers:
+                fail(f"{tag} the n={FLASH_N} forward took the flash path {len(calls)} times")
+            if not err < FLASH_TOL:
+                fail(f"{tag} flash logits disagree with the dense path: {err}")
+        # -- serving (f32) --
+        K.taylor_fwd.launches = 0
+        prompts, outs, st, wall = serve_fn(params, cfg32)
+        if name == "linear_elu":
+            mismatches, near_ties = cross_check_decode(
+                torch, lm_prefill, lm_decode_step, slots, params, cfg32, prompts, outs)
+            oracle = "its prefill + decode path (softmax KV read)"
+        else:
+            mismatches, near_ties = cross_fn(params, cfg32, prompts, outs)
+            oracle = "lm_apply argmax"
+        decode_tps = st["decode_tokens"] / st["decode_seconds"]
+        print(f"{tag} served {len(outs)} requests x {MAX_NEW} tokens f32 in {wall:.2f} s: "
+              f"prefill {st['prefill_seconds']:.3f} s, decode {st['decode_tokens']} tokens in "
+              f"{st['decode_seconds']:.3f} s = {decode_tps:.1f} tokens/s; engine tokens vs "
+              f"{oracle}: mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}")
+        if mismatches:
+            fail(f"{tag} {mismatches} engine tokens differ from {oracle}")
+        summary[name] = dict(forward_ms=fwd_ms, decode_tokens_per_s=decode_tps)
+    del params
+    batch = bigram_batch(torch, make_task, variants["softmax"])
+    for name, cfg in variants.items():
+        tag = f"[8] {name}"
+        opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], BASELINE_STEPS))
+        state, losses, times, tl, peak = train_steps(
+            torch, K, cfg, lambda: train_state_init(torch.Generator().manual_seed(0), cfg, opt),
+            make_train_step(cfg, opt), batch, BASELINE_STEPS, tag)
+        del state  # before the next backend's run, whose peak would count it
+        steady = sum(times[1:]) / (len(times) - 1)
+        tps = TRAIN["b"] * TRAIN["n"] / steady
+        print(f"{tag} training {cfg.dtype} remat={cfg.remat} b={TRAIN['b']} n={TRAIN['n']}: "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; first step {times[0] * 1e3:.1f} ms, "
+              f"then {steady * 1e3:.1f} ms/step = {tps:.0f} tokens/s; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches {tl}")
+        if not losses[-1] < losses[0]:
+            fail(f"{tag} loss did not fall: {losses[0]} -> {losses[-1]}")
+        if name == "taylor-1":
+            launches["train"] = tl
+        summary[name].update(train_ms_per_step=steady * 1e3, train_tokens_per_s=tps,
+                             peak_gib=peak / 2**30)
+    print("[8] summary (smollm-135m full width; forward b=4 n=1024 bf16, training b=4 "
+          "n=1024 bf16 remat full, decode f32 on 4 slots): " + "; ".join(
+              f"{n_}: forward {r['forward_ms']:.2f} ms, train {r['train_ms_per_step']:.1f} "
+              f"ms/step, decode {r['decode_tokens_per_s']:.1f} tokens/s"
+              for n_, r in summary.items()))
+    return summary, launches
 
 
 def main() -> int:
@@ -671,10 +862,11 @@ def main() -> int:
           f"finished after {step_ms:.2f} ms")
 
     # ---- 6. cross-check in float32: engine tokens vs lm_apply argmax ----
-    prompts, outs, _, _ = serve_requests(torch, ServeEngine, Request, params, cfg32)
+    prompts, outs, st, _ = serve_requests(torch, ServeEngine, Request, params, cfg32)
     mismatches, near_ties = cross_check(torch, infer, params, cfg32, prompts, outs)
     print(f"[6] f32 engine tokens vs lm_apply argmax over {len(outs) * MAX_NEW} positions: "
-          f"mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}")
+          f"mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}; f32 decode "
+          f"{st['decode_tokens'] / st['decode_seconds']:.1f} tokens/s")
     if mismatches:
         fail(f"{mismatches} engine tokens differ from the kernel forward's argmax")
 
@@ -683,7 +875,13 @@ def main() -> int:
     train = phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init,
                         make_train_step, make_loss_fn, loss_and_grads, tree_leaves)
 
-    # ---- 8. kernels line ----
+    # ---- 8. the baselines at full width ----
+    _, base_launches = phase_baselines(
+        torch, K, infer,
+        lambda p_, c_: serve_requests(torch, ServeEngine, Request, p_, c_),
+        lambda p_, c_, prompts_, outs_: cross_check(torch, infer, p_, c_, prompts_, outs_))
+
+    # ---- 9. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -693,7 +891,10 @@ def main() -> int:
         "source": src + "csrc/taylor_fwd.cu",
         "replaces": "src/repro/kernels/taylor_attention/kernel.py:107",
         "launches": train["launches"]["taylor_fwd"],
-        "launches_by_path": {"lm_apply": launches, "train_8_steps": train["launches"]["taylor_fwd"]},
+        "launches_by_path": {
+            "lm_apply": launches, "train_8_steps": train["launches"]["taylor_fwd"],
+            "order1_lm_apply": base_launches["lm_apply"],
+            f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"]["taylor_fwd"]},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -702,6 +903,7 @@ def main() -> int:
         "library_ms": None,
         "bound_f32_cores_ms": row["bound_f32_cores_ms"],
         "ms_train_shape": krows[case_name(TRAIN_ATTN, "bfloat16")]["ms"],
+        "plain_ms_train_shape": krows[case_name(TRAIN_ATTN, "bfloat16")]["plain_ms"],
         "shape": shape,
     }]
     for name, line in (("taylor_bwd_dq", 55), ("taylor_bwd_dkv", 158)):
@@ -712,6 +914,9 @@ def main() -> int:
             "source": src + "csrc/taylor_bwd.cu",
             "replaces": f"src/repro/kernels/taylor_attention/kernel_bwd.py:{line}",
             "launches": train["launches"][name],
+            "launches_by_path": {
+                "train_8_steps": train["launches"][name],
+                f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"][name]},
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -720,11 +925,12 @@ def main() -> int:
             "library_ms": None,
             "bound_f32_cores_ms": b["bound_f32_cores_ms"],
             "ms_train_shape": brows[case_name(TRAIN_ATTN, "bfloat16")][name]["ms"],
+            "plain_ms_train_shape": brows[case_name(TRAIN_ATTN, "bfloat16")][name]["plain_ms"],
             "shape": shape,
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 9. device line ----
+    # ---- 10. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.backends.state import tree_slot_health
+
 Tensor = torch.Tensor
 
 
@@ -41,8 +43,9 @@ class AttentionBackend:
             return cfg.attn_impl
         return self.impls[0]
 
-    def init_cache(self, cfg, batch: int, n_max: int, device) -> Any:
-        """Zero decode state for ``batch`` rows."""
+    def init_cache(self, cfg, batch: int, n_max: int, device, dtype: torch.dtype) -> Any:
+        """Zero decode state for ``batch`` rows; KV leaves in ``dtype``
+        (moment states stay float32)."""
         raise NotImplementedError(self.name)
 
     def apply(self, q: Tensor, k: Tensor, v: Tensor, cfg, *, causal: bool = True) -> Tensor:
@@ -61,10 +64,4 @@ class AttentionBackend:
 
     def state_health(self, cache, cfg) -> Tensor:
         """``[b]`` bool: True where every floating leaf of the row is finite."""
-        ok = None
-        for leaf in cache:
-            if leaf is None or not leaf.is_floating_point():
-                continue
-            row = torch.isfinite(leaf).reshape(leaf.shape[0], -1).all(dim=1)
-            ok = row if ok is None else ok & row
-        return ok
+        return tree_slot_health(cache)

@@ -1,6 +1,6 @@
 """Attention-backend registry: the single resolution point for
-``ModelConfig.attention``.  Only ``taylor`` is ported; any other name
-raises "not yet ported"."""
+``ModelConfig.attention``.  A name that is not registered (a backend of the
+JAX package not yet ported) raises "not yet ported"."""
 
 from __future__ import annotations
 

@@ -82,7 +82,7 @@ class TaylorBackend(AttentionBackend):
 
     # -- protocol ------------------------------------------------------------
 
-    def init_cache(self, cfg, batch, n_max, device):
+    def init_cache(self, cfg, batch, n_max, device, dtype):
         hd = cfg.resolved_head_dim
         return init_taylor_state(batch, cfg.n_kv_heads, hd, hd, cfg.taylor,
                                  device=device)

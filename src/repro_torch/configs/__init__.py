@@ -8,6 +8,8 @@ architectures in ``ARCHS`` are ported; other names raise.
 from __future__ import annotations
 
 import importlib
+from typing import Optional
+
 from repro_torch.models.config import ModelConfig
 
 ARCHS = ("smollm-135m",)
@@ -21,9 +23,13 @@ def _module(arch: str):
     )
 
 
-def get_config(arch: str, **overrides) -> ModelConfig:
-    """Full published config, with ``overrides`` replaced."""
+def get_config(arch: str, backend: Optional[str] = None, **overrides) -> ModelConfig:
+    """Full published config, with ``overrides`` replaced.  ``backend``
+    overrides the attention backend ("softmax" = the architecture's own
+    baseline, "taylor" = the paper's technique applied to it)."""
     cfg = _module(arch).CONFIG
+    if backend is not None:
+        cfg = cfg.replace(attention=backend)
     if overrides:
         cfg = cfg.replace(**overrides)
     return cfg

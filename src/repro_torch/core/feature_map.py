@@ -71,6 +71,11 @@ def layernorm_no_affine(x: Tensor, eps: float = 1e-6) -> Tensor:
     return (x - mu) * torch.rsqrt(var + eps)
 
 
+def elu_features(x: Tensor) -> Tensor:
+    """Katharopoulos et al. (2020) baseline feature map: elu(x) + 1, in float32."""
+    return torch.nn.functional.elu(x.float()) + 1.0
+
+
 def poly_scores(s: Tensor, cfg: TaylorConfig) -> Tensor:
     """Taylor-expanded attention weights from raw scaled logits s."""
     out = s if cfg.minus_one else 1.0 + s

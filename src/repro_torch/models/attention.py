@@ -64,9 +64,9 @@ def attention_apply(
     return _out_proj(params, o, x.dtype)
 
 
-def init_cache(cfg: ModelConfig, batch: int, n_max: int, device=None):
-    """Zero decode cache for one attention block."""
-    return resolve_backend(cfg).init_cache(cfg, batch, n_max, device)
+def init_cache(cfg: ModelConfig, batch: int, n_max: int, device=None, dtype=torch.float32):
+    """Zero decode cache for one attention block (KV leaves in ``dtype``)."""
+    return resolve_backend(cfg).init_cache(cfg, batch, n_max, device, dtype)
 
 
 def attention_prefill(

@@ -3,8 +3,9 @@
 
 A model is a repeating ``pattern`` of blocks applied ``n_groups`` times plus
 an optional ``tail``.  The port runs decoder-only models of ``"attn"``
-blocks on the ``taylor`` backend; per-layer schedules, MoE, SSM,
-encoder-decoder and VLM fields are not yet ported.
+blocks on the ``taylor``, ``softmax``, ``softmax_window`` and ``linear_elu``
+backends; per-layer schedules, MoE, SSM, encoder-decoder and VLM fields
+are not yet ported.
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ class ModelConfig:
     #   "torch" — force the plain PyTorch paths (the reference)
     #   "cuda"  — force the CUDA kernel; configs outside its envelope raise
     attn_impl: str = "auto"
+    # Sliding-window size (tokens) of the ``softmax_window`` backend's
+    # O(window) ring-buffer KV cache.
+    attn_window: int = 128
 
     # --- numerics / training ---
     dtype: str = "bfloat16"        # activation dtype
@@ -75,6 +79,8 @@ class ModelConfig:
             raise ValueError(
                 f"attn_impl must be auto|torch|cuda, got {self.attn_impl!r}"
             )
+        if self.attn_window < 1:
+            raise ValueError(f"attn_window must be >= 1, got {self.attn_window}")
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {self.remat!r}")
 

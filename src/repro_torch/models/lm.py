@@ -10,21 +10,22 @@ leaves)::
 JAX package's layout so the serve layer's slot operations and the parity
 tests address them alike::
 
-    {"group": (TaylorState with leaves [n_groups, len(pattern), b, ...],),
-     "tail": (TaylorState [b, ...] per tail block,), "kv_src": None}
+    {"group": (state with leaves [n_groups, len(pattern), b, ...],),
+     "tail": (state [b, ...] per tail block,), "kv_src": None}
+
+where a state is the backend's NamedTuple (``TaylorState`` or ``KVCache``).
 
 Inputs are a dict ``{"tokens": [b, n] int64/int32}``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backends import resolve_backend
-from repro_torch.core import TaylorState
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import block_apply, block_decode, block_init, block_prefill
 from repro_torch.models.config import ModelConfig
@@ -149,28 +150,29 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
 # ---------------------------------------------------------------------------
 
 
-def _stack_states(states: List[TaylorState], n_groups: int, per_group: int) -> TaylorState:
+def _stack_states(states: List[NamedTuple], n_groups: int, per_group: int) -> NamedTuple:
     """Per-layer states (group-major) -> leaves [n_groups, per_group, ...]."""
-    return TaylorState(*(
+    return type(states[0])(*(
         None if leaves[0] is None
         else torch.stack(leaves).reshape((n_groups, per_group) + leaves[0].shape)
         for leaves in zip(*states)
     ))
 
 
-def _split_caches(caches, cfg: ModelConfig) -> List[TaylorState]:
+def _split_caches(caches, cfg: ModelConfig) -> List[NamedTuple]:
     """Inverse of ``_pack_caches``: one state per layer, in layer order."""
     out = []
     if cfg.n_groups:
         (stacked,) = caches["group"]
         for gi in range(cfg.n_groups):
             for r in range(len(cfg.pattern)):
-                out.append(TaylorState(*(None if x is None else x[gi, r] for x in stacked)))
+                out.append(type(stacked)(*(None if x is None else x[gi, r]
+                                           for x in stacked)))
     out.extend(caches["tail"])
     return out
 
 
-def _pack_caches(states: List[TaylorState], cfg: ModelConfig):
+def _pack_caches(states: List[NamedTuple], cfg: ModelConfig):
     n_group_layers = cfg.n_groups * len(cfg.pattern)
     group = ()
     if cfg.n_groups:
@@ -217,8 +219,11 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
 
 
 def lm_init_caches(cfg: ModelConfig, batch: int, n_max: int, device=None):
-    """Zero decode caches with the exact structure ``lm_prefill`` produces."""
+    """Zero decode caches with the exact structure ``lm_prefill`` produces
+    (KV leaves in ``cfg.dtype``, the activations' dtype)."""
     device = resolve_device(device)
     backend = resolve_backend(cfg)
-    states = [backend.init_cache(cfg, batch, n_max, device) for _ in _layer_kinds(cfg)]
+    dtype = torch_dtype(cfg.dtype)
+    states = [backend.init_cache(cfg, batch, n_max, device, dtype)
+              for _ in _layer_kinds(cfg)]
     return _pack_caches(states, cfg)

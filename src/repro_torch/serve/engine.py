@@ -24,7 +24,8 @@ Tensor = torch.Tensor
 
 def prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int):
     """Run the prompt; returns ``(logits [b, vocab]`` of the last prompt
-    position``, caches)`` — the final moment state of every layer."""
+    position``, caches)`` — every layer's decode state after the prompt
+    (moment state or KV cache)."""
     return lm_prefill(params, batch, cfg, n_max)
 
 

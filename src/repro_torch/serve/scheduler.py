@@ -5,7 +5,7 @@ slot-indexed decode cache (``slots.py``) and advances all of them together
 with ``engine.decode_scan`` (a block of ``decode_block`` tokens per step).
 Queued requests are admitted into free slots between blocks, in arrival
 order: consecutive requests of equal prompt length share one batched
-prefill, whose per-request moment states are spliced into slots with
+prefill, whose per-request decode states are spliced into slots with
 ``write_slot`` while the other slots keep their in-flight context.
 
 Slot lifecycle::
@@ -99,7 +99,8 @@ class ServeEngine:
           params: model params (moved to ``device`` if elsewhere).
           cfg: model config.
           max_slots: concurrent requests held on the device.
-          n_max: per-request context capacity (prompt + generated tokens).
+          n_max: per-request context capacity (prompt + generated tokens);
+            a KV backend's cache holds n_max entries per slot.
           decode_block: tokens advanced per step; admission happens at block
             boundaries.
           generator: generator for sampled decoding (default: seed 0 on the
@@ -141,6 +142,8 @@ class ServeEngine:
             raise ValueError("prompt is empty (need at least one token)")
         if request.max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {request.max_new_tokens}")
+        # For a KV backend n_max is also the cache's capacity: this check is
+        # what keeps every token the request writes inside it.
         if prompt_len + request.max_new_tokens > self.n_max:
             raise ValueError(
                 f"prompt ({prompt_len}) + max_new_tokens "

@@ -21,7 +21,6 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.backends import resolve_backend
-from repro_torch.core import TaylorState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_init_caches
 
@@ -32,12 +31,14 @@ TAIL_SLOT_AXIS = 0
 
 
 def _map(fn: Callable, caches, *others) -> Dict[str, Any]:
-    """Apply ``fn(leaf, *other_leaves, axis)`` to every state leaf."""
+    """Apply ``fn(leaf, *other_leaves, axis)`` to every state leaf, the
+    int ``KVCache.length`` included; each state keeps its own NamedTuple
+    type."""
 
     def one(key, axis):
         out = []
         for parts in zip(caches[key], *(o[key] for o in others)):
-            out.append(TaylorState(*(
+            out.append(type(parts[0])(*(
                 None if leaves[0] is None else fn(*leaves, axis)
                 for leaves in zip(*parts)
             )))

@@ -149,7 +149,7 @@ def test_backend_envelope():
     with pytest.raises(ValueError, match="attn_impl"):
         cfg.replace(attn_impl="pallas")
     with pytest.raises(ValueError, match="not yet ported"):
-        resolve_backend(cfg.replace(attention="softmax"))
+        resolve_backend(cfg.replace(attention="ssm"))
     assert cfg.layer_cfg("taylor") is cfg
     assert cfg.layer_cfg("softmax").attention == "softmax"
 
