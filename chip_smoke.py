@@ -6,8 +6,10 @@ source, in parallel), holds each against its plain PyTorch version, drives
 smollm-135m's full-width inference forward, its serving engine and its
 training step (random weights from a seed), cross-checks them, runs the
 same model on the paper's baselines (softmax, sliding-window softmax,
-elu+1 linear, Taylor order 1), and prints one JSON line describing every
-ported kernel followed by the device line.
+elu+1 linear, Taylor order 1), then the Based-style hybrid (taylor and
+sliding-window layers interleaved) and the Taylor variants (sym_state,
+decay, non-causal), and prints one JSON line describing every ported
+kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -88,6 +90,7 @@ FLASH_N = 4096  # phase 8's softmax forward on the flash path (n > 2048)
 FLASH_TOL = 1e-4
 PROMPT_LENS = (100, 256, 300, 384, 512, 700)
 MAX_NEW = 32
+N_MAX = 1024  # the serving engine's per-slot token capacity
 F32_TOL = 1e-4
 # The backward kernels write f32 gradients, and their plain versions compute
 # in f32 from the same bf16 values, so bf16 inputs answer to the same limit as
@@ -101,6 +104,15 @@ BWD_TOL = 1e-5
 # drops its z2 and S1 updates 8.1e-3.
 FWD_BF16_TOL = 2e-3
 NEAR_TIE = 1e-3
+# Phase 9: the hybrid (taylor at pattern position 0, the sliding window at 1,
+# 15 groups: smollm-135m's 30 layers) and the variants.
+HYBRID = dict(pattern=("attn", "attn"), n_groups=15, attention_schedule={1: "softmax_window"})
+HYBRID_STEPS = 4
+DECAY = 0.95
+DECAY_STEPS = 2
+DECAY_TOL = 1e-5  # f32 forward vs the model's own prefill + decode, decayed
+DECODE_CHECK = (896, 8)  # chunked prefill of 7 chunks, then decode steps
+SYM_S2_SHARE = 0.55  # sym_state's per-slot S2 against the full state's
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -448,22 +460,35 @@ def taylor_counters(K):
     return K.taylor_fwd.launches, K.taylor_bwd.dq_launches, K.taylor_bwd.dkv_launches
 
 
-def kernel_launches_per_step(cfg):
-    """(fwd, dq, dkv) launches of one training step: one forward per layer,
-    two under remat "full"; none off the Taylor kernels."""
-    if cfg.attention != "taylor":
-        return 0, 0, 0
-    return (2 if cfg.remat == "full" else 1) * cfg.n_layers, cfg.n_layers, cfg.n_layers
+def kernel_layers(torch, cfg):
+    """The layers whose attention runs the Taylor kernels on the card: the
+    taylor layers (per ``attention_schedule``) when their config is inside
+    the kernels' envelope (no decay, no sym_state) and the impl allows."""
+    from repro_torch.backends import get_backend
+    from repro_torch.models.config import schedule_runs
+
+    lcfg = cfg.layer_cfg("taylor")
+    if get_backend("taylor").resolve_impl(lcfg, torch.device("cuda")) != "cuda":
+        return 0
+    per_group = sum(rl for _, bk, rl in schedule_runs(cfg) if bk == "taylor")
+    return per_group * cfg.n_groups + (len(cfg.tail) if cfg.attention == "taylor" else 0)
+
+
+def kernel_launches_per_step(torch, cfg):
+    """(fwd, dq, dkv) launches of one training step: one forward per kernel
+    layer, two under remat "full"; one dq and one dkv."""
+    n = kernel_layers(torch, cfg)
+    return (2 if cfg.remat == "full" else 1) * n, n, n
 
 
 def train_steps(torch, K, cfg, init_state, step, batch, steps, tag):
     """Runs ``steps`` training steps from ``init_state()`` with the kernels'
     counts set to 0 just before, printing each step; fails unless every step
-    launches ``kernel_launches_per_step(cfg)`` and has a finite loss.  Only
+    launches ``kernel_launches_per_step`` and has a finite loss.  Only
     this frame holds the state, so each step's input state is freed as the
     next is made.  Returns (state, losses, host seconds per step, launches
     over the run, peak bytes)."""
-    expect = kernel_launches_per_step(cfg)
+    expect = kernel_launches_per_step(torch, cfg)
     state = init_state()
     K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
     torch.cuda.synchronize()
@@ -550,10 +575,15 @@ def phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init
 
 
 def serve_requests(torch, ServeEngine, Request, params, cfg):
-    """Phase 5/6 traffic: 6 greedy requests on 4 slots."""
+    """Phase 5/6 traffic: 6 greedy requests on 4 slots.  Returns (prompts,
+    outputs, engine stats, wall seconds, the slotted cache's facts: its
+    runs' state types, bytes per slot and S2 bytes per slot).  The engine,
+    which holds the weights and the cache, is freed on return."""
+    from repro_torch.serve import slots
+
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen) for n in PROMPT_LENS]
-    eng = ServeEngine(params, cfg, max_slots=4, n_max=1024, decode_block=16)
+    eng = ServeEngine(params, cfg, max_slots=4, n_max=N_MAX, decode_block=16)
     rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW)) for p in prompts]
     t0 = time.perf_counter()
     outs = eng.run()
@@ -562,7 +592,10 @@ def serve_requests(torch, ServeEngine, Request, params, cfg):
     for rid, p in zip(rids, prompts):
         if rid not in outs or len(outs[rid]) != MAX_NEW:
             fail(f"request of prompt {len(p)} did not finish with {MAX_NEW} tokens")
-    return prompts, [outs[r] for r in rids], eng.stats(), wall
+    cache = dict(runs=[type(x).__name__ for x in eng.caches["group"]],
+                 slot_bytes=slots.slot_bytes(eng.caches, eng.max_slots),
+                 s2_bytes=s2_bytes_per_slot(eng.caches, eng.max_slots))
+    return prompts, [outs[r] for r in rids], eng.stats(), wall, cache
 
 
 def cross_check(torch, lm_apply, params, cfg, prompts, outs):
@@ -648,7 +681,7 @@ def phase_baselines(torch, K, infer, serve_fn, cross_fn):
         logits, _ = infer(params, {"tokens": tokens}, cfg)
         torch.cuda.synchronize()
         fwd_launches = K.taylor_fwd.launches
-        if fwd_launches != (cfg.n_layers if cfg.attention == "taylor" else 0):
+        if fwd_launches != kernel_layers(torch, cfg):
             fail(f"{tag} lm_apply launched taylor_fwd {fwd_launches} times")
         if logits.shape != (*tokens.shape, cfg.vocab) or not torch.isfinite(logits).all():
             fail(f"{tag} lm_apply logits have the wrong shape or are not finite")
@@ -697,7 +730,7 @@ def phase_baselines(torch, K, infer, serve_fn, cross_fn):
                 fail(f"{tag} flash logits disagree with the dense path: {err}")
         # -- serving (f32) --
         K.taylor_fwd.launches = 0
-        prompts, outs, st, wall = serve_fn(params, cfg32)
+        prompts, outs, st, wall, _ = serve_fn(params, cfg32)
         if name == "linear_elu":
             mismatches, near_ties = cross_check_decode(
                 torch, lm_prefill, lm_decode_step, slots, params, cfg32, prompts, outs)
@@ -740,6 +773,219 @@ def phase_baselines(torch, K, infer, serve_fn, cross_fn):
               f"ms/step, decode {r['decode_tokens_per_s']:.1f} tokens/s"
               for n_, r in summary.items()))
     return summary, launches
+
+
+def diverging_requests(torch, infer, params, cfg, prompts, want, got):
+    """Requests whose tokens ``got`` differ from ``want`` (both greedy, the
+    same prompts).  Past the first position where they differ the two
+    continue from other prefixes, so that position alone is judged: ``cfg``'s
+    ``lm_apply`` over prompt + ``want``'s tokens before it must put the two
+    tokens' logits within NEAR_TIE.  Returns (requests that differ, of those
+    at a near-tie, of those not)."""
+    differ = ties = 0
+    for p, w, g in zip(prompts, want, got):
+        diff = (torch.as_tensor(w) != torch.as_tensor(g)).nonzero()
+        if not len(diff):
+            continue
+        differ += 1
+        t = int(diff[0, 0])
+        seq = torch.cat([p, torch.as_tensor(w[:t])]).cuda()[None]
+        lg = infer(params, {"tokens": seq}, cfg)[0][0, -1]
+        ties += float(lg[int(w[t])] - lg[int(g[t])]) < NEAR_TIE
+    return differ, ties, differ - ties
+
+
+def s2_bytes_per_slot(caches, slots: int) -> int:
+    """Bytes of the S2 moments of a slotted cache, per slot."""
+    return sum(st.s2.numel() * st.s2.element_size()
+               for st in caches["group"] if hasattr(st, "s2") and st.s2 is not None) // slots
+
+
+def phase_hybrid(torch, K, infer, serve_fn, cross_fn, full_f32):
+    """Phase 9: the Based-style hybrid at smollm-135m's full width (taylor
+    order 2 at pattern position 0, the 128-token sliding window at 1, 15
+    groups) — the forward, f32 serving from a per-run cache of two state
+    types, and training through the kernels — then smollm-135m with
+    sym_state (f32 serving against phase 6's full-state tokens,
+    ``full_f32`` = (prompts, outputs, stats)), with decay (f32 forward
+    against its own prefill + decode, training on the torch paths, f32
+    serving against its own prefill + decode path), and the non-causal
+    form against the explicit feature map."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import TaylorConfig, linear_attention, taylor_attention
+    from repro_torch.core import taylor_features
+    from repro_torch.data import make_task
+    from repro_torch.models import lm_decode_step, lm_init, lm_prefill, lm_state_bytes
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.serve import slots
+    from repro_torch.train import make_train_step, train_state_init
+
+    cfg = get_config("smollm-135m").replace(**HYBRID)
+    cfg32 = cfg.replace(dtype="float32")
+    n_kernel = kernel_layers(torch, cfg)
+    out = dict(cfg=dict(HYBRID, taylor_layers=n_kernel))
+    # block weights do not depend on the backend: the same seed gives phase 4's
+    params = lm_init(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (4, 1024), generator=gen).cuda()
+
+    # -- hybrid forward --
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    logits, _ = infer(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    out["lm_apply_launches"] = dict(zip(("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"),
+                                        taylor_counters(K)))
+    if n_kernel != cfg.n_layers // 2 or taylor_counters(K) != (n_kernel, 0, 0):
+        fail(f"[9] hybrid lm_apply launched (fwd, dq, dkv) = {taylor_counters(K)}, "
+             f"expected ({cfg.n_layers // 2}, 0, 0)")
+    if logits.shape != (*tokens.shape, cfg.vocab) or not torch.isfinite(logits).all():
+        fail("[9] hybrid lm_apply logits have the wrong shape or are not finite")
+    del logits
+    out["forward_ms"] = cuda_ms(torch, lambda: infer(params, {"tokens": tokens}, cfg), 3)
+    err32 = rel_err(torch, infer(params, {"tokens": tokens}, cfg32)[0],
+                    infer(params, {"tokens": tokens}, cfg32.replace(attn_impl="torch"))[0])
+    print(f"[9] hybrid lm_apply b=4 n=1024 {cfg.dtype}: forward_ms={out['forward_ms']:.2f} "
+          f"launches={out['lm_apply_launches']}; float32 logits rel_err kernel vs "
+          f"torch = {err32:.3e} (tol 1e-3)")
+    if not err32 < 1e-3:
+        fail(f"[9] hybrid float32 kernel forward disagrees with the torch forward: {err32}")
+
+    # -- hybrid serving (f32) --
+    prompts, outs, st, wall, cache = serve_fn(params, cfg32)
+    mismatches, near_ties = cross_fn(params, cfg32, prompts, outs)
+    kinds, per_slot = cache["runs"], cache["slot_bytes"]
+    want = lm_state_bytes(cfg32, 1, N_MAX)
+    pure = lm_state_bytes(get_config("smollm-135m", dtype="float32"), 1, N_MAX)
+    out.update(decode_tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
+               prefill_s=st["prefill_seconds"], slot_bytes=per_slot, taylor_slot_bytes=pure)
+    print(f"[9] hybrid served {len(outs)} requests x {MAX_NEW} tokens f32 in {wall:.2f} s: "
+          f"prefill {st['prefill_seconds']:.3f} s over {st['prefill_dispatches']} dispatches, "
+          f"decode {out['decode_tokens_per_s']:.1f} tokens/s; engine tokens vs lm_apply argmax: "
+          f"mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}; cache runs {kinds}; "
+          f"slot_bytes={per_slot} (lm_state_bytes(cfg, 1, n_max)={want}; pure taylor "
+          f"{pure}, {per_slot / pure:.3f} of it)")
+    if mismatches:
+        fail(f"[9] {mismatches} hybrid engine tokens differ from the lm_apply argmax")
+    if kinds != ["TaylorState", "KVCache"]:
+        fail(f"[9] the hybrid's slotted cache has runs {kinds}")
+    if per_slot != want:
+        fail(f"[9] hybrid slot_bytes {per_slot} != lm_state_bytes {want}")
+
+    # -- sym_state serving (f32), against phase 6's full-state tokens --
+    sym32 = get_config("smollm-135m", taylor=TaylorConfig(sym_state=True), dtype="float32")
+    full32 = sym32.replace(taylor=TaylorConfig())
+    f_prompts, f_outs, f_st = full_f32
+    prompts, outs, st, wall, cache = serve_fn(params, sym32)
+    s2_sym, sym_slot = cache["s2_bytes"], cache["slot_bytes"]
+    s2_full = s2_bytes_per_slot(slots.init_slot_caches(full32, 1, N_MAX, device="meta"), 1)
+    full_slot = lm_state_bytes(full32, 1, N_MAX)
+    if any(not torch.equal(a, b) for a, b in zip(prompts, f_prompts)):
+        fail("[9] sym_state served other prompts than phase 6")
+    differ, ties, bad = diverging_requests(torch, infer, params, full32, prompts, f_outs, outs)
+    out["sym_state"] = dict(
+        decode_tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
+        full_decode_tokens_per_s=f_st["decode_tokens"] / f_st["decode_seconds"],
+        slot_bytes=sym_slot, full_slot_bytes=full_slot, s2_bytes=s2_sym,
+        full_s2_bytes=s2_full, requests_differ=differ, near_ties=ties)
+    print(f"[9] sym_state served {len(outs)} requests x {MAX_NEW} tokens f32 in {wall:.2f} s: "
+          f"decode {out['sym_state']['decode_tokens_per_s']:.1f} tokens/s (full state, phase 6: "
+          f"{out['sym_state']['full_decode_tokens_per_s']:.1f}); per slot {sym_slot} bytes, S2 "
+          f"{s2_sym} (full state {full_slot}, S2 {s2_full}: {s2_sym / s2_full:.4f}); tokens vs "
+          f"the full state's: {differ} requests differ, {ties} at a near-tie "
+          f"(gap<{NEAR_TIE}), {bad} not")
+    if bad:
+        fail(f"[9] sym_state tokens differ from the full state's in {bad} requests")
+    if not s2_sym < SYM_S2_SHARE * s2_full:
+        fail(f"[9] sym_state S2 per slot {s2_sym} is not under {SYM_S2_SHARE} of {s2_full}")
+
+    # -- decay: forward vs its own prefill + decode (f32), serving (f32) --
+    dec = get_config("smollm-135m", taylor=TaylorConfig(decay=DECAY))
+    dec32 = dec.replace(dtype="float32")
+    errs = []
+    for n_pre, steps in ((tokens.shape[1] - 1, 1), DECODE_CHECK):
+        seq = tokens[:, :n_pre + steps]
+        full = infer(params, {"tokens": seq}, dec32)[0][:, n_pre:]
+        lg, caches = lm_prefill(params, {"tokens": seq[:, :n_pre]}, dec32, n_pre + steps)
+        got = []
+        for t in range(steps):
+            lg, caches = lm_decode_step(params, seq[:, n_pre + t], caches, n_pre + t, dec32)
+            got.append(lg)
+        errs.append(rel_err(torch, torch.stack(got, dim=1), full))
+        del caches, full
+    print(f"[9] decay={DECAY} float32 lm_apply vs its prefill + decode: rel_err "
+          f"{errs[0]:.3e} at the last of {tokens.shape[1]} positions (parallel prefill of "
+          f"{tokens.shape[1] - 1}), {errs[1]:.3e} over {DECODE_CHECK[1]} steps after a chunked "
+          f"prefill of {DECODE_CHECK[0]} (tol {DECAY_TOL})")
+    if not max(errs) < DECAY_TOL:
+        fail(f"[9] decayed forward and prefill + decode disagree: {errs}")
+    prompts, outs, st, wall, _ = serve_fn(params, dec32)
+    mismatches, near_ties = cross_check_decode(torch, lm_prefill, lm_decode_step, slots,
+                                               params, dec32, prompts, outs)
+    out["decay"] = dict(decode_tokens_per_s=st["decode_tokens"] / st["decode_seconds"],
+                        forward_vs_decode_rel_err=max(errs))
+    print(f"[9] decay served {len(outs)} requests x {MAX_NEW} tokens f32 in {wall:.2f} s: "
+          f"decode {out['decay']['decode_tokens_per_s']:.1f} tokens/s; engine tokens vs its "
+          f"prefill + decode path: mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}")
+    if mismatches:
+        fail(f"[9] {mismatches} decayed engine tokens differ from its prefill + decode path")
+    del params
+
+    # -- training: the hybrid through the kernels, decay on the torch paths --
+    batch = bigram_batch(torch, make_task, cfg)
+    for name, tcfg, steps in (("hybrid", cfg, HYBRID_STEPS), ("decay", dec, DECAY_STEPS)):
+        tag = f"[9] {name}"
+        opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], steps))
+        state, losses, times, tl, peak = train_steps(
+            torch, K, tcfg, lambda: train_state_init(torch.Generator().manual_seed(0), tcfg, opt),
+            make_train_step(tcfg, opt), batch, steps, tag)
+        del state
+        steady = sum(times[1:]) / (len(times) - 1)
+        tps = TRAIN["b"] * TRAIN["n"] / steady
+        print(f"{tag} training {tcfg.dtype} remat={tcfg.remat} b={TRAIN['b']} n={TRAIN['n']}: "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; first step {times[0] * 1e3:.1f} ms, "
+              f"then {steady * 1e3:.1f} ms/step = {tps:.0f} tokens/s; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches {tl}")
+        if not losses[-1] < losses[0]:
+            fail(f"{tag} loss did not fall: {losses[0]} -> {losses[-1]}")
+        rec = out if name == "hybrid" else out["decay"]
+        rec.update(train_ms_per_step=steady * 1e3, train_tokens_per_s=tps,
+                   peak_gib=peak / 2**30, train_launches=tl, losses=losses)
+
+    # -- non-causal: taylor_attention(causal=False) vs the explicit feature map --
+    tc = TaylorConfig()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, hk, n, d = 4, cfg.n_heads, cfg.n_kv_heads, 1024, cfg.resolved_head_dim
+    phi = lambda x: taylor_features(x, tc)
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        q = torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
+        k, v = (torch.randn(b, hk, n, d, device="cuda", generator=gen).to(dtype)
+                for _ in range(2))
+        with torch.no_grad():
+            got = taylor_attention(q, k, v, tc, causal=False)
+            # the same bf16 q, k (normalised, then rounded as the Taylor path
+            # rounds them) and float32 v: a float32 explicit-feature output
+            ref32 = linear_attention(q, k, v.float(), phi=phi, causal=False, normalize_qk=True)
+            ms = cuda_ms(torch, lambda: taylor_attention(q, k, v, tc, causal=False), 5)
+            ref_ms = cuda_ms(torch, lambda: linear_attention(q, k, v, phi=phi, causal=False,
+                                                             normalize_qk=True), 3)
+        torch.cuda.synchronize()
+        errs, _ = fwd_errors(torch, got, ref32)
+        # bf16 answers to the f32 tolerance beyond its own rounding
+        # (``excess``); its ``rel`` counts one-ulp rounding flips, up to
+        # 2^-7 of max |ref|, and is only reported
+        judged = "excess" if "excess" in errs else "rel"
+        bad = not errs[judged] < F32_TOL
+        out.setdefault("noncausal", {})[dname] = dict(ms=ms, features_ms=ref_ms, **errs)
+        print(f"[9] non-causal taylor_attention b={b} h={h} hk={hk} n={n} d={d} {dname}: "
+              + " ".join(f"{k_}_err={e_:.3e}" for k_, e_ in errs.items())
+              + f" against the explicit feature map (tol {F32_TOL}"
+              + (" on excess)" if "excess" in errs else ")")
+              + f"; {ms:.3f} ms, explicit features {ref_ms:.3f} ms")
+        if bad:
+            fail(f"[9] non-causal {dname} disagrees with the explicit feature map: "
+                 f"{judged} error {errs[judged]}")
+    return out
 
 
 def main() -> int:
@@ -840,7 +1086,7 @@ def main() -> int:
 
     # ---- 5. serving ----
     K.taylor_fwd.launches = 0
-    prompts, outs, st, wall = serve_requests(torch, ServeEngine, Request, params, cfg)
+    prompts, outs, st, wall, _ = serve_requests(torch, ServeEngine, Request, params, cfg)
     print(f"[5] served {len(outs)} requests x {MAX_NEW} tokens on 4 slots in {wall:.2f} s: "
           f"prefill {st['prefill_seconds']:.3f} s over {st['prefill_dispatches']} dispatches "
           f"({st['prefill_tokens']} tokens), decode {st['decode_tokens']} tokens in "
@@ -862,7 +1108,7 @@ def main() -> int:
           f"finished after {step_ms:.2f} ms")
 
     # ---- 6. cross-check in float32: engine tokens vs lm_apply argmax ----
-    prompts, outs, st, _ = serve_requests(torch, ServeEngine, Request, params, cfg32)
+    prompts, outs, st, _, _ = serve_requests(torch, ServeEngine, Request, params, cfg32)
     mismatches, near_ties = cross_check(torch, infer, params, cfg32, prompts, outs)
     print(f"[6] f32 engine tokens vs lm_apply argmax over {len(outs) * MAX_NEW} positions: "
           f"mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}; f32 decode "
@@ -876,12 +1122,27 @@ def main() -> int:
                         make_train_step, make_loss_fn, loss_and_grads, tree_leaves)
 
     # ---- 8. the baselines at full width ----
-    _, base_launches = phase_baselines(
-        torch, K, infer,
-        lambda p_, c_: serve_requests(torch, ServeEngine, Request, p_, c_),
-        lambda p_, c_, prompts_, outs_: cross_check(torch, infer, p_, c_, prompts_, outs_))
+    serve_fn = lambda p_, c_: serve_requests(torch, ServeEngine, Request, p_, c_)
+    cross_fn = lambda p_, c_, prompts_, outs_: cross_check(torch, infer, p_, c_, prompts_, outs_)
+    _, base_launches = phase_baselines(torch, K, infer, serve_fn, cross_fn)
 
-    # ---- 9. kernels line ----
+    # ---- 9. the hybrid schedule and the Taylor variants at full width ----
+    hybrid = phase_hybrid(torch, K, infer, serve_fn, cross_fn, (prompts, outs, st))
+    print("[9] summary (smollm-135m full width; forward b=4 n=1024 bf16, training b=4 n=1024 "
+          "bf16 remat full, decode f32 on 4 slots): "
+          f"hybrid: forward {hybrid['forward_ms']:.2f} ms, train "
+          f"{hybrid['train_ms_per_step']:.1f} ms/step ({hybrid['train_tokens_per_s']:.0f} "
+          f"tokens/s, peak {hybrid['peak_gib']:.2f} GiB), decode "
+          f"{hybrid['decode_tokens_per_s']:.1f} tokens/s, prefill {hybrid['prefill_s']:.3f} s, "
+          f"{hybrid['slot_bytes']} bytes per slot (order-2 taylor {hybrid['taylor_slot_bytes']}); "
+          f"sym_state: decode {hybrid['sym_state']['decode_tokens_per_s']:.1f} tokens/s "
+          f"(full {hybrid['sym_state']['full_decode_tokens_per_s']:.1f}), "
+          f"{hybrid['sym_state']['slot_bytes']} bytes per slot "
+          f"(full {hybrid['sym_state']['full_slot_bytes']}); decay {DECAY}: train "
+          f"{hybrid['decay']['train_ms_per_step']:.1f} ms/step, decode "
+          f"{hybrid['decay']['decode_tokens_per_s']:.1f} tokens/s")
+
+    # ---- 10. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -894,7 +1155,9 @@ def main() -> int:
         "launches_by_path": {
             "lm_apply": launches, "train_8_steps": train["launches"]["taylor_fwd"],
             "order1_lm_apply": base_launches["lm_apply"],
-            f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"]["taylor_fwd"]},
+            f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"]["taylor_fwd"],
+            "hybrid_lm_apply": hybrid["lm_apply_launches"]["taylor_fwd"],
+            f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"]["taylor_fwd"]},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -916,7 +1179,9 @@ def main() -> int:
             "launches": train["launches"][name],
             "launches_by_path": {
                 "train_8_steps": train["launches"][name],
-                f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"][name]},
+                f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"][name],
+                "hybrid_lm_apply": hybrid["lm_apply_launches"][name],
+                f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"][name]},
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -930,7 +1195,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 10. device line ----
+    # ---- 11. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,14 @@ class AttentionBackend:
     state_kind: str = "kv"  # "kv" | "moments"
     impls: Tuple[str, ...] = ("torch",)
 
+    @property
+    def bounded_state(self) -> bool:
+        """True when the decode state is O(1) in context length: moments
+        are, a full KV cache is not; a bounded KV ring (``softmax_window``)
+        overrides this.  The per-layer gate behind
+        ``ModelConfig.supports_long_context``."""
+        return self.state_kind != "kv"
+
     def validate(self, cfg) -> None:
         """Raise ``ValueError`` for configs this backend cannot execute."""
         if cfg.attn_impl != "auto" and cfg.attn_impl not in self.impls:

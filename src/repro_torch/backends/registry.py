@@ -1,6 +1,8 @@
 """Attention-backend registry: the single resolution point for
-``ModelConfig.attention``.  A name that is not registered (a backend of the
-JAX package not yet ported) raises "not yet ported"."""
+``ModelConfig.attention`` and for every name of
+``ModelConfig.attention_schedule``.  A backend of the JAX package that is
+not yet ported raises "not yet ported"; any other unregistered name raises
+"unknown attention backend", as in the JAX package."""
 
 from __future__ import annotations
 
@@ -9,6 +11,8 @@ from typing import Dict
 from repro_torch.backends.base import AttentionBackend
 
 _REGISTRY: Dict[str, AttentionBackend] = {}
+# Backends of the JAX package that the port does not have yet.
+_NOT_YET_PORTED = ("ssm",)
 
 
 def register_backend(backend: AttentionBackend) -> AttentionBackend:
@@ -23,10 +27,14 @@ def register_backend(backend: AttentionBackend) -> AttentionBackend:
 
 def get_backend(name: str) -> AttentionBackend:
     """Look up a registered backend by name."""
-    if name not in _REGISTRY:
+    if name in _NOT_YET_PORTED:
         raise ValueError(
             f"attention backend {name!r} is not yet ported to torch "
             f"(registered: {sorted(_REGISTRY)})"
+        )
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown attention backend {name!r}; registered: {sorted(_REGISTRY)}"
         )
     return _REGISTRY[name]
 

@@ -88,6 +88,11 @@ class SoftmaxWindowBackend(AttentionBackend):
     state_kind = "kv"
     impls = ("torch",)
 
+    @property
+    def bounded_state(self) -> bool:
+        """True — the ring holds at most ``attn_window`` tokens."""
+        return True
+
     def init_cache(self, cfg, batch, n_max, device, dtype):
         return _zero_kv(cfg, batch, _window_of(cfg, n_max), device, dtype)
 

@@ -3,14 +3,15 @@
 Two impls, selected by ``ModelConfig.attn_impl``:
 
   * ``"torch"`` — the plain PyTorch chunked scan / parallel form of
-    ``core/taylor.py`` (every ported TaylorConfig variant).
+    ``core/taylor.py`` (every TaylorConfig variant: decay, ``sym_state``,
+    ``minus_one``, and the non-causal single-state form).
   * ``"cuda"``  — the hand-written CUDA kernels of
     ``kernels/taylor_attention`` for the full-sequence forward and its
     gradient (``apply``, through ``taylor_attention_kernel_trainable``: the
     backward kernel pair inside its envelope, d_v ≤ 128, and the torch
     recompute outside it).  Causal self-attention only, head dim ≤ 128,
-    full second moment, standard (+1) expansion; a forced "cuda" outside
-    this envelope is rejected by ``validate``.
+    full second moment, no decay, standard (+1) expansion; a forced "cuda"
+    outside this envelope is rejected by ``validate``.
 
 ``"auto"`` picks the kernel on a CUDA device inside the envelope and the
 PyTorch paths otherwise.  Prefill and decode always run the moment-state
@@ -27,6 +28,7 @@ from repro_torch.core import (
     init_taylor_state,
     taylor_attention,
     taylor_attention_chunked,
+    taylor_attention_noncausal,
     taylor_decode_step,
     taylor_prefill_state,
 )
@@ -55,16 +57,23 @@ class TaylorBackend(AttentionBackend):
     def validate(self, cfg):
         super().validate(cfg)
         t = cfg.taylor
-        if t.decay != 1.0:
-            raise ValueError("taylor decay != 1 is not yet ported to torch")
-        if t.sym_state:
-            raise ValueError("taylor sym_state is not yet ported to torch")
         if cfg.attn_impl != "cuda":
             return
+        if t.decay != 1.0:
+            raise ValueError(
+                "attn_impl='cuda': the CUDA kernels implement the undecayed "
+                "recurrence; decay != 1.0 needs attn_impl='torch' (or 'auto')"
+            )
         if t.minus_one:
             raise ValueError(
                 "attn_impl='cuda': the kernel hardcodes the standard (+1) "
                 "expansion; the minus_one variant needs attn_impl='torch'"
+            )
+        if t.sym_state:
+            raise ValueError(
+                "attn_impl='cuda': the CUDA kernels use the full second "
+                "moment; sym_state is a decode-memory optimisation — use "
+                "attn_impl='torch' (or 'auto')"
             )
         if cfg.resolved_head_dim > MAX_HEAD_DIM:
             raise ValueError(
@@ -89,9 +98,7 @@ class TaylorBackend(AttentionBackend):
 
     def apply(self, q, k, v, cfg, *, causal=True):
         if not causal:
-            raise NotImplementedError(
-                "non-causal taylor attention is not yet ported to torch"
-            )
+            return taylor_attention_noncausal(q, k, v, cfg.taylor)
         if self.resolve_impl(cfg, q.device) == "cuda":
             return taylor_attention_kernel_trainable(
                 q, k, v, cfg.taylor, chunk=cfg.attn_chunk, backward="auto"
@@ -111,5 +118,6 @@ class TaylorBackend(AttentionBackend):
         return taylor_decode_step(cache, q, k, v, cfg.taylor)
 
     def state_health(self, cache, cfg):
-        """Finite moments AND a non-negative token count ``n0`` per row."""
+        """Finite moments AND a non-negative token count ``n0`` per row
+        (full or ``sym_state``-packed second moments alike)."""
         return super().state_health(cache, cfg) & (cache.n0 >= 0).all(dim=-1)

@@ -6,6 +6,8 @@ from repro_torch.core.feature_map import (
     elu_features,
     layernorm_no_affine,
     poly_scores,
+    symvec,
+    taylor_features,
 )
 from repro_torch.core.linear import linear_attention
 from repro_torch.core.softmax import (
@@ -16,10 +18,12 @@ from repro_torch.core.softmax import (
 from repro_torch.core.taylor import (
     TaylorState,
     chunked_num_den,
+    decay_gammas,
     init_taylor_state,
     merge_states,
     taylor_attention,
     taylor_attention_chunked,
+    taylor_attention_noncausal,
     taylor_attention_parallel,
     taylor_attention_recurrent,
     taylor_decode_step,
@@ -31,6 +35,7 @@ __all__ = [
     "TaylorConfig",
     "TaylorState",
     "chunked_num_den",
+    "decay_gammas",
     "elu_features",
     "flash_softmax_attention",
     "init_taylor_state",
@@ -40,11 +45,14 @@ __all__ = [
     "poly_scores",
     "softmax_attention",
     "softmax_decode_step",
+    "symvec",
     "taylor_attention",
     "taylor_attention_chunked",
+    "taylor_attention_noncausal",
     "taylor_attention_parallel",
     "taylor_attention_recurrent",
     "taylor_decode_step",
+    "taylor_features",
     "taylor_prefill_state",
     "taylor_state_read",
 ]

@@ -5,8 +5,14 @@ The paper's order-2 Taylor feature map: with
 
     exp(s)  ≈  1 + s + s²/2  =  phi(q) · phi(k)
 
-The quadratic paths never materialise phi: they evaluate the polynomial on
-the scaled logits (``poly_scores``) or contract against running moments.
+where ``phi(x) = [1, x * sqrt(a), symvec(x ⊗ x) * a / sqrt(2)]`` and
+``a = 1 / (alpha * sqrt(d))``.  ``symvec`` is the weighted upper-triangular
+vectorisation of the symmetric outer product (off-diagonal entries carry a
+factor sqrt(2)), so ``symvec(q⊗q) · symvec(k⊗k) = (q·k)²`` with feature
+dimension d(d+1)/2 instead of d².  The quadratic paths never materialise
+phi: they evaluate the polynomial on the scaled logits (``poly_scores``) or
+contract against running moments; ``sym_state`` keeps those moments packed
+in the ``symvec`` basis.
 
 All functions operate on the last axis and broadcast over leading axes.
 """
@@ -14,7 +20,9 @@ All functions operate on the last axis and broadcast over leading axes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,10 +39,17 @@ class TaylorConfig:
       normalize_qk: LayerNorm (no affine) on q and k before the dot product.
       minus_one: drop the constant 1 from the expansion (the paper's §3
         variant); forfeits the positivity guarantee, so off by default.
-      sym_state: symmetric-compressed second moments (not yet ported:
-        the functions that would read it raise ``NotImplementedError``).
-      decay: gated moment-state decay rate in (0, 1] (not yet ported:
-        ``decay != 1`` raises ``NotImplementedError`` where it would apply).
+      sym_state: store the second moments z2/s2 in the symmetric-compressed
+        ``symvec`` basis (d(d+1)/2 rows instead of d², exact): half the
+        decode state.  The training path keeps the full form (the custom
+        backward and the CUDA kernels are written for it).
+      decay: gated moment-state decay in (0, 1].  Token j's contribution to
+        the state read at position i is weighted ``γ_h^(i-j)`` with
+        per-kv-head rates ``γ_h = decay^((h+1)/h_kv)`` (``decay_gammas`` in
+        ``core/taylor.py``).  ``1.0`` is bit-identical to the undecayed
+        recurrence: every decay branch is guarded in Python.  Decayed
+        configs are causal self-attention only, and run the torch paths
+        (the CUDA kernels implement the undecayed recurrence).
     """
 
     order: int = 2
@@ -69,6 +84,62 @@ def layernorm_no_affine(x: Tensor, eps: float = 1e-6) -> Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps)
+
+
+@functools.lru_cache(maxsize=None)
+def _triu_indices(d: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Row and column indices of the upper triangle (diagonal included) of a
+    d×d matrix, row-major (numpy's ``triu_indices`` order)."""
+    rows = tuple(i for i in range(d) for _ in range(i, d))
+    cols = tuple(j for i in range(d) for j in range(i, d))
+    return rows, cols
+
+
+def symvec(x: Tensor) -> Tensor:
+    """Weighted upper-triangular vectorisation of x ⊗ x.
+
+    Returns features ``psi(x)`` of dim d(d+1)/2 with
+    ``psi(q) · psi(k) = (q · k)²`` exactly: diagonal entries x_m²,
+    off-diagonal entries sqrt(2)·x_m·x_l (m < l).
+    """
+    rows, cols, w = _symvec_index(x.shape[-1], x.device)
+    feats = x[..., rows] * x[..., cols]
+    return feats * w.to(feats.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _symvec_index(d: int, device: torch.device):
+    """``symvec``'s gather indices and weights on ``device``, made once (a
+    decode step calls it in every layer)."""
+    rows, cols = _triu_indices(d)
+    rows = torch.tensor(rows, device=device)
+    cols = torch.tensor(cols, device=device)
+    return rows, cols, torch.where(rows == cols, 1.0, math.sqrt(2.0))
+
+
+def taylor_features(x: Tensor, cfg: TaylorConfig, d: Optional[int] = None) -> Tensor:
+    """The paper's feature map phi(x) with phi(q)·phi(k) = 1 + s + s²/2.
+
+    Args:
+      x: [..., d] (already LayerNorm'd where ``cfg.normalize_qk`` asks; the
+        caller does that).
+      cfg: TaylorConfig.
+      d: dimension of the scale (default ``x.shape[-1]``; pass the true head
+        dim when x was zero-padded).
+
+    Returns:
+      float32 features [..., ``cfg.feature_dim(d)``].
+    """
+    d = d if d is not None else x.shape[-1]
+    a = cfg.scale(d)
+    x = x.float()
+    parts = []
+    if not cfg.minus_one:
+        parts.append(torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device))
+    parts.append(x * math.sqrt(a))
+    if cfg.order >= 2:
+        parts.append(symvec(x) * (a / math.sqrt(2.0)))
+    return torch.cat(parts, dim=-1)
 
 
 def elu_features(x: Tensor) -> Tensor:

@@ -10,13 +10,18 @@ exp, re-associated for linear complexity.  Three exact-equivalent modes:
     computes this form on the card.
   * ``recurrent`` — token-level RNN; the decode path.  O(1) state per step.
 
-All modes support GQA: q is [b, h, n, d]; k, v are [b, h_kv, n, d] with
-``h % h_kv == 0``.  The moment state depends only on K/V and is therefore
-per kv-head.  Every contraction runs in float32 whatever the input dtype.
+Plus ``noncausal``: one global state over all keys, for encoder and cross
+attention.  All modes support GQA: q is [b, h, n, d]; k, v are
+[b, h_kv, n, d] with ``h % h_kv == 0``.  The moment state depends only on
+K/V and is therefore per kv-head.  Every contraction runs in float32
+whatever the input dtype.
 
-Not yet ported: decayed moments (``decay != 1``), the symmetric-compressed
-second moment (``sym_state``) and the non-causal single-state path; each
-raises ``NotImplementedError``.
+The variants of ``TaylorConfig``: ``decay < 1`` weights token j's
+contribution at position i by ``γ_h^(i-j)`` (causal modes only);
+``sym_state`` keeps z2/s2 packed in the ``symvec`` basis, [d(d+1)/2(, v)]
+instead of [d, d(, v)].  Both run the scan with autograd in training; the
+custom recompute backward (``core/taylor_vjp.py``) and the CUDA kernels
+serve the undecayed, full-moment form only.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from repro_torch.core.feature_map import (
     TaylorConfig,
     layernorm_no_affine,
     poly_scores,
+    symvec,
 )
 
 Tensor = torch.Tensor
@@ -46,7 +52,8 @@ class TaylorState(NamedTuple):
       z2: [b, k, d, d]     Σ_j k_j ⊗ k_j
       s2: [b, k, d, d, v]  Σ_j k_j ⊗ k_j ⊗ v_j
 
-    z2/s2 are ``None`` for order-1 configs.
+    With ``sym_state`` z2/s2 are [b, k, D2] / [b, k, D2, v], D2 = d(d+1)/2
+    (the ``symvec`` basis).  z2/s2 are ``None`` for order-1 configs.
     """
 
     n0: Tensor
@@ -55,13 +62,6 @@ class TaylorState(NamedTuple):
     s1: Tensor
     z2: Optional[Tensor]
     s2: Optional[Tensor]
-
-
-def _check_ported(cfg: TaylorConfig) -> None:
-    if cfg.decay != 1.0:
-        raise NotImplementedError("taylor decay != 1 is not yet ported to torch")
-    if cfg.sym_state:
-        raise NotImplementedError("taylor sym_state is not yet ported to torch")
 
 
 def init_taylor_state(
@@ -73,17 +73,18 @@ def init_taylor_state(
     device=None,
 ) -> TaylorState:
     """Zero float32 state for prefill/decode (``device``: torch's default
-    when None)."""
-    _check_ported(cfg)
+    when None).  With ``cfg.sym_state`` the second moments are packed:
+    [d(d+1)/2(, d_v)] instead of [d, d(, d_v)] — half the decode state."""
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     second = cfg.order >= 2
+    quad = ((d * (d + 1)) // 2,) if cfg.sym_state else (d, d)
     return TaylorState(
         n0=z(batch, kv_heads),
         s0=z(batch, kv_heads, d_v),
         z1=z(batch, kv_heads, d),
         s1=z(batch, kv_heads, d, d_v),
-        z2=z(batch, kv_heads, d, d) if second else None,
-        s2=z(batch, kv_heads, d, d, d_v) if second else None,
+        z2=z(batch, kv_heads, *quad) if second else None,
+        s2=z(batch, kv_heads, *quad, d_v) if second else None,
     )
 
 
@@ -116,6 +117,28 @@ def _safe_div(num: Tensor, den: Tensor, eps: float = 1e-6) -> Tensor:
     return num / den[..., None]
 
 
+def decay_gammas(h_kv: int, decay: float, device=None) -> Tensor:
+    """Per-kv-head decay rates from the single ``TaylorConfig.decay`` scalar.
+
+    Geometric spread ``γ_h = decay^((h+1)/h_kv)`` for ``h = 0..h_kv-1``
+    (ALiBi-slope style): the last head decays at exactly ``decay``, earlier
+    heads progressively slower.  With ``h_kv == 1`` this is ``[decay]``.
+
+    Returns:
+      ``[h_kv]`` float32 rates.
+    """
+    h = torch.arange(1, h_kv + 1, dtype=torch.float32, device=device)
+    return torch.tensor(decay, dtype=torch.float32, device=device) ** (h / h_kv)
+
+
+def _lag_weights(g_h: Tensor, c: int) -> Tensor:
+    """``γ_h^(i-j)`` for i, j < c, 0 where j > i: [hk, c, c].  (The exponent
+    is clamped at 0 above the diagonal, where γ^(i-j) would overflow.)"""
+    idx = torch.arange(c, dtype=torch.float32, device=g_h.device)
+    delta = (idx[:, None] - idx[None, :]).clamp(min=0.0)
+    return g_h[:, None, None] ** delta
+
+
 # ---------------------------------------------------------------------------
 # Parallel (quadratic) reference mode.
 # ---------------------------------------------------------------------------
@@ -125,7 +148,6 @@ def taylor_attention_parallel(
     q: Tensor, k: Tensor, v: Tensor, cfg: TaylorConfig, causal: bool = True
 ) -> Tensor:
     """Reference O(n²) evaluation of the Taylor-approximated attention."""
-    _check_ported(cfg)
     b, h, n, d = q.shape
     h_kv = k.shape[1]
     q, k = _norm_qk(q, k, cfg)
@@ -136,6 +158,11 @@ def taylor_attention_parallel(
     if causal:
         mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
         p = torch.where(mask, p, 0.0)
+    if cfg.decay != 1.0:
+        if not causal:
+            raise ValueError("taylor decay is causal-self-attention only")
+        w = _lag_weights(decay_gammas(h_kv, cfg.decay, q.device), n)  # [hk, n, n]
+        p = p * w[None, :, None]
     num = torch.einsum("bkgij,bkjv->bkgiv", p, v.float())
     den = p.sum(dim=-1)
     return _ungroup(_safe_div(num, den)).to(v.dtype)
@@ -171,6 +198,8 @@ def _chunk_inter(qg: Tensor, state: TaylorState, cfg: TaylorConfig, a: float):
     """Contribution of all previous chunks to (num, den) for query block qg.
 
     qg: [b, k, g, c, d].  Returns num [b,k,g,c,v], den [b,k,g,c] (float32).
+    A ``sym_state`` state is read in the ``symvec`` basis, whose dot
+    products are the same (q·k)².
     """
     qg = qg.float()
     num = a * torch.einsum("bkgcd,bkdv->bkgcv", qg, state.s1)
@@ -180,9 +209,14 @@ def _chunk_inter(qg: Tensor, state: TaylorState, cfg: TaylorConfig, a: float):
         den = den + state.n0[:, :, None, None]
     if cfg.order >= 2:
         half_a2 = 0.5 * a * a
-        num = num + _quad_num(qg, state.s2, half_a2)
-        u = torch.einsum("bkgcd,bkde->bkgce", qg, state.z2)
-        den = den + half_a2 * (qg * u).sum(dim=-1)
+        if cfg.sym_state:
+            phi2 = symvec(qg)  # [b, k, g, c, D2]
+            num = num + half_a2 * torch.einsum("bkgcf,bkfv->bkgcv", phi2, state.s2)
+            den = den + half_a2 * torch.einsum("bkgcf,bkf->bkgc", phi2, state.z2)
+        else:
+            num = num + _quad_num(qg, state.s2, half_a2)
+            u = torch.einsum("bkgcd,bkde->bkgce", qg, state.z2)
+            den = den + half_a2 * (qg * u).sum(dim=-1)
     return num, den
 
 
@@ -191,17 +225,41 @@ def _state_update(
 ) -> TaylorState:
     """Accumulate one chunk of keys/values into the moment state.
 
-    kc: [b, k, c, d], vc: [b, k, c, v].  Returns a new state (functional)."""
+    kc: [b, k, c, d], vc: [b, k, c, v].  Returns a new state (functional).
+
+    With ``cfg.decay != 1`` the sums are decayed: the old state is carried
+    with ``γ^c`` and local token j enters with weight ``γ^(c-1-j)``, so the
+    result is the state as of the chunk's last token.  Each weight is
+    applied once per moment (into v for s0/s1/s2, into k for z1, into the
+    k⊗k product for z2).  ``decay == 1`` runs the undecayed code unchanged.
+    """
     kc32 = kc.float()
     vc32 = vc.float()
     c = kc.shape[2]
-    n0 = state.n0 + c
-    s0 = state.s0 + vc32.sum(dim=2)
-    z1 = state.z1 + kc32.sum(dim=2)
-    s1 = state.s1 + torch.einsum("bkcd,bkcv->bkdv", kc32, vc32)
+    if cfg.decay != 1.0:
+        g_h = decay_gammas(kc.shape[1], cfg.decay, kc.device)  # [hk]
+        idx = torch.arange(c - 1, -1, -1, dtype=torch.float32, device=kc.device)
+        w = g_h[:, None] ** idx[None, :]  # [hk, c]
+        carry = (g_h ** c)[None, :]  # [1, hk]
+        vw = vc32 * w[None, :, :, None]
+        kw = kc32 * w[None, :, :, None]
+        tok = w.sum(dim=1)[None, :]
+        old = lambda x, nd: x * carry.reshape(carry.shape + (1,) * nd)
+    else:
+        vw, kw, tok = vc32, kc32, c
+        old = lambda x, nd: x
+    n0 = old(state.n0, 0) + tok
+    s0 = old(state.s0, 1) + vw.sum(dim=2)
+    z1 = old(state.z1, 1) + kw.sum(dim=2)
+    s1 = old(state.s1, 2) + torch.einsum("bkcd,bkcv->bkdv", kc32, vw)
     z2, s2 = state.z2, state.s2
-    if cfg.order >= 2:
-        z2 = state.z2 + torch.einsum("bkcd,bkce->bkde", kc32, kc32)
+    if cfg.order >= 2 and cfg.sym_state:
+        phi2 = symvec(kc32)  # [b, k, c, D2]
+        phi2w = phi2 if cfg.decay == 1.0 else phi2 * w[None, :, :, None]
+        z2 = old(state.z2, 1) + phi2w.sum(dim=2)
+        s2 = old(state.s2, 2) + torch.einsum("bkcf,bkcv->bkfv", phi2, vw)
+    elif cfg.order >= 2:
+        z2 = old(state.z2, 2) + torch.einsum("bkcd,bkce->bkde", kw, kc32)
         # d-tiled: a direct 3-operand product materialises [b,k,c,d,d]
         b, hk, _, d = kc.shape
         t = _QUAD_TILE if d % _QUAD_TILE == 0 else d
@@ -211,11 +269,11 @@ def _state_update(
                 b, hk, c, t * d
             )
             parts.append(
-                torch.einsum("bkcf,bkcv->bkfv", kk, vc32).reshape(
+                torch.einsum("bkcf,bkcv->bkfv", kk, vw).reshape(
                     b, hk, t, d, vc.shape[-1]
                 )
             )
-        s2 = state.s2 + torch.cat(parts, dim=2)
+        s2 = old(state.s2, 3) + torch.cat(parts, dim=2)
     return TaylorState(n0=n0, s0=s0, z1=z1, s1=s1, z2=z2, s2=s2)
 
 
@@ -232,10 +290,10 @@ def taylor_attention_chunked(
 
     The sequence length must be a multiple of ``chunk``.  Returns
     out [b, h, n, v] (and the final TaylorState if requested — the
-    prefill→decode handoff).  Without a state in or out, the output's
-    gradient is the two-pass recompute of ``core/taylor_vjp.py``, which
-    keeps O(n·d) residuals."""
-    _check_ported(cfg)
+    prefill→decode handoff).  Without a state in or out, and for the
+    undecayed full-moment form, the output's gradient is the two-pass
+    recompute of ``core/taylor_vjp.py``, which keeps O(n·d) residuals;
+    decayed and ``sym_state`` runs differentiate through the scan."""
     b, h, n, d = q.shape
     h_kv = k.shape[1]
     d_v = v.shape[-1]
@@ -245,9 +303,14 @@ def taylor_attention_chunked(
     q, k = _norm_qk(q, k, cfg)
     qg = _group(q, h_kv)  # [b, hk, g, n, d]
     g = qg.shape[2]
-    if initial_state is None and not return_state:
+    if (
+        initial_state is None
+        and not return_state
+        and not cfg.sym_state
+        and cfg.decay == 1.0
+    ):
         # Training/eval: the custom backward saves only (q, k, v) instead of
-        # every chunk's state (decay and sym_state raised above).
+        # every chunk's state (it is written for the undecayed full moment).
         from repro_torch.core.taylor_vjp import taylor_chunked_core  # noqa: PLC0415 (cycle)
 
         return _ungroup(taylor_chunked_core(qg, k, v, cfg, chunk)).to(v.dtype)
@@ -272,23 +335,72 @@ def chunked_num_den(qs, ks, vs, cfg: TaylorConfig, state0: TaylorState):
     """Scan over chunk-major (qs [nc,b,hk,g,c,d]; ks/vs [nc,b,hk,c,·]).
 
     Returns unnormalised (nums, dens, final_state)."""
-    _check_ported(cfg)
     chunk = qs.shape[4]
     d = qs.shape[-1]
     a = cfg.scale(d)
     mask = torch.ones((chunk, chunk), dtype=torch.bool, device=qs.device).tril()
+    if cfg.decay != 1.0:
+        # intra-chunk pair weight γ^(i-j); inter-chunk scale γ^(i+1) lifts
+        # the carried state (as of the previous chunk's last token) to each
+        # local query position i.
+        g_h = decay_gammas(qs.shape[2], cfg.decay, qs.device)  # [hk]
+        w_intra = _lag_weights(g_h, chunk)  # [hk, c, c]
+        lift = torch.arange(1, chunk + 1, dtype=torch.float32, device=qs.device)
+        w_inter = g_h[:, None] ** lift[None, :]  # [hk, c]
     state = state0
     nums, dens = [], []
     for qc, kc, vc in zip(qs, ks, vs):
         s = torch.einsum("bkgid,bkjd->bkgij", qc.float(), kc.float()) * a
         p = torch.where(mask, poly_scores(s, cfg), 0.0)
+        if cfg.decay != 1.0:
+            p = p * w_intra[None, :, None]
         num = torch.einsum("bkgij,bkjv->bkgiv", p, vc.float())
         den = p.sum(dim=-1)
         inum, iden = _chunk_inter(qc, state, cfg, a)
+        if cfg.decay != 1.0:
+            inum = inum * w_inter[None, :, None, :, None]
+            iden = iden * w_inter[None, :, None, :]
         state = _state_update(state, kc, vc, cfg)
         nums.append(num + inum)
         dens.append(den + iden)
     return torch.stack(nums), torch.stack(dens), state
+
+
+# ---------------------------------------------------------------------------
+# Non-causal / cross-attention mode: one global state, single pass.
+# ---------------------------------------------------------------------------
+
+
+def taylor_attention_noncausal(
+    q: Tensor, k: Tensor, v: Tensor, cfg: TaylorConfig, chunk: int = 128
+) -> Tensor:
+    """Encoder / cross attention: every query sees every key.
+
+    O(n·d²·d_v) with a single global moment state.  Queries are read chunk
+    by chunk, which bounds the S2 read's transient to one chunk's
+    [b, hk, g, chunk, T·d].  q: [b, h, nq, d]; k, v: [b, h_kv, nk, d/v].
+    """
+    b, h, nq, d = q.shape
+    h_kv = k.shape[1]
+    d_v = v.shape[-1]
+    if cfg.decay != 1.0:
+        raise ValueError(
+            "taylor decay is causal-self-attention only (a position-decayed "
+            "global source state is ill-defined)"
+        )
+    q, k = _norm_qk(q, k, cfg)
+    a = cfg.scale(d)
+    qg = _group(q, h_kv)  # [b, hk, g, nq, d]
+    state = init_taylor_state(b, h_kv, d, d_v, cfg, device=q.device)
+    state = _state_update(state, k, v, cfg)
+    if nq % chunk != 0 or nq <= chunk:
+        num, den = _chunk_inter(qg, state, cfg, a)
+        return _ungroup(_safe_div(num, den)).to(v.dtype)
+    outs = []
+    for qc in qg.split(chunk, dim=3):
+        num, den = _chunk_inter(qc, state, cfg, a)
+        outs.append(_safe_div(num, den))
+    return _ungroup(torch.cat(outs, dim=3)).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +421,6 @@ def taylor_decode_step(
     Returns (out_t [b, h, v], new_state).  The new token attends to itself,
     so the state is updated *before* the read (inclusive causal semantics).
     """
-    _check_ported(cfg)
     b, h, d = q_t.shape
     h_kv = k_t.shape[1]
     if cfg.normalize_qk:
@@ -364,7 +475,6 @@ def taylor_state_read(state: TaylorState, q_t: Tensor, cfg: TaylorConfig) -> Ten
     """Read one token's output from a FIXED moment state (no update).
 
     q_t: [b, h, d].  Returns [b, h, d_v] float32."""
-    _check_ported(cfg)
     b, h, d = q_t.shape
     hk = state.z1.shape[1]
     if cfg.normalize_qk:
@@ -375,7 +485,9 @@ def taylor_state_read(state: TaylorState, q_t: Tensor, cfg: TaylorConfig) -> Ten
 
 
 def merge_states(a: TaylorState, b: TaylorState) -> TaylorState:
-    """States are prefix sums, so merging two consecutive shards is addition."""
+    """States are prefix sums, so merging two consecutive shards is addition
+    (undecayed states only: a decayed merge would discount the first shard
+    by γ^len of the second)."""
     add = lambda x, y: None if x is None else x + y
     return TaylorState(*(add(x, y) for x, y in zip(a, b)))
 
@@ -393,12 +505,11 @@ def taylor_attention(
 
     mode: "auto" | "parallel" | "chunked" | "recurrent".  "auto" picks
     parallel for n <= 2·chunk and chunked otherwise; chunked falls back to
-    parallel when n is not a multiple of ``chunk``."""
+    parallel when n is not a multiple of ``chunk``.  ``causal=False`` takes
+    the non-causal single-state path whatever the mode."""
     n = q.shape[2]
     if not causal:
-        raise NotImplementedError(
-            "non-causal taylor attention is not yet ported to torch"
-        )
+        return taylor_attention_noncausal(q, k, v, cfg)
     if mode == "auto":
         mode = "parallel" if n <= 2 * chunk else "chunked"
     if mode == "parallel":

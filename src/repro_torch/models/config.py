@@ -1,11 +1,12 @@
-"""Model configuration of the port (the uniform fields of the JAX package's
-``repro.models.config.ModelConfig``).
+"""Model configuration of the port (the fields of the JAX package's
+``repro.models.config.ModelConfig`` that the port runs).
 
 A model is a repeating ``pattern`` of blocks applied ``n_groups`` times plus
 an optional ``tail``.  The port runs decoder-only models of ``"attn"``
 blocks on the ``taylor``, ``softmax``, ``softmax_window`` and ``linear_elu``
-backends; per-layer schedules, MoE, SSM, encoder-decoder and VLM fields
-are not yet ported.
+backends, uniform or per pattern position (``attention_schedule``: hybrid
+models such as the Based-style taylor + ``softmax_window`` interleave).
+MoE, SSM, encoder-decoder and VLM fields are not yet ported.
 """
 
 from __future__ import annotations
@@ -56,6 +57,15 @@ class ModelConfig:
     #   "torch" — force the plain PyTorch paths (the reference)
     #   "cuda"  — force the CUDA kernel; configs outside its envelope raise
     attn_impl: str = "auto"
+    # --- per-layer attention schedule (hybrid models) ---
+    # Maps pattern positions (indices into ``pattern``; the pattern repeats
+    # in every group, so a position addresses the same layer of all
+    # n_groups) to registered backend names.  Positions absent from it, and
+    # the tail, use ``attention``.  A dict is accepted at construction and
+    # normalised to a sorted tuple of (position, name) pairs without the
+    # entries that name the default, so two spellings of one schedule
+    # compare equal and configs stay hashable.
+    attention_schedule: Tuple[Tuple[int, str], ...] = ()
     # Sliding-window size (tokens) of the ``softmax_window`` backend's
     # O(window) ring-buffer KV cache.
     attn_window: int = 128
@@ -70,6 +80,7 @@ class ModelConfig:
     max_seq: int = 131072
 
     def __post_init__(self):
+        self._normalise_schedule()
         for kind in self.pattern + self.tail:
             if kind not in BLOCK_KINDS:
                 raise ValueError(
@@ -84,6 +95,43 @@ class ModelConfig:
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {self.remat!r}")
 
+    def _normalise_schedule(self) -> None:
+        """Validate ``attention_schedule`` against the pattern and the
+        backend registry and store its normal form (the JAX package's
+        checks and messages)."""
+        sched = self.attention_schedule
+        if isinstance(sched, dict):
+            sched = tuple(sched.items())
+        norm = {}
+        for pos, name in sched:
+            pos = int(pos)
+            if not 0 <= pos < len(self.pattern):
+                raise ValueError(
+                    f"attention_schedule position {pos} outside pattern "
+                    f"(len {len(self.pattern)})"
+                )
+            if self.pattern[pos] == "mamba":
+                raise ValueError(
+                    f"attention_schedule position {pos} is a 'mamba' block — "
+                    "only attention-bearing blocks take a backend"
+                )
+            if pos in norm and norm[pos] != name:
+                raise ValueError(
+                    f"attention_schedule position {pos} mapped twice "
+                    f"({norm[pos]!r} and {name!r})"
+                )
+            norm[pos] = name
+        if norm:
+            from repro_torch.backends.registry import get_backend  # noqa: PLC0415 (cycle)
+
+            for name in norm.values():
+                get_backend(name)  # raises on unknown or unported names
+        object.__setattr__(
+            self,
+            "attention_schedule",
+            tuple(sorted((p, n) for p, n in norm.items() if n != self.attention)),
+        )
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
@@ -92,15 +140,70 @@ class ModelConfig:
     def n_layers(self) -> int:
         return self.n_groups * len(self.pattern) + len(self.tail)
 
+    @property
+    def pattern_backends(self) -> Tuple[str, ...]:
+        """Backend name per pattern position: the scheduled name, else
+        ``attention``."""
+        sched = dict(self.attention_schedule)
+        return tuple(sched.get(i, self.attention) for i in range(len(self.pattern)))
+
     def layer_cfg(self, backend: str) -> "ModelConfig":
-        """Config view for one layer run with ``attention`` set to ``backend``
-        (``self`` when already uniform on it)."""
-        if backend == self.attention:
+        """Config view for one layer run: ``attention`` replaced by that run's
+        backend, schedule cleared.  Everything below the model layer (the
+        attention block, the backends, the kernels) receives this uniform
+        view.  ``self`` when already uniform on ``backend``."""
+        if backend == self.attention and not self.attention_schedule:
             return self
-        return dataclasses.replace(self, attention=backend)
+        return dataclasses.replace(self, attention=backend, attention_schedule=())
+
+    @property
+    def attention_backend_names(self) -> Tuple[str, ...]:
+        """Sorted unique backend names of the attention layers (the pattern's
+        and, with a tail, the default)."""
+        names = set(self.pattern_backends)
+        if self.tail:
+            names.add(self.attention)
+        return tuple(sorted(names))
+
+    @property
+    def backend_desc(self) -> str:
+        """The uniform backend name, or the "+"-joined per-layer set under a
+        schedule (for error strings and labels)."""
+        return "+".join(self.attention_backend_names or (self.attention,))
+
+    @property
+    def uses_kv_cache(self) -> bool:
+        """True if any layer's backend keeps a KV cache (full or a ring)."""
+        from repro_torch.backends.registry import get_backend  # noqa: PLC0415 (cycle)
+
+        return any(get_backend(n).state_kind == "kv" for n in self.attention_backend_names)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if every layer's decode state is bounded in context length
+        (moments, or an O(window) ring): no layer keeps an O(n) KV cache."""
+        from repro_torch.backends.registry import get_backend  # noqa: PLC0415 (cycle)
+
+        return all(get_backend(n).bounded_state for n in self.attention_backend_names)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def schedule_runs(cfg: ModelConfig) -> Tuple[Tuple[str, str, int], ...]:
+    """The decoder ``pattern`` as runs of equal (kind, backend):
+    ``((kind, backend_name, run_len), ...)``.
+
+    These are the JAX package's scan runs: its stacked params ``r{j}`` and
+    the per-run decode caches follow them.  With an empty schedule they are
+    the runs of equal kinds alone."""
+    out = []
+    for kind, bk in zip(cfg.pattern, cfg.pattern_backends):
+        if out and out[-1][0] == kind and out[-1][1] == bk:
+            out[-1] = (kind, bk, out[-1][2] + 1)
+        else:
+            out.append((kind, bk, 1))
+    return tuple(out)
 
 
 def count_params(cfg: ModelConfig) -> int:

@@ -2,7 +2,8 @@
 
 The JAX tree stacks every block leaf over the depth scan:
 ``blocks/group/r{j}/... [n_groups, run_len, ...]`` (one run per stretch of
-equal block kinds) and ``blocks/tail/t{i}/...``.  The port keeps one dict
+equal block kind and attention backend: ``schedule_runs``) and
+``blocks/tail/t{i}/...``.  The port keeps one dict
 per layer, in layer order.  The caller converts the JAX arrays with
 ``np.asarray`` (this module imports no JAX)::
 
@@ -20,19 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.tree import tree_map
-
-
-def _runs(kinds):
-    """Runs of equal consecutive kinds: [('attn', 2), ...] (the JAX scan runs)."""
-    out = []
-    for kind in kinds:
-        if out and out[-1][0] == kind:
-            out[-1] = (kind, out[-1][1] + 1)
-        else:
-            out.append((kind, 1))
-    return out
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict[str, Any]:
@@ -51,7 +41,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
     group = tree["blocks"]["group"]
     blocks = []
     for gi in range(cfg.n_groups):
-        for j, (_, run_len) in enumerate(_runs(cfg.pattern)):
+        for j, (_, _, run_len) in enumerate(schedule_runs(cfg)):
             for r in range(run_len):
                 blocks.append(tree_map(lambda x: to_t(x[gi, r]), group[f"r{j}"]))
     for i in range(len(cfg.tail)):
@@ -75,7 +65,7 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     blocks = params["blocks"]
     group = {}
     offset = 0
-    for j, (_, run_len) in enumerate(_runs(cfg.pattern)):
+    for j, (_, _, run_len) in enumerate(schedule_runs(cfg)):
         rows = [[blocks[gi * per_group + offset + r] for r in range(run_len)]
                 for gi in range(cfg.n_groups)]
         group[f"r{j}"] = _stack(rows)
@@ -84,12 +74,11 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     tree = {
         "embed": tree_map(to_np, params["embed"]),
         "final_norm": tree_map(to_np, params["final_norm"]),
-        "blocks": {
-            "group": group,
-            "tail": {f"t{i}": tree_map(to_np, blocks[n_group + i])
-                     for i in range(len(cfg.tail))},
-        },
+        "blocks": {"group": group},
     }
+    if cfg.tail:  # as in the JAX tree, which has no "tail" entry without one
+        tree["blocks"]["tail"] = {f"t{i}": tree_map(to_np, blocks[n_group + i])
+                                  for i in range(len(cfg.tail))}
     if "unembed" in params:
         tree["unembed"] = tree_map(to_np, params["unembed"])
     return tree

@@ -6,14 +6,18 @@ leaves)::
     {"embed": {"w": [vocab, d]}, "final_norm": {"scale": [d]},
      "blocks": [layer params, ...]}          # n_layers, group-major, then tail
 
-(plus ``"unembed"`` when embeddings are untied).  Decode caches keep the
-JAX package's layout so the serve layer's slot operations and the parity
-tests address them alike::
+(plus ``"unembed"`` when embeddings are untied).  Each layer runs under
+its run's config view (``ModelConfig.layer_cfg`` of the backend that
+``attention_schedule`` gives its pattern position; the tail under the
+default), in one plain loop over the layers.  Decode caches keep the JAX
+package's layout so the serve layer's slot operations and the parity tests
+address them alike: one stacked state per run of ``schedule_runs``::
 
-    {"group": (state with leaves [n_groups, len(pattern), b, ...],),
+    {"group": (state with leaves [n_groups, run_len, b, ...] per run,),
      "tail": (state [b, ...] per tail block,), "kv_src": None}
 
-where a state is the backend's NamedTuple (``TaylorState`` or ``KVCache``).
+where a state is the run's backend's NamedTuple (``TaylorState`` or
+``KVCache``); a hybrid schedule gives a tuple of both.
 
 Inputs are a dict ``{"tokens": [b, n] int64/int32}``.
 """
@@ -28,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.backends import resolve_backend
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import block_apply, block_decode, block_init, block_prefill
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.layers import (
     embed_apply,
     embed_init,
@@ -36,7 +40,7 @@ from repro_torch.models.layers import (
     norm_init,
     unembed_apply,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
@@ -48,8 +52,18 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _layer_kinds(cfg: ModelConfig) -> List[str]:
-    return list(cfg.pattern) * cfg.n_groups + list(cfg.tail)
+def _cfg_runs(cfg: ModelConfig) -> List[Tuple[str, ModelConfig, int]]:
+    """``(kind, run_cfg, run_len)`` per run of ``schedule_runs``: each run
+    carries its uniform ``layer_cfg`` view."""
+    return [(kind, cfg.layer_cfg(bk), rl) for kind, bk, rl in schedule_runs(cfg)]
+
+
+def _layer_cfgs(cfg: ModelConfig) -> List[Tuple[str, ModelConfig]]:
+    """``(kind, layer config)`` of every layer, in layer order (group-major,
+    then the tail under the default backend)."""
+    group = [(kind, rcfg) for kind, rcfg, rl in _cfg_runs(cfg) for _ in range(rl)]
+    tail_cfg = cfg.layer_cfg(cfg.attention)
+    return group * cfg.n_groups + [(kind, tail_cfg) for kind in cfg.tail]
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +97,7 @@ def lm_init(
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
         "final_norm": norm_init(cfg.d_model, dtype),
-        "blocks": [block_init(gen, kind, cfg, dtype) for kind in _layer_kinds(cfg)],
+        "blocks": [block_init(gen, kind, lcfg, dtype) for kind, lcfg in _layer_cfgs(cfg)],
     }
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
@@ -139,8 +153,8 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     block = _remat(block_apply, cfg)
-    for kind, p in zip(_layer_kinds(cfg), params["blocks"]):
-        x, a = block(p, kind, x, cfg, positions)
+    for (kind, lcfg), p in zip(_layer_cfgs(cfg), params["blocks"]):
+        x, a = block(p, kind, x, lcfg, positions)
         aux = aux + a
     return _logits(params, x, cfg), aux
 
@@ -159,13 +173,21 @@ def _stack_states(states: List[NamedTuple], n_groups: int, per_group: int) -> Na
     ))
 
 
+def _run_offsets(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """``(offset in the pattern, run_len)`` of each run."""
+    out, offset = [], 0
+    for _, _, rl in schedule_runs(cfg):
+        out.append((offset, rl))
+        offset += rl
+    return out
+
+
 def _split_caches(caches, cfg: ModelConfig) -> List[NamedTuple]:
     """Inverse of ``_pack_caches``: one state per layer, in layer order."""
     out = []
-    if cfg.n_groups:
-        (stacked,) = caches["group"]
-        for gi in range(cfg.n_groups):
-            for r in range(len(cfg.pattern)):
+    for gi in range(cfg.n_groups):
+        for stacked, (_, rl) in zip(caches["group"], _run_offsets(cfg)):
+            for r in range(rl):
                 out.append(type(stacked)(*(None if x is None else x[gi, r]
                                            for x in stacked)))
     out.extend(caches["tail"])
@@ -173,10 +195,15 @@ def _split_caches(caches, cfg: ModelConfig) -> List[NamedTuple]:
 
 
 def _pack_caches(states: List[NamedTuple], cfg: ModelConfig):
-    n_group_layers = cfg.n_groups * len(cfg.pattern)
-    group = ()
-    if cfg.n_groups:
-        group = (_stack_states(states[:n_group_layers], cfg.n_groups, len(cfg.pattern)),)
+    """Per-layer states (layer order) -> one stacked state per run."""
+    per_group = len(cfg.pattern)
+    group = tuple(
+        _stack_states([states[gi * per_group + offset + r]
+                       for gi in range(cfg.n_groups) for r in range(rl)],
+                      cfg.n_groups, rl)
+        for offset, rl in _run_offsets(cfg)
+    ) if cfg.n_groups else ()
+    n_group_layers = cfg.n_groups * per_group
     return {"group": group, "tail": tuple(states[n_group_layers:]), "kv_src": None}
 
 
@@ -187,8 +214,8 @@ def lm_prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int):
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     states = []
-    for kind, p in zip(_layer_kinds(cfg), params["blocks"]):
-        x, c = block_prefill(p, kind, x, cfg, n_max, positions)
+    for (kind, lcfg), p in zip(_layer_cfgs(cfg), params["blocks"]):
+        x, c = block_prefill(p, kind, x, lcfg, n_max, positions)
         states.append(c)
     logits = _logits(params, x[:, -1:, :], cfg)[:, 0, :]
     return logits, _pack_caches(states, cfg)
@@ -211,8 +238,9 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
     """
     x_t = _embed_tokens(params, token_t, cfg)
     new_states = []
-    for kind, p, c in zip(_layer_kinds(cfg), params["blocks"], _split_caches(caches, cfg)):
-        x_t, c = block_decode(p, kind, x_t, c, cfg, pos)
+    for (kind, lcfg), p, c in zip(_layer_cfgs(cfg), params["blocks"],
+                                  _split_caches(caches, cfg)):
+        x_t, c = block_decode(p, kind, x_t, c, lcfg, pos)
         new_states.append(c)
     logits = _logits(params, x_t, cfg)
     return logits, _pack_caches(new_states, cfg)
@@ -220,10 +248,30 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
 
 def lm_init_caches(cfg: ModelConfig, batch: int, n_max: int, device=None):
     """Zero decode caches with the exact structure ``lm_prefill`` produces
-    (KV leaves in ``cfg.dtype``, the activations' dtype)."""
+    (KV leaves in ``cfg.dtype``, the activations' dtype).  Each run's state
+    comes from its own backend, so a hybrid schedule gives a tuple of
+    different state types."""
     device = resolve_device(device)
-    backend = resolve_backend(cfg)
     dtype = torch_dtype(cfg.dtype)
-    states = [backend.init_cache(cfg, batch, n_max, device, dtype)
-              for _ in _layer_kinds(cfg)]
-    return _pack_caches(states, cfg)
+
+    def one(rcfg):
+        return resolve_backend(rcfg).init_cache(rcfg, batch, n_max, device, dtype)
+
+    def stack(state, rl):
+        return tree_map(lambda x: x.expand((cfg.n_groups, rl) + x.shape).clone(), state)
+
+    group = tuple(stack(one(rcfg), rl) for _, rcfg, rl in _cfg_runs(cfg)) \
+        if cfg.n_groups else ()
+    tail_cfg = cfg.layer_cfg(cfg.attention)
+    return {"group": group, "tail": tuple(one(tail_cfg) for _ in cfg.tail), "kv_src": None}
+
+
+def lm_state_bytes(cfg: ModelConfig, batch: int, n_max: int) -> int:
+    """Decode-state bytes of the whole cache, summed per layer, each run
+    with its own backend's state (taylor moments O(1), a softmax KV cache
+    O(n_max), a softmax_window ring O(window)); KV leaves in ``cfg.dtype``.
+
+    Shapes only: the cache is built on the ``meta`` device, so nothing is
+    allocated on the card."""
+    caches = lm_init_caches(cfg, batch, n_max, device="meta")
+    return sum(x.numel() * x.element_size() for x in tree_leaves(caches))

@@ -10,6 +10,10 @@ Layout (the structure ``lm_prefill`` returns):
   caches["group"]  leaves  [n_groups, run_len, slots, ...]   (slot axis 2)
   caches["tail"]   leaves  [slots, ...]                      (slot axis 0)
 
+``caches["group"]`` holds one state per run of ``schedule_runs``, each of
+its own backend's type (a hybrid schedule mixes ``TaylorState`` and
+``KVCache``); every slot operation walks each run's state alike.
+
 ``write_slot`` and ``clear_slot`` update the cache IN PLACE (the JAX
 package donates the buffer for the same effect) and return it.
 """
@@ -20,9 +24,10 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.backends import resolve_backend
+from repro_torch.backends import get_backend, resolve_backend
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_init_caches
+from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
 
@@ -49,6 +54,41 @@ def _map(fn: Callable, caches, *others) -> Dict[str, Any]:
         "tail": one("tail", TAIL_SLOT_AXIS),
         "kv_src": None,
     }
+
+
+def slot_state_kinds(cfg: ModelConfig) -> Dict[str, str]:
+    """Per-block-kind decode-state kinds of this config's cache.
+
+    ``"kv"`` leaves are O(n_max) per slot (or O(window) for a ring),
+    ``"moments"`` O(1) in context length.  Under a hybrid schedule a block
+    kind can hold several state kinds at once; they are joined with "+" in
+    first-appearance pattern order, e.g. ``{"attn": "moments+kv"}``.
+
+    Returns:
+      ``{block_kind: state_kind}`` for every kind of the pattern and tail.
+    """
+    resolve_backend(cfg)  # fail fast on an unservable default backend/impl
+    out: Dict[str, str] = {}
+
+    def add(kind, state_kind):
+        kinds = out[kind].split("+") if kind in out else []
+        if state_kind not in kinds:
+            kinds.append(state_kind)
+        out[kind] = "+".join(kinds)
+
+    for kind, bk in zip(cfg.pattern, cfg.pattern_backends):
+        add(kind, get_backend(bk).state_kind)
+    for kind in cfg.tail:
+        add(kind, get_backend(cfg.attention).state_kind)
+    return out
+
+
+def slot_bytes(caches, max_slots: int) -> int:
+    """Decode-state bytes held per slot: every leaf carries the slot axis,
+    so the cache's bytes over ``max_slots`` (the marginal memory of one
+    admitted request)."""
+    total = sum(x.numel() * x.element_size() for x in tree_leaves(caches))
+    return total // max_slots
 
 
 def init_slot_caches(cfg: ModelConfig, max_slots: int, n_max: int, device=None):

@@ -53,7 +53,7 @@ def assert_states_close(ts, js):
 
 
 @pytest.mark.parametrize("kw", [dict(order=3), dict(alpha=0.0), dict(decay=0.0),
-                                dict(decay=1.5)])
+                                dict(decay=1.5), dict(decay=-0.5)])
 def test_taylor_config_rejects_what_jax_rejects(kw):
     with pytest.raises(ValueError):
         jfm.TaylorConfig(**kw)
@@ -208,11 +208,26 @@ def test_minus_one_variant(rng):
 
 @pytest.mark.parametrize("kw", [dict(decay=0.9), dict(sym_state=True)])
 def test_unported_variants_raise(rng, kw):
-    tc = tfm.TaylorConfig(**kw)
-    tq, tk, tv = both(*qkv(rng, n=32))[0]
-    with pytest.raises(NotImplementedError):
-        tt.taylor_attention_chunked(tq, tk, tv, tc, chunk=16)
-    with pytest.raises(NotImplementedError):
-        tt.init_taylor_state(1, 1, 4, 4, tc)
-    with pytest.raises(NotImplementedError):
-        tt.taylor_attention(tq, tk, tv, dataclasses.replace(tc), causal=False)
+    # Both variants run the torch paths now, as the reference runs them on
+    # XLA; they raise only where the reference's do: decay in the
+    # non-causal form, and either variant forced onto the CUDA kernels.
+    from repro_torch.backends import resolve_backend
+    from repro_torch.configs import get_reduced
+
+    tc, jc = cfgs(2, **kw)
+    (tq, tk, tv), (jq, jk, jv) = both(*qkv(rng, n=32))
+    assert rel(tt.taylor_attention_chunked(tq, tk, tv, tc, chunk=16),
+               jt.taylor_attention_chunked(jq, jk, jv, jc, chunk=16)) < TOL
+    shapes = lambda st: [None if x is None else tuple(x.shape) for x in st]
+    assert shapes(tt.init_taylor_state(1, 1, 4, 4, tc)) == shapes(
+        jt.init_taylor_state(1, 1, 4, 4, jc))
+    if tc.decay != 1.0:
+        for fn, q, k, v, c in ((tt.taylor_attention, tq, tk, tv, tc),
+                               (jt.taylor_attention, jq, jk, jv, jc)):
+            with pytest.raises(ValueError, match="causal-self-attention only"):
+                fn(q, k, v, dataclasses.replace(c), causal=False)
+    else:
+        assert rel(tt.taylor_attention(tq, tk, tv, tc, causal=False),
+                   jt.taylor_attention(jq, jk, jv, jc, causal=False)) < TOL
+    with pytest.raises(ValueError, match="attn_impl='cuda'"):
+        resolve_backend(get_reduced("smollm-135m", taylor=tc, attn_impl="cuda"))
