@@ -8,8 +8,10 @@ training step (random weights from a seed), cross-checks them, runs the
 same model on the paper's baselines (softmax, sliding-window softmax,
 elu+1 linear, Taylor order 1), then the Based-style hybrid (taylor and
 sliding-window layers interleaved) and the Taylor variants (sym_state,
-decay, non-causal), and prints one JSON line describing every ported
-kernel followed by the device line.
+decay, non-causal), then serving under load (phase 10: chunked prefill,
+the SLO scheduler with a preemption, the standard fault trace, a replayed
+Poisson trace and the health sweep's price), and prints one JSON line
+describing every ported kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -17,6 +19,7 @@ Any failed phase exits non-zero.  Needs a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -113,6 +116,16 @@ DECAY_STEPS = 2
 DECAY_TOL = 1e-5  # f32 forward vs the model's own prefill + decode, decayed
 DECODE_CHECK = (896, 8)  # chunked prefill of 7 chunks, then decode steps
 SYM_S2_SHARE = 0.55  # sym_state's per-slot S2 against the full state's
+# Phase 10: serving under load (smollm-135m order 2, f32, 4 slots, N_MAX).
+CHUNK_TOL = 2e-3  # chunked vs whole prefill, atol = rtol (tests/test_serve_sharded.py)
+CHUNK_CASES = ((700, 256), (300, 128))  # (prompt, chunk): order 2, then the hybrid
+SLO_SCHED = dict(priority_admission=True, decode_per_prefill=2, fat_chunk_depth=3,
+                 preemption=True)
+URGENT = ((64, 600), 16)  # priority-0 prompts submitted after the first step, new tokens
+REPLAY = dict(seed=0, n=12, prompt_len=(100, 700), new_tokens=(8, 32),
+              mean_interarrival_s=0.02, priorities=(0, 1))
+LOAD_CHUNK = 256  # the engine's prefill_chunk in (b) and (d)
+FAULT_MAX_QUEUE = 8  # (c): the standard trace's flood overflows this queue
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -592,10 +605,20 @@ def serve_requests(torch, ServeEngine, Request, params, cfg):
     for rid, p in zip(rids, prompts):
         if rid not in outs or len(outs[rid]) != MAX_NEW:
             fail(f"request of prompt {len(p)} did not finish with {MAX_NEW} tokens")
+    check_no_faults(eng.stats(), f"serving {cfg.attention} ({cfg.dtype})")
     cache = dict(runs=[type(x).__name__ for x in eng.caches["group"]],
                  slot_bytes=slots.slot_bytes(eng.caches, eng.max_slots),
                  s2_bytes=s2_bytes_per_slot(eng.caches, eng.max_slots))
     return prompts, [outs[r] for r in rids], eng.stats(), wall, cache
+
+
+def check_no_faults(st, what):
+    """Serving runs through the engine's resilience boundary, which turns an
+    exception in a decode dispatch into retries and FAILED requests: a run
+    without an injected fault must have caught none and quarantined none."""
+    if st.get("dispatch_failures", 0) or st.get("quarantined", 0):
+        fail(f"{what}: dispatch_failures={st.get('dispatch_failures', 0)} "
+             f"quarantined={st.get('quarantined', 0)} without an injected fault")
 
 
 def cross_check(torch, lm_apply, params, cfg, prompts, outs):
@@ -988,6 +1011,357 @@ def phase_hybrid(torch, K, infer, serve_fn, cross_fn, full_f32):
     return out
 
 
+def host_ms(torch, fn, iters: int) -> float:
+    """Median host-clock ms of ``fn`` followed by a device synchronize (warm)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def tol_ratio(torch, got, want, tol):
+    """(max |got - want|, max |got - want| / (tol + tol |want|)): the second
+    is <= 1 exactly when ``torch.allclose(got, want, rtol=tol, atol=tol)``."""
+    diff = (got.double() - want.double()).abs()
+    return float(diff.max()), float((diff / (tol + tol * want.double().abs())).max())
+
+
+@contextlib.contextmanager
+def captured_kv(backend_cls):
+    """Record the ``(k, v)`` that ``backend_cls.prefill`` and
+    ``.prefill_chunk`` are given, call by call, while the block runs."""
+    whole, chunks = [], []
+    prefill_fn, chunk_fn = backend_cls.prefill, backend_cls.prefill_chunk
+
+    def prefill(self, q, k, v, cfg, n_max):
+        whole.append((k.clone(), v.clone()))
+        return prefill_fn(self, q, k, v, cfg, n_max)
+
+    def prefill_chunk(self, cache, q, k, v, cfg, pos):
+        chunks.append((k.clone(), v.clone()))
+        return chunk_fn(self, cache, q, k, v, cfg, pos)
+
+    backend_cls.prefill, backend_cls.prefill_chunk = prefill, prefill_chunk
+    try:
+        yield whole, chunks
+    finally:
+        backend_cls.prefill, backend_cls.prefill_chunk = prefill_fn, chunk_fn
+
+
+def state_gap_origin(torch, cfg, whole, chunked, kv_whole, kv_chunked):
+    """Where chunked and whole prefill's Taylor states differ most, and why.
+
+    Finds the state entry (layer, leaf, index) with the worst
+    ``|chunked - whole| / (atol + rtol |whole|)`` and recomputes it in
+    float64 from each path's own keys and values (``kv_*``: per layer, the
+    ``(k, v)`` the backend was given).  Returns a dict: both f32 values, both
+    float64 sums, and ``sum_abs``, the sum of the entry's terms' magnitudes,
+    against which f32 rounding is measured (unit roundoff 2^-24), and
+    ``sum_abs_delta``, the sum of the magnitudes of the terms' differences
+    between the two paths' inputs, which bounds how far the layer's
+    inputs alone move the float64 sum."""
+    import numpy as np
+
+    from repro_torch.models.lm import _split_caches
+
+    worst = None
+    for layer, (ws, cs) in enumerate(zip(_split_caches(whole, cfg), _split_caches(chunked, cfg))):
+        for name, w, c in zip(ws._fields, ws, cs):
+            if w is None:
+                continue
+            ratio = (c.double() - w.double()).abs() / (CHUNK_TOL + CHUNK_TOL * w.double().abs())
+            r = float(ratio.max())
+            if worst is None or r > worst[0]:
+                idx = tuple(int(i) for i in np.unravel_index(int(ratio.argmax()), tuple(w.shape)))
+                worst = (r, layer, name, idx, float(w[idx]), float(c[idx]))
+    ratio, layer, name, idx, w32, c32 = worst
+
+    def terms(k, v):
+        k, v = k.double(), v.double()
+        if cfg.taylor.normalize_qk:  # the backend's layernorm_no_affine, in float64
+            mu = k.mean(dim=-1, keepdim=True)
+            k = (k - mu) * torch.rsqrt((k - mu).square().mean(dim=-1, keepdim=True) + 1e-6)
+        b, h, *rest = idx
+        kt, vt = k[b, h], v[b, h]  # [n, d], [n, dv]
+        return {
+            "n0": lambda: torch.ones_like(kt[:, 0]),
+            "s0": lambda: vt[:, rest[0]],
+            "z1": lambda: kt[:, rest[0]],
+            "s1": lambda: kt[:, rest[0]] * vt[:, rest[-1]],
+            "z2": lambda: kt[:, rest[0]] * kt[:, rest[1]],
+            "s2": lambda: kt[:, rest[0]] * kt[:, rest[1]] * vt[:, rest[2]],
+        }[name]()
+
+    t_whole, t_chunked = terms(*kv_whole[layer]), terms(*kv_chunked[layer])
+    return dict(ratio=ratio, layer=layer, leaf=name, index=idx, whole_f32=w32, chunked_f32=c32,
+                whole_f64=float(t_whole.sum()), chunked_f64=float(t_chunked.sum()),
+                sum_abs=float(t_whole.abs().sum()),
+                sum_abs_delta=float((t_whole - t_chunked).abs().sum()))
+
+
+def counting_plan(faults, plan):
+    """``plan`` as a FaultPlan that counts the dispatch failures it injects,
+    so that every failure the engine caught can be told to be an injected
+    one."""
+
+    class Counting(faults.FaultPlan):
+        injected = 0
+
+        def check_dispatch(self, block):
+            try:
+                super().check_dispatch(block)
+            except faults.InjectedDispatchError:
+                self.injected += 1
+                raise
+
+    return Counting(plan.events, seed=plan.seed)
+
+
+def phase_serving_load(torch, K, infer, full_f32):
+    """Phase 10: serving under load at smollm-135m's full width (order 2, f32,
+    4 slots, n_max N_MAX): (a) chunked against whole prefill, order 2 and
+    the hybrid, with order 2's worst state entry recomputed in float64 from
+    each path's keys and values (``state_gap_origin``); (b) chunked admission under the SLO policy, with a
+    preemption, against FIFO whole-prompt admission; (c) the standard fault
+    trace; (d) a Poisson trace replayed under the virtual clock; (e) the
+    price of the health sweep and of a preemption's state handoff.
+    ``full_f32`` = phase 6's (prompts, outputs, stats): the fault-free
+    tokens.  Serving reaches no kernel (the JAX package's prefill and
+    decode reach no Pallas kernel either): taylor_fwd launches are counted
+    over every serving run and must be 0."""
+    import numpy as np
+
+    from repro_torch.backends.taylor import TaylorBackend
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_init
+    from repro_torch.serve import (Request, ResiliencePolicy, SchedulerPolicy, ServeEngine,
+                                   Status, faults, poisson_trace, prefill, prefill_chunked,
+                                   run_trace, slots)
+    from repro_torch.tree import tree_leaves
+
+    cfg32 = get_config("smollm-135m", dtype="float32")
+    hybrid32 = cfg32.replace(**HYBRID)
+    params = lm_init(torch.Generator().manual_seed(0), cfg32)  # phase 4's weights
+    f_prompts, f_outs, _ = full_f32
+    out = {}
+    launches = 0
+
+    def engine(**kw):
+        return ServeEngine(params, cfg32, max_slots=4, n_max=N_MAX, decode_block=16, **kw)
+
+    # -- (a) chunked against whole prefill --
+    gen = torch.Generator().manual_seed(3)
+    for (n, chunk), cfg in zip(CHUNK_CASES, (cfg32, hybrid32)):
+        tag = "hybrid" if cfg is hybrid32 else "order2"
+        batch = {"tokens": torch.randint(0, cfg.vocab, (1, n), generator=gen).cuda()}
+        K.taylor_fwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wl, wc = prefill(params, batch, cfg, N_MAX)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cl, cc = prefill_chunked(params, batch, cfg, N_MAX, chunk)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if tag == "order2":  # again, untimed, keeping each layer's keys and values
+            with captured_kv(TaylorBackend) as (kv_whole, kv_chunks):
+                prefill(params, batch, cfg, N_MAX)
+                prefill_chunked(params, batch, cfg, N_MAX, chunk)
+            n_layers = len(kv_whole)
+            kv_chunked = [tuple(torch.cat(part, dim=2) for part in zip(*kv_chunks[i::n_layers]))
+                          for i in range(n_layers)]
+            origin = state_gap_origin(torch, cfg, wc, cc, kv_whole, kv_chunked)
+        launches += K.taylor_fwd.launches
+        logit_err, logit_ratio = tol_ratio(torch, cl, wl, CHUNK_TOL)
+        pairs = list(zip(tree_leaves(cc), tree_leaves(wc)))
+        if len(pairs) != len(tree_leaves(wc)) or any(a.shape != b.shape for a, b in pairs):
+            fail(f"[10a] {tag}: chunked prefill's cache has another structure than prefill's")
+        errs = [tol_ratio(torch, a, b, CHUNK_TOL) for a, b in pairs if a.is_floating_point()]
+        ints_equal = all(torch.equal(a, b) for a, b in pairs if not a.is_floating_point())
+        state_err, state_ratio = max(e for e, _ in errs), max(r for _, r in errs)
+        out[f"chunked_{tag}"] = dict(prompt=n, chunk=chunk, logit_err=logit_err,
+                                     state_err=state_err, whole_s=t1 - t0, chunked_s=t2 - t1)
+        print(f"[10a] {tag} f32 prompt {n}: prefill_chunked(chunk={chunk}) vs prefill: logits "
+              f"max_abs_err={logit_err:.3e}, {len(errs)} state leaves max_abs_err={state_err:.3e}, "
+              f"max err/(atol + rtol|ref|) = {max(logit_ratio, state_ratio):.3f} (atol = rtol = "
+              f"{CHUNK_TOL}); int leaves equal: {ints_equal}; whole {(t1 - t0) * 1e3:.1f} ms, "
+              f"chunked {(t2 - t1) * 1e3:.1f} ms (host clock, one call each)")
+        if tag == "order2":
+            o = origin
+            u32 = 2.0 ** -24
+            print(f"[10a] order2 worst state entry: layer {o['layer']} leaf {o['leaf']} index "
+                  f"{o['index']} (err/(atol + rtol|ref|) {o['ratio']:.3f}): whole f32 "
+                  f"{o['whole_f32']:.9g}, chunked f32 {o['chunked_f32']:.9g}; float64 from "
+                  f"whole's k/v {o['whole_f64']:.9g}, from chunked's k/v {o['chunked_f64']:.9g}; "
+                  f"|whole - f64| {abs(o['whole_f32'] - o['whole_f64']):.3e}, |chunked - f64| "
+                  f"{abs(o['chunked_f32'] - o['chunked_f64']):.3e}; sum of |terms| "
+                  f"{o['sum_abs']:.6g} (x 2^-24 = {o['sum_abs'] * u32:.3e}), of their "
+                  f"differences between the paths' inputs {o['sum_abs_delta']:.3e}")
+            out["chunked_order2"]["origin"] = o
+        if not (logit_ratio <= 1 and state_ratio <= 1 and ints_equal):
+            fail(f"[10a] {tag}: chunked prefill disagrees with whole prefill")
+        del wc, cc
+
+    # -- (b) chunked admission under the SLO policy, against FIFO --
+    u_gen = torch.Generator().manual_seed(4)
+    urgent = [torch.randint(0, cfg32.vocab, (n,), generator=u_gen) for n in URGENT[0]]
+    runs = {}
+    for name, kw in (("fifo", {}), ("slo", dict(prefill_chunk=LOAD_CHUNK,
+                                                  sched=SchedulerPolicy(**SLO_SCHED)))):
+        eng = engine(**kw)
+        K.taylor_fwd.launches = 0
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW, priority=1))
+                for p in f_prompts]
+        eng.step()
+        rids += [eng.submit(Request(tokens=u.numpy(), max_new_tokens=URGENT[1], priority=0))
+                 for u in urgent]
+        res = eng.run(return_results=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches += K.taylor_fwd.launches
+        st = eng.stats()
+        del eng
+        if any(res[r].status is not Status.OK for r in rids):
+            fail(f"[10b] {name}: statuses {[res[r].status.value for r in rids]}")
+        check_no_faults(st, f"[10b] {name}")
+        ttft = [res[r].first_token_at - res[r].submitted_at for r in rids]
+        runs[name] = dict(tokens=[res[r].tokens.astype(np.int64) for r in rids], ttft=ttft,
+                          stats=st, wall=wall)
+        print(f"[10b] {name}: {len(rids)} requests in {wall:.2f} s; TTFT of the priority-0 "
+              f"{URGENT[0][0]}-token request {ttft[-2] * 1e3:.1f} ms, of the "
+              f"{URGENT[0][1]}-token one {ttft[-1] * 1e3:.1f} ms; prefill "
+              f"{st['prefill_dispatches']} dispatches {st['prefill_seconds']:.3f} s, decode "
+              f"{st['decode_tokens']} tokens in {st['decode_seconds']:.3f} s = "
+              f"{st['decode_tokens'] / st['decode_seconds']:.1f} tokens/s; preemptions "
+              f"{st.get('preemptions', 0)} resumes {st.get('resumes', 0)}")
+    st = runs["slo"]["stats"]
+    if not (st.get("preemptions", 0) >= 1 and st.get("resumes", 0) == st["preemptions"]):
+        fail(f"[10b] SLO policy: preemptions {st.get('preemptions', 0)}, "
+             f"resumes {st.get('resumes', 0)}")
+    differ, ties, bad = diverging_requests(torch, infer, params, cfg32, f_prompts + urgent,
+                                           runs["fifo"]["tokens"], runs["slo"]["tokens"])
+    print(f"[10b] SLO-policy tokens vs FIFO whole-prompt tokens: {differ} of "
+          f"{len(f_prompts) + len(urgent)} requests differ, {ties} at a near-tie "
+          f"(gap<{NEAR_TIE}), {bad} not")
+    if bad:
+        fail(f"[10b] {bad} requests' tokens differ between the SLO and FIFO engines")
+    out["ttft_ms"] = {k: r["ttft"][-2] * 1e3 for k, r in runs.items()}
+    out["slo_preemptions"] = st["preemptions"]
+
+    # -- (c) the standard fault trace --
+    plan = counting_plan(faults, faults.standard_trace(slot=0))
+    eng = engine(fault_plan=plan, policy=ResiliencePolicy(max_queue=FAULT_MAX_QUEUE))
+    K.taylor_fwd.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW)) for p in f_prompts]
+    res = eng.run(return_results=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches += K.taylor_fwd.launches
+    st = eng.stats()
+    del eng
+    terminal = sum(st.get(k, 0) for k in ("ok", "degraded", "timed_out", "failed", "rejected"))
+    statuses = {s.value: sum(r.status is s for r in res.values()) for s in Status}
+    print(f"[10c] standard fault trace (flood of 6 at block 1, a dispatch failure at 2, NaN in "
+          f"slot 0 at 3; max_queue {FAULT_MAX_QUEUE}) on {len(rids)} requests in {wall:.2f} s: "
+          f"{st['submitted']} submitted, terminal {statuses}; dispatch_failures "
+          f"{st.get('dispatch_failures', 0)} (injected {plan.injected}), dispatch_retries "
+          f"{st.get('dispatch_retries', 0)}, corruptions {st.get('corruptions_injected', 0)}, "
+          f"quarantined {st.get('quarantined', 0)}, retries {st.get('retries', 0)}, shed "
+          f"{st.get('shed', 0)}, cache_rebuilds {st.get('cache_rebuilds', 0)}, health_checks "
+          f"{st.get('health_checks', 0)}")
+    if sorted(res) != list(range(st["submitted"])) or terminal != st["submitted"]:
+        fail(f"[10c] {st['submitted']} submitted, {len(res)} results, {terminal} terminal")
+    if any(res[r].status is not Status.OK for r in rids):
+        fail(f"[10c] statuses {[res[r].status.value for r in rids]}")
+    if not (plan.injected == 1 and st.get("dispatch_failures", 0) == plan.injected):
+        fail(f"[10c] {st.get('dispatch_failures', 0)} dispatch failures caught, "
+             f"{plan.injected} injected")
+    if st.get("quarantined", 0) < 1 or st.get("cache_rebuilds", 0) != 0:
+        fail(f"[10c] quarantined {st.get('quarantined', 0)} (>= 1), cache_rebuilds "
+             f"{st.get('cache_rebuilds', 0)} (0: one failure is retried in place)")
+    differ, ties, bad = diverging_requests(torch, infer, params, cfg32, f_prompts, f_outs,
+                                           [res[r].tokens.astype(np.int64) for r in rids])
+    print(f"[10c] tokens vs the fault-free run (phase 6): {differ} requests differ, {ties} at "
+          f"a near-tie, {bad} not")
+    if bad:
+        fail(f"[10c] {bad} requests' tokens differ from the fault-free run")
+
+    # -- (d) a replayed Poisson trace under the virtual clock --
+    trace = poisson_trace(vocab=cfg32.vocab, **REPLAY)
+    held = []
+
+    def factory(clock):
+        held.append(engine(prefill_chunk=LOAD_CHUNK, sched=SchedulerPolicy(**SLO_SCHED),
+                           clock=clock))
+        return held[-1]
+
+    K.taylor_fwd.launches = 0
+    t0 = time.perf_counter()
+    report = run_trace(factory, trace, "slo")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches += K.taylor_fwd.launches
+    st = held.pop().stats()
+    check_no_faults(st, "[10d]")
+    delivered = report.metrics["n_delivered"]
+    print(f"[10d] LoadReport {report.to_json()}")
+    print(f"[10d] replay of poisson_trace({REPLAY}) at full width: {len(trace)} requests, "
+          f"{delivered} delivered, in {wall:.2f} s wall; decode {st['decode_tokens']} tokens "
+          f"in {st['decode_seconds']:.3f} s = {st['decode_tokens'] / st['decode_seconds']:.1f} "
+          f"tokens/s; prefill {st['prefill_dispatches']} dispatches {st['prefill_seconds']:.3f} s")
+    if delivered != len(trace):
+        fail(f"[10d] {delivered} of {len(trace)} requests delivered")
+    out["replay"] = dict(wall_s=wall, decode_tokens_per_s=st["decode_tokens"]
+                         / st["decode_seconds"], metrics=report.metrics)
+
+    # -- (e) the price of the health sweep and of a preemption's state handoff --
+    sweep = {}
+    for every in (0, 1):
+        eng = engine(policy=ResiliencePolicy(health_check_every=every))
+        K.taylor_fwd.launches = 0
+        t0 = time.perf_counter()
+        for p in f_prompts:
+            eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW))
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches += K.taylor_fwd.launches
+        st = eng.stats()
+        check_no_faults(st, f"[10e] health_check_every={every}")
+        sweep[every] = dict(wall=wall, checks=st.get("health_checks", 0),
+                            tps=st["decode_tokens"] / (wall - st["prefill_seconds"]),
+                            decode_tps=st["decode_tokens"] / st["decode_seconds"])
+        if every:
+            health_ms = host_ms(torch, lambda: slots.slot_health(eng.caches, cfg32).cpu(), 5)
+            one = slots.read_slot(eng.caches, 1)
+            handoff_ms = host_ms(torch, lambda: slots.write_slot(
+                eng.caches, slots.read_slot(eng.caches, 1), 1), 5)
+            slot_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(one))
+        del eng
+    print(f"[10e] phase 6's requests with health_check_every=0 / 1: wall {sweep[0]['wall']:.2f} / "
+          f"{sweep[1]['wall']:.2f} s, {sweep[0]['checks']} / {sweep[1]['checks']} sweeps; decode "
+          f"tokens over (wall - prefill) {sweep[0]['tps']:.1f} / {sweep[1]['tps']:.1f} tokens/s "
+          f"(over decode_seconds {sweep[0]['decode_tps']:.1f} / {sweep[1]['decode_tps']:.1f}); "
+          f"one slot_health sweep of the 4-slot cache {health_ms:.3f} ms; a preemption's "
+          f"read_slot + write_slot of one {slot_bytes}-byte slot {handoff_ms:.3f} ms "
+          f"(host clock with sync, median of 5)")
+    out.update(sweep=sweep, health_ms=health_ms, handoff_ms=handoff_ms, slot_bytes=slot_bytes)
+
+    print(f"[10] taylor_fwd launches over phase 10's serving runs: {launches} (chunked and "
+          f"whole prefill and decode run the torch moment-state paths)")
+    if launches:
+        fail(f"[10] serving launched taylor_fwd {launches} times")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1142,7 +1516,18 @@ def main() -> int:
           f"{hybrid['decay']['train_ms_per_step']:.1f} ms/step, decode "
           f"{hybrid['decay']['decode_tokens_per_s']:.1f} tokens/s")
 
-    # ---- 10. kernels line ----
+    # ---- 10. serving under load at full width ----
+    load = phase_serving_load(torch, K, infer, (prompts, outs, st))
+    print("[10] summary (smollm-135m full width, order 2, f32, 4 slots): chunked prefill "
+          f"{load['chunked_order2']['chunked_s'] * 1e3:.1f} ms vs whole "
+          f"{load['chunked_order2']['whole_s'] * 1e3:.1f} ms at {CHUNK_CASES[0][0]} tokens; "
+          f"TTFT of the urgent {URGENT[0][0]}-token request {load['ttft_ms']['slo']:.1f} ms "
+          f"(SLO) vs {load['ttft_ms']['fifo']:.1f} ms (FIFO); replay "
+          f"{load['replay']['wall_s']:.2f} s wall, decode "
+          f"{load['replay']['decode_tokens_per_s']:.1f} tokens/s; sweep "
+          f"{load['health_ms']:.3f} ms per block")
+
+    # ---- 11. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -1195,7 +1580,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 11. device line ----
+    # ---- 12. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ computed.
 A backend is a stateless singleton describing ONE attention algorithm: how
 to run it over a full sequence (``apply``), how to prefill a prompt into a
 decode state (``prefill``), how to advance that state by one token
-(``decode_step``) and how to check a state's health.  The model layer and
+(``decode_step``) or by a chunk of prompt tokens (``prefill_chunk``) and
+how to check a state's health.  The model layer and
 the serve engine resolve backends exclusively through
 ``repro_torch.backends.registry``.  Methods take projected heads: q
 ``[b, h, n, d]``, k/v ``[b, hk, n, ·]`` (single-token: ``[b, h, d]``).
@@ -69,6 +70,33 @@ class AttentionBackend:
         """One autoregressive step (the new token attends to itself).
         Returns ``(out [b, h, dv], new_cache)``."""
         raise NotImplementedError(self.name)
+
+    def prefill_chunk(self, cache, q: Tensor, k: Tensor, v: Tensor, cfg, pos: Tensor):
+        """Advance a decode state by a CHUNK of prompt tokens in one call.
+
+        The chunked-prefill building block: ``decode_step`` applied token by
+        token over the chunk.  Backends override it with a batched form when
+        one exists (the Taylor chunk scan continues from ``cache``).
+
+        Args:
+          cache: decode state to continue from (``init_cache`` zeros or the
+            state of the previous chunk).
+          q: chunk queries ``[b, h, c, d]``.
+          k: chunk keys ``[b, hk, c, d]`` (``h % hk == 0``).
+          v: chunk values ``[b, hk, c, dv]``.
+          cfg: model config.
+          pos: ``[b, c]`` int32 absolute 0-based positions of the chunk tokens.
+
+        Returns:
+          ``(out [b, h, c, dv], new_cache)`` — ``out[:, :, i]`` attends to
+          every chunk token ``<= i`` plus everything already in ``cache``.
+        """
+        outs = []
+        for i in range(q.shape[2]):
+            o, cache = self.decode_step(cache, q[:, :, i], k[:, :, i], v[:, :, i], cfg,
+                                        pos[:, i])
+            outs.append(o)
+        return torch.stack(outs, dim=2), cache
 
     def state_health(self, cache, cfg) -> Tensor:
         """``[b]`` bool: True where every floating leaf of the row is finite."""

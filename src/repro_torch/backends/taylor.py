@@ -14,9 +14,9 @@ Two impls, selected by ``ModelConfig.attn_impl``:
     outside this envelope is rejected by ``validate``.
 
 ``"auto"`` picks the kernel on a CUDA device inside the envelope and the
-PyTorch paths otherwise.  Prefill and decode always run the moment-state
-paths of ``core/taylor.py`` (prefill needs the chunk scan's state handoff;
-decode is state-bound), as in the JAX package.
+PyTorch paths otherwise.  Prefill, chunked prefill and decode always run
+the moment-state paths of ``core/taylor.py`` (prefill needs the chunk
+scan's state handoff; decode is state-bound), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -116,6 +116,17 @@ class TaylorBackend(AttentionBackend):
 
     def decode_step(self, cache, q, k, v, cfg, pos):
         return taylor_decode_step(cache, q, k, v, cfg.taylor)
+
+    def prefill_chunk(self, cache, q, k, v, cfg, pos):
+        """Chunk-scan continuation: one intra-chunk tile plus the read of the
+        carried moment state (``initial_state``), for every variant the
+        torch paths cover (decay, ``sym_state``).  ``pos`` is unused: the
+        moment state is position-free and RoPE is applied by the model
+        layer.  Returns ``(out [b, h, c, dv], new TaylorState)``."""
+        del pos
+        return taylor_attention_chunked(
+            q, k, v, cfg.taylor, chunk=q.shape[2], initial_state=cache, return_state=True
+        )
 
     def state_health(self, cache, cfg):
         """Finite moments AND a non-negative token count ``n0`` per row

@@ -7,6 +7,7 @@ from repro_torch.models.lm import (
     lm_init,
     lm_init_caches,
     lm_prefill,
+    lm_prefill_chunk,
     lm_state_bytes,
 )
 
@@ -18,6 +19,7 @@ __all__ = [
     "lm_init",
     "lm_init_caches",
     "lm_prefill",
+    "lm_prefill_chunk",
     "lm_state_bytes",
     "schedule_runs",
 ]

@@ -4,7 +4,8 @@
 (``repro_torch.backends``): this module owns the projections
 (wq ``[d, h, hd]``, wk/wv ``[d, hk, hd]``, wo ``[h, hd, d]``) and RoPE, and
 hands projected heads to the backend's ``apply`` / ``prefill`` /
-``decode_step``.  Activations are ``[b, n, d]``; heads ``[b, h, n, hd]``.
+``prefill_chunk`` / ``decode_step``.  Activations are ``[b, n, d]``;
+heads ``[b, h, n, hd]``.
 """
 
 from __future__ import annotations
@@ -83,6 +84,32 @@ def attention_prefill(
     q = _project_q(params, x, cfg, positions)
     k, v = _project_kv(params, x, cfg, positions)
     o, cache = backend.prefill(q, k, v, cfg, n_max)
+    return _out_proj(params, o, x.dtype), cache
+
+
+def attention_prefill_chunk(params, x: Tensor, cache, cfg: ModelConfig,
+                            positions: Tensor) -> Tuple[Tensor, object]:
+    """Advance a decode cache by a CHUNK of prompt tokens.
+
+    Projects the chunk, applies RoPE at the chunk's absolute positions and
+    hands the state continuation to ``backend.prefill_chunk``.
+
+    Args:
+      params: attention block params (wq/wk/wv/wo).
+      x: chunk activations ``[b, c, d_model]``.
+      cache: decode state to continue from.
+      cfg: model config.
+      positions: ``[b, c]`` int absolute 0-based positions of the chunk tokens.
+
+    Returns:
+      ``(y [b, c, d_model], new_cache)`` — to fp tolerance, what
+      ``attention_decode`` over the chunk token by token gives.
+    """
+    backend = resolve_backend(cfg)
+    pos_bc = positions[:, None, :]  # broadcast against [b, h, c, hd] in RoPE
+    q = _project_q(params, x, cfg, pos_bc)
+    k, v = _project_kv(params, x, cfg, pos_bc)
+    o, cache = backend.prefill_chunk(cache, q, k, v, cfg, positions)
     return _out_proj(params, o, x.dtype), cache
 
 

@@ -1,4 +1,5 @@
-"""Block-kind dispatcher: init / full-sequence apply / prefill / decode.
+"""Block-kind dispatcher: init / full-sequence apply / prefill / chunked
+prefill / decode.
 
 Only the ``"attn"`` kind (pre-norm self-attention + MLP) is ported.
 """
@@ -67,3 +68,28 @@ def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
     x_t = x_t + y
     h2 = norm_apply(params["norm2"], x_t, cfg.norm, eps)
     return x_t + mlp_apply(params["mlp"], h2, cfg.act), cache
+
+
+def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
+                        positions: Tensor):
+    """Advance one block's decode cache by a chunk of prompt tokens: the
+    residual structure of ``block_decode`` over ``c`` tokens at once.
+
+    Args:
+      params: block params.
+      kind: block kind.
+      x: chunk activations ``[b, c, d_model]``.
+      cache: this block's decode cache.
+      cfg: model config.
+      positions: ``[b, c]`` absolute positions of the chunk tokens.
+
+    Returns:
+      ``(x [b, c, d_model], new_cache)``.
+    """
+    _check_kind(kind)
+    eps = cfg.norm_eps
+    h = norm_apply(params["norm1"], x, cfg.norm, eps)
+    y, cache = attn.attention_prefill_chunk(params["attn"], h, cache, cfg, positions)
+    x = x + y
+    h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
+    return x + mlp_apply(params["mlp"], h2, cfg.act), cache

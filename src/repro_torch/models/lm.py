@@ -1,4 +1,5 @@
-"""Decoder-only LM: init, full-sequence (training) forward, prefill and decode.
+"""Decoder-only LM: init, full-sequence (training) forward, prefill, chunked
+prefill and decode.
 
 Params (the JAX package's names, one dict per layer instead of stacked
 leaves)::
@@ -31,7 +32,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backends import resolve_backend
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import block_apply, block_decode, block_init, block_prefill
+from repro_torch.models.blocks import (
+    block_apply,
+    block_decode,
+    block_init,
+    block_prefill,
+    block_prefill_chunk,
+)
 from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.layers import (
     embed_apply,
@@ -244,6 +251,47 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
         new_states.append(c)
     logits = _logits(params, x_t, cfg)
     return logits, _pack_caches(new_states, cfg)
+
+
+@torch.no_grad()
+def lm_prefill_chunk(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
+    """Advance the decode caches by a CHUNK of prompt tokens.
+
+    ``lm_decode_step`` widened to ``c`` tokens: the caller loops it over a
+    long prompt so that no single call exceeds the chunk budget.  Starting
+    from ``lm_init_caches`` zeros and feeding the whole prompt chunk by chunk
+    reproduces ``lm_prefill``'s logits and final state to fp tolerance.
+
+    Args:
+      params: model params.
+      tokens: ``[b, c]`` chunk of prompt tokens.
+      caches: cache dict from ``lm_init_caches`` (first chunk) or the
+        previous ``lm_prefill_chunk`` call; not modified.
+      pos0: int or ``[b]`` tensor — absolute position of ``tokens[:, 0]``.
+      cfg: model config.
+
+    Returns:
+      ``(logits [b, vocab]`` of the chunk's LAST token``, new caches)``.
+    """
+    x, new = _chunk_hidden(params, tokens, caches, pos0, cfg)
+    return _logits(params, x[:, -1:, :], cfg)[:, 0, :], new
+
+
+def _chunk_hidden(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
+    """The chunk-advance body: hidden states ``[b, c, d]`` and new caches,
+    each layer under its run's config."""
+    b, c = tokens.shape
+    positions = (
+        torch.as_tensor(pos0, dtype=torch.int32, device=tokens.device).expand(b)[:, None]
+        + torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
+    )  # [b, c]
+    x = _embed_tokens(params, tokens, cfg)
+    new_states = []
+    for (kind, lcfg), p, cch in zip(_layer_cfgs(cfg), params["blocks"],
+                                    _split_caches(caches, cfg)):
+        x, cch = block_prefill_chunk(p, kind, x, cch, lcfg, positions)
+        new_states.append(cch)
+    return x, _pack_caches(new_states, cfg)
 
 
 def lm_init_caches(cfg: ModelConfig, batch: int, n_max: int, device=None):

@@ -4,7 +4,8 @@ The serving execution model is continuous batching (``scheduler.py``):
 ``max_slots`` requests decode together from a slot-indexed cache
 (``slots.py``), and ``decode_scan`` advances ALL slots by a block of tokens
 — a loop over ``lm_decode_step`` with per-slot position, stop and sampling
-state, kept on the device until the block ends.  ``generate`` wraps the
+state, kept on the device until the block ends.  ``prefill_chunked`` is
+the bounded-call admission path for long prompts.  ``generate`` wraps the
 engine; ``generate_loop`` is the plain per-token loop kept as its oracle.
 """
 
@@ -16,7 +17,13 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import lm_decode_step, lm_prefill, tree_to
+from repro_torch.models.lm import (
+    lm_decode_step,
+    lm_init_caches,
+    lm_prefill,
+    lm_prefill_chunk,
+    tree_to,
+)
 from repro_torch.serve.slots import select_slots
 
 Tensor = torch.Tensor
@@ -27,6 +34,43 @@ def prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int):
     position``, caches)`` — every layer's decode state after the prompt
     (moment state or KV cache)."""
     return lm_prefill(params, batch, cfg, n_max)
+
+
+def prefill_chunked(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int,
+                    chunk: int):
+    """Whole-prompt prefill as a sequence of bounded chunk calls.
+
+    Same contract as ``prefill`` — ``(last-token logits [b, vocab],
+    caches)``, matching it to fp tolerance — but no single call processes
+    more than ``chunk`` prompt tokens: the serve engine's long-prompt
+    admission path, between whose chunks in-flight slots keep decoding.
+
+    Args:
+      params: model params.
+      batch: ``{"tokens": [b, n]}`` (decoder-only: no extras).
+      cfg: model config (``family == "lm"``).
+      n_max: per-slot KV capacity to allocate.
+      chunk: prompt tokens per call (the last chunk may be shorter).
+
+    Returns:
+      ``(logits [b, vocab]`` of the last prompt position``, caches)``, on
+      the tokens' device.
+    """
+    if cfg.family != "lm":
+        raise ValueError(
+            f"prefill_chunked supports decoder-only models; family "
+            f"{cfg.family!r} prompts carry source extras that whole-prompt "
+            "prefill must build (use prefill)"
+        )
+    if chunk < 1:
+        raise ValueError("chunk must be >= 1")
+    tokens = batch["tokens"]
+    b, n = tokens.shape
+    caches = lm_init_caches(cfg, b, n_max, tokens.device)
+    logits = None
+    for s in range(0, n, chunk):
+        logits, caches = lm_prefill_chunk(params, tokens[:, s:s + chunk], caches, s, cfg)
+    return logits, caches
 
 
 def decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
@@ -162,8 +206,12 @@ def generate(
 
     Returns:
       ``[b, steps]`` int64 new tokens (on the CPU).
+
+    Raises:
+      RuntimeError: a request ended in another status than OK (a device
+        error that survived the engine's retries), naming its error.
     """
-    from repro_torch.serve.scheduler import Request, ServeEngine  # noqa: PLC0415 (cycle)
+    from repro_torch.serve.scheduler import Request, ServeEngine, Status  # noqa: PLC0415 (cycle)
 
     prompt = batch["tokens"].cpu()
     b, prompt_len = prompt.shape
@@ -177,8 +225,12 @@ def generate(
                            temperature=temperature))
         for i in range(b)
     ]
-    outs = eng.run()
-    return torch.stack([torch.as_tensor(outs[r], dtype=torch.int64) for r in rids])
+    results = eng.run(return_results=True)
+    for r in rids:
+        if results[r].status is not Status.OK:
+            raise RuntimeError(
+                f"generate: request {r} ended {results[r].status.value}: {results[r].error}")
+    return torch.stack([torch.as_tensor(results[r].tokens, dtype=torch.int64) for r in rids])
 
 
 @torch.no_grad()

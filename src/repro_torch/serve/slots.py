@@ -15,7 +15,9 @@ its own backend's type (a hybrid schedule mixes ``TaylorState`` and
 ``KVCache``); every slot operation walks each run's state alike.
 
 ``write_slot`` and ``clear_slot`` update the cache IN PLACE (the JAX
-package donates the buffer for the same effect) and return it.
+package donates the buffer for the same effect) and return it;
+``read_slot`` and ``corrupt_slot`` return copies.  ``slot_health`` is the
+per-slot finiteness sweep the engine's resilience boundary runs.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.backends import get_backend, resolve_backend
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.lm import lm_init_caches
 from repro_torch.tree import tree_leaves
 
@@ -123,6 +125,63 @@ def clear_slot(caches, slot: int):
 def read_slot(caches, slot: int):
     """One slot as a batch-1 cache (a copy)."""
     return _map(lambda full, axis: full.narrow(axis, slot, 1).clone(), caches)
+
+
+def slot_health(caches, cfg: ModelConfig) -> Tensor:
+    """Per-slot health of the whole slotted cache (the corruption sweep).
+
+    Applies each run's backend ``state_health`` (finite moments / KV plus
+    the backend's invariants, e.g. KV ``length`` bounds) with the group
+    runs' stacking axes folded into the batch axis, then AND-reduces every
+    layer of a slot.
+
+    Args:
+      caches: the slotted cache (``init_slot_caches`` / ``lm_prefill``
+        layout).
+      cfg: model config (decides each run's backend).
+
+    Returns:
+      ``[max_slots]`` bool — True where every leaf of that slot's state is
+      healthy; a False slot must be quarantined before its next token is
+      trusted.
+    """
+    parts = []
+    for (_, bk, _), state in zip(schedule_runs(cfg), caches["group"]):
+        rcfg = cfg.layer_cfg(bk)
+        g, r, n_slots = next(x for x in state if x is not None).shape[:3]
+        # [n_groups, run_len, slots, ...] -> [slots * n_groups * run_len, ...]
+        flat = type(state)(*(
+            None if x is None else x.movedim(GROUP_SLOT_AXIS, 0).reshape(
+                (n_slots * g * r,) + x.shape[3:])
+            for x in state
+        ))
+        h = resolve_backend(rcfg).state_health(flat, rcfg)
+        parts.append(h.reshape(n_slots, g * r).all(dim=1))
+    tail_cfg = cfg.layer_cfg(cfg.attention)
+    for state in caches["tail"]:
+        parts.append(resolve_backend(tail_cfg).state_health(state, tail_cfg))
+    ok = parts[0]
+    for p in parts[1:]:
+        ok = ok & p
+    return ok
+
+
+def corrupt_slot(caches, slot: int, fill: float):
+    """Copy of the cache with slot ``slot``'s floating leaves set to ``fill``.
+
+    The fault-injection primitive behind ``serve.faults.SlotCorruption``
+    (``fill`` NaN or Inf).  It poisons exactly the leaves ``slot_health``
+    checks for finiteness: int leaves (KV ``length``) and every other slot
+    stay bit-identical.  Out of place: ``caches`` is not modified.
+    """
+
+    def poison(full: Tensor, axis: int) -> Tensor:
+        out = full.clone()
+        if out.is_floating_point():
+            out.narrow(axis, slot, 1).fill_(fill)
+        return out
+
+    return _map(poison, caches)
 
 
 def select_slots(mask: Tensor, new, old):

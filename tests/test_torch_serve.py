@@ -21,7 +21,7 @@ from repro.serve.scheduler import ServeEngine as JServeEngine
 from repro_torch.configs import get_reduced
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Request, ServeEngine, generate, generate_loop
-from repro_torch.serve import slots
+from repro_torch.serve import scheduler, slots
 
 
 @pytest.fixture(scope="module")
@@ -42,6 +42,20 @@ def test_generate_token_identical_to_jax(weights, rng):
     np.testing.assert_array_equal(out.numpy(), ref)
     loop = generate_loop(tp, batch, cfg, steps=10, device="cpu")
     np.testing.assert_array_equal(loop.numpy(), out.numpy())
+
+
+def test_generate_raises_when_a_request_fails(weights, rng, monkeypatch):
+    """A decode error that outlives the engine's retries reaches the caller
+    of ``generate`` with its cause, instead of a truncated result."""
+    _, cfg, _, tp = weights
+
+    def broken_decode(*args, **kwargs):
+        raise RuntimeError("device lost")
+
+    monkeypatch.setattr(scheduler, "decode_scan", broken_decode)
+    prompt = rng.integers(0, 128, (2, 12)).astype(np.int64)
+    with pytest.raises(RuntimeError, match="ended failed.*device lost"):
+        generate(tp, {"tokens": torch.from_numpy(prompt)}, cfg, steps=6, device="cpu")
 
 
 def test_engine_token_identical_to_jax_engine(weights, rng):
@@ -69,7 +83,7 @@ def test_engine_token_identical_to_jax_engine(weights, rng):
     assert len(touts[trids[2]]) == first + 1 < budgets[2]
     assert touts[trids[2]][-1] == eos
     st = teng.stats()
-    assert st["finished"] == len(lens)
+    assert st["ok"] == len(lens)
     # FIFO admission: the two leading 12-token prompts share one prefill
     assert st["prefill_dispatches"] == len(lens) - 1
 
