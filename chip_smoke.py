@@ -10,8 +10,10 @@ elu+1 linear, Taylor order 1), then the Based-style hybrid (taylor and
 sliding-window layers interleaved) and the Taylor variants (sym_state,
 decay, non-causal), then serving under load (phase 10: chunked prefill,
 the SLO scheduler with a preemption, the standard fault trace, a replayed
-Poisson trace and the health sweep's price), and prints one JSON line
-describing every ported kernel followed by the device line.
+Poisson trace and the health sweep's price), then speculative decoding and
+the slot-state codecs (phase 11: n-gram and order-1 drafts, int8/fp8
+moments, paged softmax KV, speculation over int8 moments), and prints one
+JSON line describing every ported kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -126,6 +128,18 @@ REPLAY = dict(seed=0, n=12, prompt_len=(100, 700), new_tokens=(8, 32),
               mean_interarrival_s=0.02, priorities=(0, 1))
 LOAD_CHUNK = 256  # the engine's prefill_chunk in (b) and (d)
 FAULT_MAX_QUEUE = 8  # (c): the standard trace's flood overflows this queue
+# Phase 11: speculative decoding and the slot-state codecs (smollm-135m order
+# 2, f32, 4 slots, N_MAX; phase 6's requests, phase 8's softmax tokens).
+SPEC_K = 4
+KV_PAGE = 64
+QUANT_STEPS = 32  # teacher-forced decode steps of the quantised-state logit MAE
+# The JAX package's reduced-size bounds (tests/test_state_quant.py): logit MAE
+# of per-token quantised state, and the float32 top-2 margin above which no
+# int8 greedy decision flips.  Printed beside the full-width readings; the
+# margin is the limit of (d)'s divergences from int8 plain decode, which
+# re-quantises after each decode block rather than after each verify.
+QUANT_MAE_BOUND = {"int8": 0.25, "fp8": 1.25}
+INT8_FLIP_MARGIN = 0.2
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -768,7 +782,7 @@ def phase_baselines(torch, K, infer, serve_fn, cross_fn):
               f"{oracle}: mismatches={mismatches} near_ties(gap<{NEAR_TIE})={near_ties}")
         if mismatches:
             fail(f"{tag} {mismatches} engine tokens differ from {oracle}")
-        summary[name] = dict(forward_ms=fwd_ms, decode_tokens_per_s=decode_tps)
+        summary[name] = dict(forward_ms=fwd_ms, decode_tokens_per_s=decode_tps, tokens=outs)
     del params
     batch = bigram_batch(torch, make_task, variants["softmax"])
     for name, cfg in variants.items():
@@ -798,13 +812,16 @@ def phase_baselines(torch, K, infer, serve_fn, cross_fn):
     return summary, launches
 
 
-def diverging_requests(torch, infer, params, cfg, prompts, want, got):
+def diverging_requests(torch, infer, params, cfg, prompts, want, got, tie=NEAR_TIE,
+                       margins=None):
     """Requests whose tokens ``got`` differ from ``want`` (both greedy, the
     same prompts).  Past the first position where they differ the two
     continue from other prefixes, so that position alone is judged: ``cfg``'s
     ``lm_apply`` over prompt + ``want``'s tokens before it must put the two
-    tokens' logits within NEAR_TIE.  Returns (requests that differ, of those
-    at a near-tie, of those not)."""
+    tokens' logits within ``tie`` of each other, whichever is higher.  Each
+    such margin (``want``'s logit minus ``got``'s) is appended to
+    ``margins`` when given.  Returns (requests that differ, of those within
+    ``tie``, of those not)."""
     differ = ties = 0
     for p, w, g in zip(prompts, want, got):
         diff = (torch.as_tensor(w) != torch.as_tensor(g)).nonzero()
@@ -814,7 +831,10 @@ def diverging_requests(torch, infer, params, cfg, prompts, want, got):
         t = int(diff[0, 0])
         seq = torch.cat([p, torch.as_tensor(w[:t])]).cuda()[None]
         lg = infer(params, {"tokens": seq}, cfg)[0][0, -1]
-        ties += float(lg[int(w[t])] - lg[int(g[t])]) < NEAR_TIE
+        gap = float(lg[int(w[t])] - lg[int(g[t])])
+        if margins is not None:
+            margins.append(gap)
+        ties += abs(gap) < tie
     return differ, ties, differ - ties
 
 
@@ -1362,6 +1382,225 @@ def phase_serving_load(torch, K, infer, full_f32):
     return out
 
 
+def phase_spec_state(torch, K, infer, full_f32, softmax_tokens):
+    """Phase 11: speculative decoding and the slot-state codecs at
+    smollm-135m's full width (order 2, f32, 4 slots, n_max N_MAX, phase 4's
+    weights, phase 6's requests).  (a) n-gram and order-1 drafts at
+    ``speculative_k=SPEC_K`` against phase 6's tokens, beside a plain run at
+    ``decode_block=1``; (b) int8 and fp8 moments: bytes per slot, a live
+    slot's decode→encode→decode round trip on the card, the card's payloads
+    and scales against the CPU's, tokens against phase 6's and a
+    teacher-forced logit MAE; (c) phase 8's softmax serving with paged KV,
+    token-identical to phase 8's dense run, no page leaked; (d) the n-gram
+    draft over int8 moments against (b)'s int8 tokens.  ``full_f32`` =
+    phase 6's (prompts, outputs, stats); ``softmax_tokens`` = phase 8's f32
+    softmax outputs on the same prompts.  No path reaches a kernel: the
+    verify, the draft, the rollback and the codecs run the torch
+    moment-state paths, so taylor_fwd launches over the serving runs must
+    be 0."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_decode_step, lm_init, lm_state_bytes
+    from repro_torch.serve import Request, SchedulerPolicy, ServeEngine, Status, prefill
+    from repro_torch.serve.state_repr import QuantizedCodec
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg32 = get_config("smollm-135m", dtype="float32")
+    softmax32 = get_config("smollm-135m", backend="softmax", dtype="float32")
+    params = lm_init(torch.Generator().manual_seed(0), cfg32)  # phase 4's weights
+    f_prompts, f_outs, _ = full_f32
+    dense_slot_bytes = lm_state_bytes(cfg32, 1, N_MAX)
+    out = {"launches": 0}
+
+    def serve(tag, cfg=cfg32, decode_block=16, step_hook=None, **kw):
+        """Phase 6's requests through one engine; returns (tokens, stats,
+        wall seconds, engine)."""
+        eng = ServeEngine(params, cfg, max_slots=4, n_max=N_MAX, decode_block=decode_block,
+                          **kw)
+        K.taylor_fwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW)) for p in f_prompts]
+        while eng.step():
+            if step_hook is not None:
+                step_hook(eng)
+        res = eng.poll()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] += K.taylor_fwd.launches
+        st = eng.stats()
+        if any(res[r].status is not Status.OK or len(res[r].tokens) != MAX_NEW for r in rids):
+            fail(f"[11] {tag}: statuses {[res[r].status.value for r in rids]}")
+        check_no_faults(st, f"[11] {tag}")
+        return [res[r].tokens.astype(np.int64) for r in rids], st, wall, eng
+
+    def rates(st, wall):
+        """(dispatches per emitted token, emitted decode tokens per second of
+        wall clock outside prefill)."""
+        emitted = st.get("decode_tokens", 0) + st.get("spec_tokens", 0)
+        first = len(f_prompts)
+        return (st["dispatches"] / (emitted + first),
+                emitted / (wall - st["prefill_seconds"]))
+
+    def judged(tag, what, want, got, tie=NEAR_TIE):
+        """Print how ``got`` diverges from ``want`` (each first divergence
+        by its float32 margin); returns the divergences at or above ``tie``."""
+        margins = []
+        differ, ties, bad = diverging_requests(torch, infer, params, cfg32, f_prompts, want,
+                                               got, tie=tie, margins=margins)
+        print(f"[11{tag}] {what}: {differ} of {len(want)} requests differ; first-divergence "
+              f"margins {[f'{m:.3e}' for m in margins]}; {ties} below {tie}, {bad} not")
+        return bad
+
+    # -- (a) speculation over the dense store --
+    _, plain_st, plain_wall, _ = serve("plain decode_block=1", decode_block=1)
+    dpt, tps = rates(plain_st, plain_wall)
+    out["plain_db1"] = dict(dispatches_per_token=dpt, tokens_per_s=tps, wall_s=plain_wall)
+    print(f"[11a] plain decode_block=1: {plain_st['dispatches']} dispatches, {dpt:.3f} per "
+          f"emitted token; wall {plain_wall:.2f} s, decode {tps:.1f} tokens/s (emitted over "
+          f"wall - prefill)")
+    for draft in ("ngram", "order1"):
+        toks, st, wall, _ = serve(f"speculative {draft}", sched=SchedulerPolicy(
+            speculative_k=SPEC_K, speculative_draft=draft))
+        dpt, tps = rates(st, wall)
+        accept = st["spec_accepted"] / max(st["spec_drafted"], 1)
+        out[draft] = dict(spec_rounds=st["spec_rounds"], acceptance=accept,
+                          full_accepts=st.get("spec_full_accepts", 0),
+                          rollbacks=st.get("spec_rollbacks", 0),
+                          draft_dispatches=st.get("draft_dispatches", 0),
+                          dispatches_per_token=dpt, wall_s=wall, tokens_per_s=tps,
+                          verify_s=st.get("verify_seconds", 0.0),
+                          draft_s=st.get("draft_seconds", 0.0))
+        print(f"[11a] {draft} k={SPEC_K}: spec_rounds {st['spec_rounds']}, acceptance "
+              f"{st['spec_accepted']}/{st['spec_drafted']} = {accept:.3f}, full accepts "
+              f"{st.get('spec_full_accepts', 0)}, rollbacks {st.get('spec_rollbacks', 0)}, "
+              f"draft_dispatches {st.get('draft_dispatches', 0)} ({st.get('draft_tokens', 0)} "
+              f"tokens), verify_tokens {st['verify_tokens']}, spec_tokens {st['spec_tokens']}, "
+              f"decode_tokens {st.get('decode_tokens', 0)}; {st['dispatches']} dispatches = "
+              f"{dpt:.3f} per emitted token; wall {wall:.2f} s (prefill "
+              f"{st['prefill_seconds']:.2f}, verify {st.get('verify_seconds', 0):.2f}, draft "
+              f"{st.get('draft_seconds', 0):.2f}, decode {st.get('decode_seconds', 0):.2f}), "
+              f"decode {tps:.1f} tokens/s")
+        if not (st["spec_rounds"] > 0 and st["spec_accepted"] > 0):
+            fail(f"[11a] {draft}: no speculative round accepted a draft")
+        if judged("a", f"{draft} tokens vs phase 6's plain tokens", f_outs, toks):
+            fail(f"[11a] {draft}: tokens differ from plain decode beyond a near-tie")
+
+    # -- (b) int8 and fp8 order-2 moments --
+    quant = {}
+    for sd in ("int8", "fp8"):
+        toks, st, wall, eng = serve(f"state_dtype={sd}", state_dtype=sd)
+        slot = eng.slot_state_bytes
+        dpt, tps = rates(st, wall)
+        quant[sd] = toks
+        out[sd] = dict(slot_bytes=slot, ratio=slot / dense_slot_bytes, tokens_per_s=tps,
+                       wall_s=wall)
+        print(f"[11b] state_dtype={sd}: slot_state_bytes {slot} vs dense {dense_slot_bytes} "
+              f"= {slot / dense_slot_bytes:.4f}; wall {wall:.2f} s, decode {tps:.1f} tokens/s "
+              f"(phase 6's requests, decode_block 16)")
+        judged("b", f"{sd} tokens vs phase 6's dense tokens (reported, not checked)", f_outs,
+               toks)
+        # a live slot: the 700-token request's prefill state
+        store = eng.state_store
+        _, dense = prefill(params, {"tokens": f_prompts[-1].cuda()[None]}, cfg32, N_MAX)
+        caches = store.write_slot(eng.caches, dense, 0)
+        snap = store.read_slot(caches, 0)
+        caches = store.write_slot(caches, snap, 0)
+        again = store.read_slot(caches, 0)
+        exact = all(torch.equal(a, b) for a, b in zip(tree_leaves(again), tree_leaves(snap)))
+        codec = QuantizedCodec(cfg=cfg32, max_slots=1, n_max=N_MAX,
+                               device=torch.device("cuda"), qdtype=sd)
+        on_card = tree_leaves(codec.encode(dense))
+        on_cpu = tree_leaves(codec.encode(tree_map(lambda x: x.cpu(), dense)))
+
+        def bits(x):
+            return x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
+
+        same = sum(torch.equal(bits(a).cpu(), bits(b)) for a, b in zip(on_card, on_cpu))
+        print(f"[11b] {sd} one live slot (700-token prefill): decode→encode→decode "
+              f"bit-exact {exact}; payload and scale leaves equal to the CPU's bit for bit "
+              f"{same}/{len(on_cpu)}")
+        if not exact or same != len(on_cpu):
+            fail(f"[11b] {sd}: the round trip or the card's encoding is not bit-exact")
+        del eng, caches, snap, again, dense
+    # teacher-forced logit MAE of per-token quantised state (the JAX package's
+    # harness): one request, the dense decode's tokens fed to both
+    prompt = f_prompts[0].cuda()[None]
+    logits, ref = prefill(params, {"tokens": prompt}, cfg32, N_MAX)
+    states = {sd: ref for sd in ("int8", "fp8")}
+    codecs = {sd: QuantizedCodec(cfg=cfg32, max_slots=1, n_max=N_MAX,
+                                 device=torch.device("cuda"), qdtype=sd) for sd in states}
+    states = {sd: codecs[sd].decode(codecs[sd].encode(ref)) for sd in states}
+    tok, mae = logits.argmax(-1), {sd: [] for sd in states}
+    for t in range(QUANT_STEPS):
+        pos = prompt.shape[1] + t
+        lg, ref = lm_decode_step(params, tok, ref, pos, cfg32)
+        for sd, c in codecs.items():
+            lq, sq = lm_decode_step(params, tok, states[sd], pos, cfg32)
+            states[sd] = c.decode(c.encode(sq))
+            mae[sd].append(float((lq - lg).abs().mean()))
+        tok = lg.argmax(-1)
+    for sd, m in mae.items():
+        out[sd]["mae_max"] = max(m)
+        print(f"[11b] {sd} teacher-forced logit MAE over {QUANT_STEPS} steps of the "
+              f"{prompt.shape[1]}-token request, state re-quantised after every token: max "
+              f"{max(m):.4f}, last {m[-1]:.4f} (the JAX package's reduced-size bound "
+              f"{QUANT_MAE_BOUND[sd]}; informational)")
+    del states, ref
+
+    # -- (c) paged KV on phase 8's softmax serving --
+    peak = {"pages": 0, "bytes": 0}
+
+    def track(eng):
+        peak["pages"] = max(peak["pages"], eng.state_store.allocator.used_pages)
+        peak["bytes"] = max(peak["bytes"], eng.live_state_bytes)
+
+    toks, st, wall, eng = serve("paged softmax", cfg=softmax32, kv_page_size=KV_PAGE,
+                                step_hook=track)
+    alloc = eng.state_store.allocator
+    dense_kv = lm_state_bytes(softmax32, 4, N_MAX)
+    identical = all(np.array_equal(a, np.asarray(b)) for a, b in zip(toks, softmax_tokens))
+    dpt, tps = rates(st, wall)
+    out["paged"] = dict(peak_pages=peak["pages"], total_pages=alloc.total_pages,
+                        peak_live_bytes=peak["bytes"], dense_bytes=dense_kv,
+                        end_pages=alloc.used_pages, tokens_per_s=tps, wall_s=wall)
+    print(f"[11c] softmax f32 kv_page_size={KV_PAGE}: tokens identical to phase 8's dense "
+          f"run {identical}; pages in use at the end {alloc.used_pages}; peak pages "
+          f"{peak['pages']} of {alloc.total_pages} (dense: 4 x {alloc.pages_per_slot}); peak "
+          f"live bytes {peak['bytes']} vs dense KV {dense_kv} = {peak['bytes'] / dense_kv:.4f}; "
+          f"wall {wall:.2f} s, decode {tps:.1f} tokens/s")
+    if not identical:
+        fail("[11c] paged softmax tokens differ from the dense run's")
+    if alloc.used_pages:
+        fail(f"[11c] {alloc.used_pages} pages still allocated after the run")
+    del eng
+
+    # -- (d) speculation over int8 moments --
+    toks, st, wall, _ = serve("int8 + ngram", state_dtype="int8", sched=SchedulerPolicy(
+        speculative_k=SPEC_K, speculative_draft="ngram"))
+    dpt, tps = rates(st, wall)
+    out["int8_ngram"] = dict(spec_rounds=st["spec_rounds"],
+                             acceptance=st["spec_accepted"] / max(st["spec_drafted"], 1),
+                             rollbacks=st.get("spec_rollbacks", 0), dispatches_per_token=dpt,
+                             tokens_per_s=tps, wall_s=wall)
+    print(f"[11d] int8 + ngram k={SPEC_K}: spec_rounds {st['spec_rounds']}, acceptance "
+          f"{out['int8_ngram']['acceptance']:.3f}, rollbacks {st.get('spec_rollbacks', 0)} "
+          f"(each a write_slot of a dequantised snapshot); {dpt:.3f} dispatches per emitted "
+          f"token; wall {wall:.2f} s, decode {tps:.1f} tokens/s")
+    what = "int8 + ngram tokens vs (b)'s int8 plain tokens"
+    judged("d", what, quant["int8"], toks)  # the near-tie count, reported
+    if judged("d", what, quant["int8"], toks, tie=INT8_FLIP_MARGIN):
+        fail(f"[11d] int8 speculative tokens diverge from int8 plain decode at a margin "
+             f"above {INT8_FLIP_MARGIN}")
+
+    print(f"[11] taylor_fwd launches over phase 11's serving runs: {out['launches']} (verify, "
+          f"draft, rollback and the codecs run the torch moment-state paths)")
+    if out["launches"]:
+        fail(f"[11] serving launched taylor_fwd {out['launches']} times")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1498,7 +1737,7 @@ def main() -> int:
     # ---- 8. the baselines at full width ----
     serve_fn = lambda p_, c_: serve_requests(torch, ServeEngine, Request, p_, c_)
     cross_fn = lambda p_, c_, prompts_, outs_: cross_check(torch, infer, p_, c_, prompts_, outs_)
-    _, base_launches = phase_baselines(torch, K, infer, serve_fn, cross_fn)
+    base_summary, base_launches = phase_baselines(torch, K, infer, serve_fn, cross_fn)
 
     # ---- 9. the hybrid schedule and the Taylor variants at full width ----
     hybrid = phase_hybrid(torch, K, infer, serve_fn, cross_fn, (prompts, outs, st))
@@ -1527,7 +1766,24 @@ def main() -> int:
           f"{load['replay']['decode_tokens_per_s']:.1f} tokens/s; sweep "
           f"{load['health_ms']:.3f} ms per block")
 
-    # ---- 11. kernels line ----
+    # ---- 11. speculative decoding and the slot-state codecs at full width ----
+    t0 = time.perf_counter()
+    spec = phase_spec_state(torch, K, infer, (prompts, outs, st),
+                            base_summary["softmax"]["tokens"])
+    print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
+    print("[11] summary (smollm-135m full width, order 2, f32, 4 slots): dispatches per "
+          f"emitted token plain(decode_block=1) {spec['plain_db1']['dispatches_per_token']:.3f}, "
+          f"ngram {spec['ngram']['dispatches_per_token']:.3f} (acceptance "
+          f"{spec['ngram']['acceptance']:.3f}), order1 "
+          f"{spec['order1']['dispatches_per_token']:.3f} (acceptance "
+          f"{spec['order1']['acceptance']:.3f}); decode tokens/s plain(decode_block=1) "
+          f"{spec['plain_db1']['tokens_per_s']:.1f}, ngram {spec['ngram']['tokens_per_s']:.1f}, "
+          f"order1 {spec['order1']['tokens_per_s']:.1f}; bytes per slot int8 "
+          f"{spec['int8']['slot_bytes']} ({spec['int8']['ratio']:.4f} of dense), fp8 "
+          f"{spec['fp8']['slot_bytes']}; paged softmax peak {spec['paged']['peak_pages']} of "
+          f"{spec['paged']['total_pages']} pages")
+
+    # ---- 12. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -1542,7 +1798,8 @@ def main() -> int:
             "order1_lm_apply": base_launches["lm_apply"],
             f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"]["taylor_fwd"],
             "hybrid_lm_apply": hybrid["lm_apply_launches"]["taylor_fwd"],
-            f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"]["taylor_fwd"]},
+            f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"]["taylor_fwd"],
+            "phase11_serving": spec["launches"]},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -1580,7 +1837,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 12. device line ----
+    # ---- 13. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

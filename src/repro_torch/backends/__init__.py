@@ -3,7 +3,12 @@ and its baselines (exact softmax, sliding-window softmax, elu+1 linear)."""
 
 from repro_torch.backends.base import AttentionBackend
 from repro_torch.backends.linear_elu import LinearEluBackend
-from repro_torch.backends.registry import get_backend, register_backend, resolve_backend
+from repro_torch.backends.registry import (
+    available_backends,
+    get_backend,
+    register_backend,
+    resolve_backend,
+)
 from repro_torch.backends.softmax import SoftmaxBackend
 from repro_torch.backends.softmax_window import SoftmaxWindowBackend
 from repro_torch.backends.state import KVCache, tree_slot_health
@@ -21,6 +26,7 @@ __all__ = [
     "SoftmaxBackend",
     "SoftmaxWindowBackend",
     "TaylorBackend",
+    "available_backends",
     "get_backend",
     "register_backend",
     "resolve_backend",

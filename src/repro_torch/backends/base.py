@@ -28,6 +28,13 @@ class AttentionBackend:
     name: str = ""
     state_kind: str = "kv"  # "kv" | "moments"
     impls: Tuple[str, ...] = ("torch",)
+    # Serve-layer slot-state representations: which compact encodings of
+    # this backend's decode state the engine may hold between dispatches
+    # (``serve/state_repr.py``).  Compute always runs dense; these flags
+    # only gate what ``ServeEngine(state_dtype=..., kv_page_size=...)``
+    # accepts.
+    state_dtypes: Tuple[str, ...] = ("dense",)
+    supports_paged_kv: bool = False
 
     @property
     def bounded_state(self) -> bool:
@@ -51,6 +58,12 @@ class AttentionBackend:
         if cfg.attn_impl != "auto":
             return cfg.attn_impl
         return self.impls[0]
+
+    def draft_config(self, cfg):
+        """Cheaper same-weights config for speculative self-drafting, or
+        ``None`` when this backend has none (the serve layer then rejects
+        ``draft="order1"`` requests at submit time)."""
+        return None
 
     def init_cache(self, cfg, batch: int, n_max: int, device, dtype: torch.dtype) -> Any:
         """Zero decode state for ``batch`` rows; KV leaves in ``dtype``

@@ -20,6 +20,7 @@ class LinearEluBackend(AttentionBackend):
     name = "linear_elu"
     state_kind = "kv"
     impls = ("torch",)
+    supports_paged_kv = True
 
     def init_cache(self, cfg, batch, n_max, device, dtype):
         return _zero_kv(cfg, batch, n_max, device, dtype)

@@ -39,6 +39,11 @@ def get_backend(name: str) -> AttentionBackend:
     return _REGISTRY[name]
 
 
+def available_backends() -> Dict[str, AttentionBackend]:
+    """Snapshot of the registry: ``{name: backend}`` (insertion order)."""
+    return dict(_REGISTRY)
+
+
 def resolve_backend(cfg) -> AttentionBackend:
     """Resolve ``cfg.attention`` to a backend validated against ``cfg``."""
     backend = get_backend(cfg.attention)

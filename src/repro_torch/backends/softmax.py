@@ -74,6 +74,7 @@ class SoftmaxBackend(AttentionBackend):
     name = "softmax"
     state_kind = "kv"
     impls = ("torch",)
+    supports_paged_kv = True
 
     def init_cache(self, cfg, batch, n_max, device, dtype):
         return _zero_kv(cfg, batch, n_max, device, dtype)

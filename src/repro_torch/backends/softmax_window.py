@@ -87,6 +87,7 @@ class SoftmaxWindowBackend(AttentionBackend):
     name = "softmax_window"
     state_kind = "kv"
     impls = ("torch",)
+    supports_paged_kv = False  # the ring is O(window) already
 
     @property
     def bounded_state(self) -> bool:

@@ -21,6 +21,8 @@ scan's state handoff; decode is state-bound), as in the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.backends.base import AttentionBackend
@@ -53,6 +55,10 @@ class TaylorBackend(AttentionBackend):
     name = "taylor"
     state_kind = "moments"
     impls = ("torch", "cuda")
+    # The O(1) moment state may be held int8/fp8-quantised between serve
+    # dispatches, with per-head power-of-two scales; absorbs and reads run
+    # in float32 (serve/state_repr.py).
+    state_dtypes = ("dense", "int8", "fp8")
 
     def validate(self, cfg):
         super().validate(cfg)
@@ -88,6 +94,24 @@ class TaylorBackend(AttentionBackend):
         if device.type == "cuda" and _kernel_fits(cfg):
             return "cuda"
         return "torch"
+
+    def draft_config(self, cfg):
+        """Order-1 same-weights self-draft (the paper's order hierarchy).
+
+        Drops the second-moment terms: the draft state is ``(n0, s0, z1,
+        s1)`` only, and the target's weights are reused as they are (the
+        Taylor feature map has no parameters).
+
+        Returns:
+          ``cfg`` with ``taylor.order = 1`` and ``attn_impl = "torch"``
+          (the draft only prefills and decodes, which run the moment-state
+          paths), or ``None`` when the target is already order 1 or has a
+          hybrid schedule (the order hierarchy covers the taylor layers
+          only).
+        """
+        if cfg.taylor.order < 2 or cfg.attention_schedule:
+            return None
+        return cfg.replace(taylor=dataclasses.replace(cfg.taylor, order=1), attn_impl="torch")
 
     # -- protocol ------------------------------------------------------------
 

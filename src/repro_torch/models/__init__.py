@@ -9,6 +9,7 @@ from repro_torch.models.lm import (
     lm_prefill,
     lm_prefill_chunk,
     lm_state_bytes,
+    lm_verify_chunk,
 )
 
 __all__ = [
@@ -21,5 +22,6 @@ __all__ = [
     "lm_prefill",
     "lm_prefill_chunk",
     "lm_state_bytes",
+    "lm_verify_chunk",
     "schedule_runs",
 ]

@@ -277,6 +277,32 @@ def lm_prefill_chunk(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
     return _logits(params, x[:, -1:, :], cfg)[:, 0, :], new
 
 
+@torch.no_grad()
+def lm_verify_chunk(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
+    """Advance the decode caches by a chunk, returning EVERY position's logits.
+
+    The speculative-verify primitive: the state roll-forward of
+    ``lm_prefill_chunk`` (the same chunk maths, so the returned caches are
+    the state token-by-token decode would have built, to fp tolerance), with
+    the logits head applied to all ``c`` positions.  The caller compares
+    ``argmax(logits[:, j])`` with the drafted token at position ``j + 1``.
+
+    Args:
+      params: model params.
+      tokens: ``[b, c]`` window: the last emitted token followed by the
+        ``c - 1`` drafted tokens.
+      caches: cache dict whose state has absorbed positions ``[0, pos0)``;
+        not modified.
+      pos0: int or ``[b]`` tensor — absolute position of ``tokens[:, 0]``.
+      cfg: model config.
+
+    Returns:
+      ``(logits [b, c, vocab]`` for every window position``, new caches)``.
+    """
+    x, new = _chunk_hidden(params, tokens, caches, pos0, cfg)
+    return _logits(params, x, cfg), new
+
+
 def _chunk_hidden(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
     """The chunk-advance body: hidden states ``[b, c, d]`` and new caches,
     each layer under its run's config."""

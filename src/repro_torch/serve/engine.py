@@ -129,6 +129,7 @@ def decode_scan(
     steps: int,
     sampling: bool = True,
     max_top_k: Optional[int] = None,
+    codec=None,
 ):
     """Advance every slot by ``steps`` tokens.
 
@@ -151,11 +152,19 @@ def decode_scan(
       steps: tokens to advance.
       sampling: False runs a pure-argmax loop (all slots greedy).
       max_top_k: bound on ``top_k`` (see ``sample_tokens``).
+      codec: optional ``serve.state_repr`` codec: ``caches`` arrive and
+        leave in its stored representation, decoded once before the block
+        and re-encoded once after it (the cost is per block, not per
+        token).
 
     Returns:
       ``(caches, token, pos, active, toks [steps, s], mask [steps, s])`` —
-      ``toks[t, s]`` is valid output iff ``mask[t, s]``.
+      ``toks[t, s]`` is valid output iff ``mask[t, s]``.  The input
+      ``caches`` are not modified.
     """
+    stored = caches
+    if codec is not None:
+        caches = codec.decode(stored)
     caches_in, active_in = caches, active
     toks, masks = [], []
     for _ in range(steps):
@@ -170,7 +179,11 @@ def decode_scan(
         active = active & (nxt != eos_id)
         token = nxt
         toks.append(nxt)
+    # Slots inactive at dispatch keep their state bit-identically: a slot a
+    # speculative verify advanced this step is live but masked out here.
     caches = select_slots(active_in, caches, caches_in)
+    if codec is not None:
+        caches = codec.encode(caches, stored)
     return caches, token, pos, active, torch.stack(toks), torch.stack(masks)
 
 

@@ -31,9 +31,16 @@ exercises all of it deterministically.  The step order and every counter
 are the JAX package's (``serve/load.py`` prices virtual time from them),
 so a trace replays to the same ``LoadReport`` in both packages.
 
-Not yet ported from the JAX package's engine (ROADMAP queue 1): speculative
-decoding, state codecs (quantised moments, paged KV) and meshes; their
-arguments raise.
+Speculative decoding (``serve/speculative.py``): with
+``SchedulerPolicy(speculative_k=k)`` or ``Request(speculative_k=k)``
+greedy slots draft k tokens per round (``"ngram"`` or the order-1
+self-draft ``"order1"``) and verify them in one chunk pass before the
+decode block.  State representations (``serve/state_repr.py``):
+``state_dtype="int8"|"fp8"`` holds the Taylor moments quantised and
+``kv_page_size=`` holds a softmax-family KV cache in pages; one
+``SlotStateStore`` owns the slot cache whatever its representation.  Not
+yet ported from the JAX package's engine (ROADMAP queue 1): meshes
+(``mesh=``/``rules=``) and the vlm/encdec ``Request.extras``; they raise.
 """
 
 from __future__ import annotations
@@ -52,7 +59,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_prefill_chunk, tree_to
 from repro_torch.serve import slots as slots_mod
+from repro_torch.serve import speculative as spec_mod
 from repro_torch.serve.engine import decode_scan, prefill, sample_tokens
+from repro_torch.serve.state_repr import make_state_store
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -116,7 +125,8 @@ class RequestRejected(ValueError):
 
     Attributes:
       reason: machine-readable code (``empty_prompt``, ``bad_budget``,
-        ``prompt_too_long``, ``over_capacity``, ``queue_full``).
+        ``prompt_too_long``, ``over_capacity``, ``queue_full``,
+        ``bad_speculative_k``, ``unknown_draft``, ``draft_unavailable``).
       rid: request id under which the engine recorded the ``REJECTED``
         ``RequestResult``.
     """
@@ -197,7 +207,16 @@ class SchedulerPolicy:
       preempt_min_tokens: tokens a slot must have produced before it can be
         preempted.
       max_preemptions: per-request bound on preemptions.
-      speculative_k: speculative decoding depth (only 0 is ported).
+      speculative_k: engine-wide speculative decoding depth: greedy slots
+        draft k tokens per round and verify them in ONE chunk pass
+        (``serve/speculative.py``).  0 disables speculation;
+        ``Request.speculative_k`` overrides it per request.  Sampled
+        requests always decode plainly.
+      speculative_draft: default draft proposer: ``"ngram"`` (host-side
+        prompt lookup) or ``"order1"`` (the same-weights order-1
+        self-draft, on backends whose ``draft_config`` gives one).
+        ``Request.draft`` overrides it; unknown names are rejected at
+        submit.
     """
 
     priority_admission: bool = False
@@ -208,6 +227,7 @@ class SchedulerPolicy:
     preempt_min_tokens: int = 1
     max_preemptions: int = 2
     speculative_k: int = 0
+    speculative_draft: str = "ngram"
 
 
 @dataclasses.dataclass
@@ -230,9 +250,12 @@ class Request:
         before it expires; None = waits forever.
       priority: admission class — SMALLER is more urgent; used under
         ``SchedulerPolicy.priority_admission`` and ``preemption``.
-      speculative_k: per-request speculative depth (not yet ported; must be
-        None).
-      draft: per-request draft proposer (not yet ported; must be None).
+      speculative_k: per-request speculative depth (None =
+        ``SchedulerPolicy.speculative_k``); an explicit value must lie in
+        ``[1, max_new_tokens]``.  Only greedy requests speculate.
+      draft: per-request draft proposer name (None = the policy's
+        ``speculative_draft``); must name a registered proposer usable on
+        the engine's backend.
     """
 
     tokens: np.ndarray
@@ -363,14 +386,21 @@ class ServeEngine:
             boundaries.
           clock: monotonic-seconds source for deadlines and TTLs (default
             ``time.monotonic``; the load harness passes a virtual clock).
-          mesh, rules, state_dtype, kv_page_size, kv_pages: the JAX
-            package's mesh sharding and state representations; not yet
-            ported (anything but the defaults raises).
+          mesh, rules: the JAX package's mesh sharding; not yet ported
+            (anything but None raises).
+          state_dtype: slot-state storage: "dense", or the Taylor moments
+            quantised "int8"/"fp8" (backends listing it in
+            ``state_dtypes``).  Compute always runs dense in float32; only
+            what the engine HOLDS between dispatches changes.
+          kv_page_size: hold the KV slot cache in pages of this power-of-two
+            size (backends with ``supports_paged_kv``): live bytes follow
+            the tokens held, not ``max_slots × n_max``.  Combined with
+            ``state_dtype`` only under a hybrid schedule.
+          kv_pages: the page pool's size (default ``max_slots × ⌈n_max /
+            kv_page_size⌉``, which never runs out).
         """
         if mesh is not None or rules is not None:
             raise _not_ported("ServeEngine(mesh=, rules=)", 6)
-        if state_dtype != "dense" or kv_page_size is not None or kv_pages is not None:
-            raise _not_ported("ServeEngine(state_dtype=, kv_page_size=, kv_pages=)", 3)
         if max_slots < 1 or decode_block < 1:
             raise ValueError("max_slots and decode_block must be >= 1")
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -382,7 +412,14 @@ class ServeEngine:
         if self.sched.speculative_k < 0:
             raise ValueError("speculative_k must be >= 0 (0 = off)")
         if self.sched.speculative_k > 0:
-            raise _not_ported("speculative decoding (SchedulerPolicy.speculative_k)", 3)
+            if not spec_mod.has_proposer(self.sched.speculative_draft):
+                raise ValueError(
+                    f"unknown speculative_draft {self.sched.speculative_draft!r}; "
+                    f"registered: {spec_mod.proposer_names()}")
+            if not spec_mod.draft_available(cfg, self.sched.speculative_draft):
+                raise ValueError(
+                    f"draft {self.sched.speculative_draft!r} is not available on the "
+                    f"{cfg.backend_desc!r} backend (no draft_config)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_slots = max_slots
@@ -392,7 +429,13 @@ class ServeEngine:
         self.fault_plan = fault_plan
         self._clock = clock if clock is not None else time.monotonic
         self.params = tree_to(params, self.device)
-        self.caches = slots_mod.init_slot_caches(cfg, max_slots, n_max, self.device)
+        # The store owns the slot cache's storage representation (dense,
+        # quantised moments or paged KV) and validates it against the
+        # backends' capability flags.
+        self.state_store = make_state_store(
+            cfg, max_slots, n_max, self.device, state_dtype=state_dtype,
+            kv_page_size=kv_page_size, kv_pages=kv_pages)
+        self.caches = self.state_store.init_caches()
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self._gen = generator
@@ -411,6 +454,7 @@ class ServeEngine:
         self._temp = np.zeros((max_slots,), np.float32)
         self._topk = np.zeros((max_slots,), np.int64)
         self._eos = np.full((max_slots,), -1, np.int64)
+        self._spec = spec_mod.Speculator(self)
 
     def _sync(self) -> None:
         """Wait for the device, so that a host-clock interval covers its work."""
@@ -430,14 +474,12 @@ class ServeEngine:
         a full bounded queue sheds with ``QueueOverflow``.  Either way the
         engine records a terminal ``REJECTED`` result under ``exc.rid``.
         Under overload (``degrade_queue_depth``) the request is admitted
-        DEGRADED: budget clamped and chunked prefill forced.  Features not
-        yet ported (``extras``, ``speculative_k``, ``draft``) raise
+        DEGRADED: budget clamped and chunked prefill forced.  ``extras`` (the
+        vlm/encdec families) is not yet ported and raises
         ``NotImplementedError``.
         """
         if request.extras:
             raise _not_ported("Request.extras (the vlm/encdec families)", 4)
-        if request.speculative_k is not None or request.draft is not None:
-            raise _not_ported("speculative decoding (Request.speculative_k, draft)", 3)
         rid = next(self._rid)
         self._stats["submitted"] += 1
         try:
@@ -507,6 +549,35 @@ class ServeEngine:
                 f"({request.max_new_tokens}) exceeds n_max ({self.n_max})",
                 reason="over_capacity",
             )
+        # An explicit per-request depth must be usable, and a draft name
+        # must resolve in the proposer registry for THIS engine's backend.
+        if request.speculative_k is not None:
+            if request.speculative_k <= 0:
+                raise RequestRejected(
+                    f"speculative_k must be >= 1 when set, got {request.speculative_k} "
+                    f"(omit it to disable speculation)",
+                    reason="bad_speculative_k",
+                )
+            if request.speculative_k > request.max_new_tokens:
+                raise RequestRejected(
+                    f"speculative_k ({request.speculative_k}) exceeds max_new_tokens "
+                    f"({request.max_new_tokens}) — the draft window can never fit the "
+                    f"budget",
+                    reason="bad_speculative_k",
+                )
+        if request.draft is not None:
+            if not spec_mod.has_proposer(request.draft):
+                raise RequestRejected(
+                    f"unknown draft proposer {request.draft!r}; registered: "
+                    f"{spec_mod.proposer_names()}",
+                    reason="unknown_draft",
+                )
+            if not spec_mod.draft_available(self.cfg, request.draft):
+                raise RequestRejected(
+                    f"draft {request.draft!r} is not available on the "
+                    f"{self.cfg.backend_desc!r} backend (no draft_config)",
+                    reason="draft_unavailable",
+                )
 
     # -- terminal outcomes --------------------------------------------------
 
@@ -530,9 +601,11 @@ class ServeEngine:
         return Status.DEGRADED if (tr is not None and tr.degraded) else Status.OK
 
     def _release_slot(self, idx: int) -> None:
-        """Clear one slot's device state and free its host record."""
-        self.caches = slots_mod.clear_slot(self.caches, idx)
+        """Clear one slot's device state (and pages) and free its host
+        record."""
+        self.caches = self.state_store.clear_slot(self.caches, idx)
         self._slots[idx] = _Slot()
+        self._spec.on_release(idx)
 
     def _requeue_for_retry(self, rid: int, accepted: List[int], error: str) -> None:
         """Bounded retry with backoff after quarantine or dispatch loss; the
@@ -622,7 +695,8 @@ class ServeEngine:
         retry, ``prompt_len`` covers prompt + accepted tokens and the
         accepted prefix is replayed into the output)."""
         req = tr.req
-        self.caches = slots_mod.write_slot(self.caches, req_caches, slot)
+        self.caches = self.state_store.ensure_tokens(self.caches, slot, prompt_len)
+        self.caches = self.state_store.write_slot(self.caches, req_caches, slot)
         st = self._slots[slot]
         st.rid, st.done, st.prefilling = rid, False, False
         st.out = list(tr.accepted) + [first]
@@ -637,6 +711,8 @@ class ServeEngine:
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         if req.eos_id is not None and first == req.eos_id:
             st.done = True
+        if not st.done and st.remaining > 0:
+            self._spec.on_install(slot, tr, st.out)
 
     def _chunk_for(self, tr: _Tracked) -> Optional[int]:
         """Prefill-chunk size for one request, fattened by a power-of-two
@@ -703,7 +779,8 @@ class ServeEngine:
         """Re-admit a preempted request from its saved decode state: the
         state handoff, with no prefill."""
         req = tr.req
-        self.caches = slots_mod.write_slot(self.caches, tr.saved_state, slot)
+        self.caches = self.state_store.ensure_tokens(self.caches, slot, int(tr.saved_pos))
+        self.caches = self.state_store.write_slot(self.caches, tr.saved_state, slot)
         st = self._slots[slot]
         st.rid, st.done, st.prefilling = rid, False, False
         st.out = list(tr.accepted)
@@ -715,6 +792,7 @@ class ServeEngine:
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         tr.saved_state = None
         self._stats["resumes"] += 1
+        self._spec.on_resume(slot, tr)
 
     def _preempt(self) -> None:
         """Evict at most one low-priority slot per block, when preemption is
@@ -744,7 +822,7 @@ class ServeEngine:
         i = victim[1]
         st = self._slots[i]
         rid, tr = st.rid, self._requests[st.rid]
-        tr.saved_state = slots_mod.read_slot(self.caches, i)
+        tr.saved_state = self.state_store.read_slot(self.caches, i)
         tr.saved_token = int(self._token[i])
         tr.saved_pos = int(self._pos[i])
         tr.accepted = list(st.out)
@@ -823,8 +901,10 @@ class ServeEngine:
             self._stats["prefill_dispatches"] += 1
             self._stats["prefill_tokens"] += int(glen) * len(group)
             for j, (g, t) in enumerate(zip(group, trs)):
+                # the batched prefill output is DENSE: slice it with the dense
+                # read, not the store's (representation-decoding) one
                 req_caches = (pref_caches if len(group) == 1
-                              else slots_mod.read_slot(pref_caches, j))
+                              else self.state_store.read_dense(pref_caches, j))
                 self._install(free.pop(0), g, t, req_caches, int(firsts[j]), int(glen))
 
     def _retire_finished(self) -> None:
@@ -838,14 +918,16 @@ class ServeEngine:
     # -- fault handling -----------------------------------------------------
 
     def _dispatch(self, run: Callable[[], Any]):
-        """One decode-block dispatch with bounded in-place retries.
+        """One device dispatch (a decode block, a verify, a rollback) with
+        bounded in-place retries.
 
         The fault plan's injected failure fires BEFORE the real dispatch.
         The JAX package retries only while the donated cache is alive; the
-        port donates no buffer (``decode_scan`` leaves its input cache
-        untouched), so that test always holds here and every failure up to
+        port donates no buffer (``decode_scan`` and the verify leave their
+        input caches untouched, and a codec re-encodes into new tensors),
+        so that test always holds here and every failure up to
         ``max_dispatch_retries`` is retried in place.  Past them the
-        exception propagates to ``step``'s rebuild path."""
+        exception propagates to the caller's rebuild path."""
         attempts = 0
         while True:
             try:
@@ -877,13 +959,13 @@ class ServeEngine:
             elif not st.prefilling:
                 self._requeue_for_retry(st.rid, list(st.out), error)
             self._slots[i] = _Slot()
-        self.caches = slots_mod.init_slot_caches(self.cfg, self.max_slots, self.n_max,
-                                                 self.device)
+        self.caches = self.state_store.init_caches()  # also resets the page allocator
         self._token[:] = 0
         self._pos[:] = 0
         self._temp[:] = 0.0
         self._topk[:] = 0
         self._eos[:] = -1
+        self._spec.on_rebuild()
 
     def _inject_corruptions(self) -> None:
         """Apply due ``SlotCorruption`` events to the live cache, AFTER this
@@ -894,7 +976,7 @@ class ServeEngine:
             if not 0 <= e.slot < self.max_slots:
                 continue
             fill = float("nan") if e.mode == "nan" else float("inf")
-            self.caches = slots_mod.corrupt_slot(self.caches, e.slot, fill)
+            self.caches = self.state_store.corrupt_slot(self.caches, e.slot, fill)
             self._stats["corruptions_injected"] += 1
 
     def _health_sweep(self) -> None:
@@ -911,7 +993,7 @@ class ServeEngine:
             return
         if not any(s.rid is not None for s in self._slots):
             return
-        health = slots_mod.slot_health(self.caches, self.cfg).cpu().numpy()
+        health = self.state_store.health(self.caches).cpu().numpy()
         self._stats["health_checks"] += 1
         if health.all():
             return
@@ -926,14 +1008,16 @@ class ServeEngine:
                 self._stats["quarantined"] += 1
                 rid, out = st.rid, list(st.out)
                 self._slots[i] = _Slot()
+                self._spec.on_release(i)
                 self._requeue_for_retry(rid, out, "slot state corrupted (quarantined)")
             elif finished:
                 self._finalize(st.rid, self._success_status(self._requests.get(st.rid)),
                                st.out)
                 self._slots[i] = _Slot()
+                self._spec.on_release(i)
             # a prefilling slot keeps its reservation: the partial's batch-1
             # cache lives outside the slot cache
-            self.caches = slots_mod.clear_slot(self.caches, i)
+            self.caches = self.state_store.clear_slot(self.caches, i)
 
     def _has_work(self) -> bool:
         return (bool(self._queue) or bool(self._retry)
@@ -948,8 +1032,8 @@ class ServeEngine:
         One call = at most one ``decode_scan``, preceded by the block-boundary
         bookkeeping in a fixed order (the JAX package's): fault-plan floods
         → deadline/TTL expiry → retire → release backoff retries → preempt →
-        admit → dispatch (with bounded retry / cache rebuild) → corruption
-        injection → health sweep → retire.
+        admit → speculative rounds → dispatch (with bounded retry / cache
+        rebuild) → corruption injection → health sweep → retire.
         """
         self._block += 1
         now = self._clock()
@@ -964,8 +1048,18 @@ class ServeEngine:
         self._release_retries()
         self._preempt()
         self._admit()
+        # Speculative rounds run BEFORE the decode block: due greedy slots
+        # draft and verify, and are left out of this block's active mask.
+        spec_handled = self._spec.run_rounds()
         active = self._active_mask()
+        for i in spec_handled:
+            active[i] = False
         if not active.any():
+            if spec_handled:
+                # all live work advanced by verify: the corruption and health
+                # machinery still runs at the block boundary
+                self._inject_corruptions()
+                self._health_sweep()
             self._retire_finished()
             return self._has_work()
         steps = min(self.decode_block, max(
@@ -979,6 +1073,12 @@ class ServeEngine:
         sampling = any(self._temp[i] > 0 for i in occupied)
         max_top_k = int(max((self._topk[i] for i in occupied), default=0))
         max_top_k = _next_pow2(max_top_k) if max_top_k > 0 else 0
+        if self.state_store.paged:
+            # every active slot writes up to ``steps`` new KV rows: grow its
+            # page prefix first (the table is pushed once if it changed)
+            for i in np.flatnonzero(active):
+                self.caches = self.state_store.ensure_tokens(
+                    self.caches, int(i), int(self._pos[i]) + int(steps))
         dev = lambda x: torch.as_tensor(x, device=self.device)  # noqa: E731
         t0 = time.perf_counter()
         try:
@@ -987,6 +1087,7 @@ class ServeEngine:
                     self.params, self.caches, dev(self._token), dev(self._pos), dev(active),
                     dev(self._temp), dev(self._topk), dev(self._eos), self._gen, self.cfg,
                     steps, sampling=sampling, max_top_k=max_top_k,
+                    codec=self.state_store.codec,
                 ))
             toks, mask = toks.cpu().numpy(), mask.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — the resilience boundary
@@ -1001,6 +1102,7 @@ class ServeEngine:
         for i, st in enumerate(self._slots):
             if st.rid is None or st.done or st.prefilling or not active[i]:
                 continue
+            emitted_from = len(st.out)
             for t in range(toks.shape[0]):
                 if not mask[t, i] or st.remaining <= 0:
                     break
@@ -1010,6 +1112,9 @@ class ServeEngine:
                 if self._eos[i] >= 0 and toks[t, i] == self._eos[i]:
                     st.done = True
                     break
+            # a speculating slot decodes its last <= k tokens plainly: keep
+            # its host-side draft context in step
+            self._spec.on_decode_tokens(i, st.out[emitted_from:])
             if not dev_active[i]:
                 st.done = True
         self._inject_corruptions()
@@ -1053,13 +1158,35 @@ class ServeEngine:
         ``cache_rebuilds``, ``corruptions_injected``, ``health_checks``,
         ``prefill_stalls``, ``dispatches``, ``decode_dispatches``,
         ``decode_tokens``, ``prefill_dispatches``, ``prefill_tokens``,
-        ``preemptions``, ``resumes``.  The port's own: host-clock
-        ``prefill_seconds`` / ``decode_seconds`` (each ends when the work's
-        results reach the host, so it covers the device work).  Gauges:
-        ``blocks``, ``queue_depth``, ``slots_occupied``.
+        ``preemptions``, ``resumes``; speculative decoding:
+        ``spec_rounds``/``verify_dispatches`` (verify chunk dispatches),
+        ``verify_tokens`` (window tokens absorbed, rollback re-absorbs
+        included), ``spec_tokens`` (tokens EMITTED by verify, counted
+        beside ``decode_tokens``), ``spec_drafted``/``spec_accepted`` (the
+        acceptance ratio), ``spec_full_accepts``, ``spec_rollbacks``, and
+        ``draft_dispatches``/``draft_tokens`` (the order-1 self-draft's
+        cost; the n-gram proposer runs on the host and adds none).  The
+        port's own: host-clock ``prefill_seconds`` / ``decode_seconds`` /
+        ``verify_seconds`` (verify and rollback) / ``draft_seconds`` (each
+        ends when the work's results reach the host, so it covers the
+        device work).  Gauges: ``blocks``, ``queue_depth``,
+        ``slots_occupied``.
         """
         out = dict(self._stats)
         out["blocks"] = self._block
         out["queue_depth"] = self._queue_depth()
         out["slots_occupied"] = sum(1 for s in self._slots if s.rid is not None)
         return out
+
+    @property
+    def slot_state_bytes(self) -> int:
+        """Decode-state bytes one slot occupies, LIVE: a paged store counts
+        the pages in use, a quantised one the payload and scales; dense
+        state gives ``slots.slot_bytes`` of the cache."""
+        return self.state_store.slot_bytes(self.caches)
+
+    @property
+    def live_state_bytes(self) -> int:
+        """Decode-state bytes LIVE on the device (the sum
+        ``slot_state_bytes`` averages)."""
+        return self.state_store.live_bytes(self.caches)

@@ -17,11 +17,16 @@ its own backend's type (a hybrid schedule mixes ``TaylorState`` and
 ``write_slot`` and ``clear_slot`` update the cache IN PLACE (the JAX
 package donates the buffer for the same effect) and return it;
 ``read_slot`` and ``corrupt_slot`` return copies.  ``slot_health`` is the
-per-slot finiteness sweep the engine's resilience boundary runs.
+per-slot finiteness sweep the engine's resilience boundary runs.  The
+splice, zero, read, poison and select ops also walk a quantised stored
+tree (``QuantizedLeaf`` payloads and scales keep the slot axis); the
+engine reaches them through ``SlotStateStore`` (``serve/state_repr.py``,
+re-exported here), which owns the slot cache's storage representation.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict
 
 import torch
@@ -35,21 +40,26 @@ Tensor = torch.Tensor
 
 GROUP_SLOT_AXIS = 2
 TAIL_SLOT_AXIS = 0
+_FP8 = (torch.float8_e4m3fn,)
 
 
 def _map(fn: Callable, caches, *others) -> Dict[str, Any]:
     """Apply ``fn(leaf, *other_leaves, axis)`` to every state leaf, the
     int ``KVCache.length`` included; each state keeps its own NamedTuple
-    type."""
+    type.  Nested NamedTuples (the ``QuantizedLeaf`` payload/scale pairs of
+    a stored tree) are walked too: their leaves keep the dense leaf's slot
+    axis."""
+
+    def node(axis, *parts):
+        if parts[0] is None:
+            return None
+        if isinstance(parts[0], tuple):
+            return type(parts[0])(*(node(axis, *xs) for xs in zip(*parts)))
+        return fn(*parts, axis)
 
     def one(key, axis):
-        out = []
-        for parts in zip(caches[key], *(o[key] for o in others)):
-            out.append(type(parts[0])(*(
-                None if leaves[0] is None else fn(*leaves, axis)
-                for leaves in zip(*parts)
-            )))
-        return tuple(out)
+        return tuple(node(axis, *parts)
+                     for parts in zip(caches[key], *(o[key] for o in others)))
 
     return {
         "group": one("group", GROUP_SLOT_AXIS),
@@ -177,7 +187,11 @@ def corrupt_slot(caches, slot: int, fill: float):
 
     def poison(full: Tensor, axis: int) -> Tensor:
         out = full.clone()
-        if out.is_floating_point():
+        if out.dtype in _FP8:
+            # float8_e4m3fn has no inf: a non-finite fill is stored as NaN,
+            # the JAX package's cast of inf to it
+            out.narrow(axis, slot, 1).fill_(fill if math.isfinite(fill) else math.nan)
+        elif out.is_floating_point():
             out.narrow(axis, slot, 1).fill_(fill)
         return out
 
@@ -191,6 +205,22 @@ def select_slots(mask: Tensor, new, old):
     def sel(n: Tensor, o: Tensor, axis: int) -> Tensor:
         shape = [1] * n.ndim
         shape[axis] = mask.shape[0]
+        if n.dtype in _FP8:  # selected through the bits, which is exact
+            return torch.where(mask.reshape(shape), n.view(torch.uint8),
+                               o.view(torch.uint8)).view(n.dtype)
         return torch.where(mask.reshape(shape), n, o)
 
     return _map(sel, new, old)
+
+
+def __getattr__(name: str):
+    """Re-export the slot-state representation layer: the quantise and
+    dequantise boundary lives at the slot layer, but ``SlotStateStore`` and
+    ``make_state_store`` are defined in ``serve/state_repr.py`` (which
+    builds on this module's splice and zero ops) and surfaced here lazily
+    to avoid a circular import."""
+    if name in ("SlotStateStore", "make_state_store"):
+        from repro_torch.serve import state_repr  # noqa: PLC0415 (cycle)
+
+        return getattr(state_repr, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

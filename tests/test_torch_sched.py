@@ -224,13 +224,30 @@ def test_submit_typed_rejections(served):
         "request_speculative_k", "draft", "extras"])
 def test_unported_features_raise(served, where, kw):
     """Features of later slices raise, naming ROADMAP queue 1; none is
-    silently ignored."""
+    silently ignored.  The state representations and speculative decoding
+    are ported now (tests/test_torch_state_repr.py, tests/test_torch_spec.py):
+    their knobs build an engine that serves the request."""
     _, _, _, _, prompts, _ = served
-    with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP queue 1"):
-        if where == "engine":
-            _engine(served, **kw)
+    if "mesh" in kw or "rules" in kw or "extras" in kw:
+        with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP queue 1"):
+            if where == "engine":
+                _engine(served, **kw)
+            else:
+                _engine(served).submit(Request(tokens=prompts[0], max_new_tokens=4, **kw))
+        return
+    if where == "engine":
+        if "kv_page_size" in kw:  # paging needs a KV backend
+            jcfg, cfg, jp, tp, _, _ = served
+            eng = T.ServeEngine(tp, cfg.replace(attention="softmax"), device="cpu",
+                                **{**ENGINE_KW, **kw})
         else:
-            _engine(served).submit(Request(tokens=prompts[0], max_new_tokens=4, **kw))
+            eng = _engine(served, **kw)
+        rid = eng.submit(Request(tokens=prompts[0], max_new_tokens=4))
+    else:
+        eng = _engine(served)
+        rid = eng.submit(Request(tokens=prompts[0], max_new_tokens=4, **kw))
+    result = eng.run(return_results=True)[rid]
+    assert result.status is Status.OK and result.tokens.size == 4
 
 
 def test_bounded_queue_sheds_with_queue_overflow(served):
