@@ -12,8 +12,11 @@ decay, non-causal), then serving under load (phase 10: chunked prefill,
 the SLO scheduler with a preemption, the standard fault trace, a replayed
 Poisson trace and the health sweep's price), then speculative decoding and
 the slot-state codecs (phase 11: n-gram and order-1 drafts, int8/fp8
-moments, paged softmax KV, speculation over int8 moments), and prints one
-JSON line describing every ported kernel followed by the device line.
+moments, paged softmax KV, speculation over int8 moments), then the model
+zoo at published widths (phase 12: qwen2-1.5b whole, the kernels at head
+dim 128, granite-20b, gemma-7b and qwen2-moe-a2.7b at cut depth, the
+train_resume and serve_longcontext scripts), and prints one JSON line
+describing every ported kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -22,8 +25,11 @@ Any failed phase exits non-zero.  Needs a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -97,12 +103,15 @@ PROMPT_LENS = (100, 256, 300, 384, 512, 700)
 MAX_NEW = 32
 N_MAX = 1024  # the serving engine's per-slot token capacity
 F32_TOL = 1e-4
-# The backward kernels write f32 gradients, and their plain versions compute
-# in f32 from the same bf16 values, so bf16 inputs answer to the same limit as
-# f32 ones.  Sound kernels read <= 3.4e-6 at phase 3b's shapes in either dtype;
-# a copy of csrc/taylor_bwd.cu whose dS2 carry update drops its a_lo·b_hi
-# product reads 2.8e-5 to 3.5e-5 in dk, which 1e-4 would let through.  Hence
-# 1e-5, the next power of ten above the sound readings.
+# The backward kernels write f32 gradients, held to their plain versions
+# computed in float64 on the same inputs, so bf16 inputs answer to the same
+# limit as f32 ones (an f32 oracle cannot serve: at granite-20b's launch,
+# G = 48, the f32 plain version's own dk is 1.1e-5 off float64).  Sound
+# kernels read <= 4.6e-6 at every case of BWD_CASES and ZOO_CASES; a copy of
+# csrc/taylor_bwd.cu whose pass-2 dS2 carry update drops its a_lo·b_hi
+# product reads 1.12e-5 to 2.17e-5 in dk there (tools/ab_taylor.py, PERF.md
+# §6), which 1e-4 would let through.  Hence 1e-5, the next power of ten
+# above the sound readings.
 BWD_TOL = 1e-5
 # The forward's bf16 output against the plain version's, also rounded to bf16:
 # a sound kernel reads <= 6.8e-4 here (one-ulp rounding flips), a kernel that
@@ -140,6 +149,24 @@ QUANT_STEPS = 32  # teacher-forced decode steps of the quantised-state logit MAE
 # re-quantises after each decode block rather than after each verify.
 QUANT_MAE_BOUND = {"int8": 0.25, "fp8": 1.25}
 INT8_FLIP_MARGIN = 0.2
+# Phase 12: the model zoo's dense and MoE decoders at their published widths
+# (random weights, seed 0, drawn on the card's generator).  Depth is cut
+# where the full model with its AdamW state would not fit on the card: a
+# full-depth f32 copy of granite-20b alone is 81 GB.
+ZOO_DEPTH = {"granite-20b": 4, "gemma-7b": 2, "qwen2-moe-a2.7b": 2}  # n_groups
+ZOO_TRAIN_STEPS = {"qwen2-1.5b": 6, "granite-20b": 2, "qwen2-moe-a2.7b": 2}
+# The kernels at each model's training launch: (a), (c) and (e) at b = 4,
+# n = 1024, head dim 128; (f)'s reduced qwen2-1.5b (b = 4, 4 heads on 2 kv
+# heads, head dim 16) at train_resume's n = 32, which the wrapper pads to the
+# d = 16 forward chunk of 128.
+ZOO_ATTN = {"qwen2-1.5b": dict(b=4, hk=2, g=6, n=1024, d=128, dv=128),
+            "granite-20b": dict(b=4, hk=1, g=48, n=1024, d=128, dv=128),
+            "qwen2-moe-a2.7b": dict(b=4, hk=16, g=1, n=1024, d=128, dv=128),
+            "qwen2-1.5b reduced": dict(b=4, hk=2, g=2, n=128, d=16, dv=16)}
+ZOO_CASES = tuple((m, dname) for m in ZOO_ATTN.values() for dname in ("bfloat16", "float32"))
+GEMMA_LENS = (100, 128)  # gemma-7b's requests: 2 slots of ~2.1 GB of state each
+MOE_TOKENS = 512  # the dense-vs-capacity comparison's tokens
+MOE_TOL = 1e-4  # its atol: tests/test_models.py::test_moe_dispatch_paths_agree's
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -168,8 +195,9 @@ def ptxas_spills(log: str):
 
 
 def case_name(m, dname: str) -> str:
-    """A check's name: its dtype, then n and d where they differ from MAIN's."""
-    return dname + "".join(f" {k_}={m[k_]}" for k_ in ("n", "d") if m[k_] != MAIN[k_])
+    """A check's name: its dtype, then n, d, hk and g where they differ from
+    MAIN's."""
+    return dname + "".join(f" {k_}={m[k_]}" for k_ in ("n", "d", "hk", "g") if m[k_] != MAIN[k_])
 
 
 def fail(msg: str) -> None:
@@ -300,48 +328,54 @@ def fwd_errors(torch, out, ref32):
     return errs, {k_: (e_, tols[k_]) for k_, e_ in errs.items() if not e_ < tols[k_]}
 
 
+def fwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3]"):
+    """The forward kernel against its plain version at shape ``m`` in
+    ``dname``: checked (fails on a disagreement), timed and bounded.
+    Returns its row."""
+    dtype = getattr(torch, dname)
+    bk = m["b"] * m["hk"]
+    q, k, v = fwd_inputs(torch, m, dtype, gen, ln)
+    out = K.taylor_fwd(q, k, v, alpha=3.0)
+    ref32 = ref_mod.taylor_attention_ref(q.float()[None], k.float()[None],
+                                         v.float()[None], alpha=3.0)[0]
+    torch.cuda.synchronize()
+    errs, bad = fwd_errors(torch, out, ref32)
+    abs_err = float((out.float() - ref32.to(dtype).float()).abs().max())
+    kernel_ms = cuda_ms(torch, lambda: K.taylor_fwd(q, k, v, alpha=3.0), 10)
+    plain_ms = cuda_ms(
+        torch, lambda: ref_mod.taylor_attention_ref(q[None], k[None], v[None]), 3
+    )
+    flops, tensor, nbytes = taylor_fwd_cost(
+        bk, m["g"], m["n"], m["d"], m["dv"], K.TILES[m["d"]][1], q.element_size())
+    products = FWD_TF32_PRODUCTS[dname]
+    f32_ms, _ = bound_ms(flops, nbytes)
+    tensor_ms, by = bound_ms(flops, nbytes, tensor, products)
+    name = case_name(m, dname)
+    print(f"{tag} taylor_fwd {name} {m}: "
+          + " ".join(f"{k_}_err={e_:.3e}" for k_, e_ in errs.items())
+          + (f" (tol {FWD_BF16_TOL}, excess {F32_TOL})" if "excess" in errs
+             else f" (tol {F32_TOL})")
+          + f" max_abs_err={abs_err:.3e} kernel_ms={kernel_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={tensor_ms:.4f} ({by}; tensor cores, "
+          f"TF32 products {products}; bound/kernel {tensor_ms / kernel_ms:.1%}) "
+          f"bound_ms(f32 cores)={f32_ms:.4f} (bound/kernel {f32_ms / kernel_ms:.1%}) "
+          f"gflop={flops / 1e9:.2f} "
+          f"(tensor-core share {sum(tensor.values()) / flops:.3f}) "
+          f"achieved_tflops={flops / kernel_ms / 1e9:.2f}")
+    if bad:
+        fail(f"taylor_fwd {name} disagrees with its plain version: {bad}")
+    return dict(
+        max_abs_err=abs_err, rel_err=errs["rel"], ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=tensor_ms, bound_by=by, bound_f32_cores_ms=f32_ms,
+    )
+
+
 def phase_kernel(torch, K, ops, ref_mod, ln):
     """Phase 3: the kernel against its plain version on the card, at phase 3's
     shape and at the training step's own launch, in f32 and bf16."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {}
-    for m, dname in FWD_CASES:
-        dtype = getattr(torch, dname)
-        bk = m["b"] * m["hk"]
-        q, k, v = fwd_inputs(torch, m, dtype, gen, ln)
-        out = K.taylor_fwd(q, k, v, alpha=3.0)
-        ref32 = ref_mod.taylor_attention_ref(q.float()[None], k.float()[None],
-                                             v.float()[None], alpha=3.0)[0]
-        torch.cuda.synchronize()
-        errs, bad = fwd_errors(torch, out, ref32)
-        abs_err = float((out.float() - ref32.to(dtype).float()).abs().max())
-        kernel_ms = cuda_ms(torch, lambda: K.taylor_fwd(q, k, v, alpha=3.0), 10)
-        plain_ms = cuda_ms(
-            torch, lambda: ref_mod.taylor_attention_ref(q[None], k[None], v[None]), 3
-        )
-        flops, tensor, nbytes = taylor_fwd_cost(
-            bk, m["g"], m["n"], m["d"], m["dv"], K.TILES[m["d"]][1], q.element_size())
-        products = FWD_TF32_PRODUCTS[dname]
-        f32_ms, _ = bound_ms(flops, nbytes)
-        tensor_ms, by = bound_ms(flops, nbytes, tensor, products)
-        name = case_name(m, dname)
-        print(f"[3] taylor_fwd {name} {m}: "
-              + " ".join(f"{k_}_err={e_:.3e}" for k_, e_ in errs.items())
-              + (f" (tol {FWD_BF16_TOL}, excess {F32_TOL})" if "excess" in errs
-                 else f" (tol {F32_TOL})")
-              + f" max_abs_err={abs_err:.3e} kernel_ms={kernel_ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={tensor_ms:.4f} ({by}; tensor cores, "
-              f"TF32 products {products}; bound/kernel {tensor_ms / kernel_ms:.1%}) "
-              f"bound_ms(f32 cores)={f32_ms:.4f} (bound/kernel {f32_ms / kernel_ms:.1%}) "
-              f"gflop={flops / 1e9:.2f} "
-              f"(tensor-core share {sum(tensor.values()) / flops:.3f}) "
-              f"achieved_tflops={flops / kernel_ms / 1e9:.2f}")
-        if bad:
-            fail(f"taylor_fwd {name} disagrees with its plain version: {bad}")
-        rows[name] = dict(
-            max_abs_err=abs_err, rel_err=errs["rel"], ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=tensor_ms, bound_by=by, bound_f32_cores_ms=f32_ms,
-        )
+    rows = {case_name(m, dname): fwd_case(torch, K, ref_mod, ln, gen, m, dname)
+            for m, dname in FWD_CASES}
     for b, h, hk, n, d, dv, order in EDGE:
         q = torch.randn(b, h, n, d, device="cuda", generator=gen)
         k = torch.randn(b, hk, n, d, device="cuda", generator=gen)
@@ -370,25 +404,76 @@ def bwd_inputs(torch, m, dtype, gen, ln):
 
 def bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn, dkv_fn):
     """Runs pass 1 (``dq_fn``) and pass 2 (``dkv_fn``, on pass 1's den and
-    dden) and their plain versions on the same inputs.  Returns (rel errors,
-    max abs errors by kernel, failures, (den, dden)).  Every rel error
-    answers to BWD_TOL, for bf16 inputs too: the gradients are f32 either
-    way."""
+    dden) and their plain versions, computed in float64, on the same inputs.
+    Returns (rel errors, max abs errors by kernel, failures, (den, dden)).
+    Every rel error answers to BWD_TOL, for bf16 inputs too: the gradients
+    are f32 either way."""
     dq, den, dden = dq_fn(q, k, v, dout, out)
     dk, dv = dkv_fn(q, k, v, dout, den, dden)
-    b = lambda *x: [t[None] for t in x]
+    b = lambda *x: [t.double()[None] for t in x]
     want = [t[0] for t in ref_mod.taylor_bwd_dq_ref(*b(q, k, v, dout, out))]
     # pass 2 against its plain version on the SAME inputs (pass 1's rows)
     want += [t[0] for t in ref_mod.taylor_bwd_dkv_ref(*b(q, k, v, dout, den, dden))]
     torch.cuda.synchronize()
-    got = (dq, den, dden, dk, dv)
-    errs = {n_: rel_err(torch, a_, w_) for n_, a_, w_ in
-            zip(("dq", "den", "dden", "dk", "dv"), got, want)}
+    names = ("dq", "den", "dden", "dk", "dv")
+    errs = {n_: float((a_.double() - w_).abs().max() / w_.abs().max())
+            for n_, a_, w_ in zip(names, (dq, den, dden, dk, dv), want)}
     abs_err = {"taylor_bwd_dq": float((dq - want[0]).abs().max()),
                "taylor_bwd_dkv": max(float((dk - want[3]).abs().max()),
                                      float((dv - want[4]).abs().max()))}
     bad = {k_: (e_, BWD_TOL) for k_, e_ in errs.items() if not e_ < BWD_TOL}
     return errs, abs_err, bad, (den, dden)
+
+
+def bwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3b]"):
+    """Both backward kernels against their plain versions at shape ``m`` in
+    ``dname``: checked to BWD_TOL (fails on a disagreement), timed and
+    bounded.  Returns {kernel: row} for dq, dkv and the pair."""
+    dq_fn = lambda q, k, v, dout, out: K.taylor_bwd_dq(q, k, v, dout, out, alpha=3.0)
+    dkv_fn = lambda q, k, v, dout, den, dden: K.taylor_bwd_dkv(q, k, v, dout, den, dden,
+                                                               alpha=3.0)
+    bk = m["b"] * m["hk"]
+    q, k, v, dout = bwd_inputs(torch, m, getattr(torch, dname), gen, ln)
+    out = K.taylor_fwd(q, k, v, alpha=3.0)
+    errs, abs_err, bad, (den, dden) = bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn,
+                                                dkv_fn)
+    b = lambda *x: [t[None] for t in x]
+    ms = {
+        "taylor_bwd_dq": cuda_ms(torch, lambda: dq_fn(q, k, v, dout, out), 10),
+        "taylor_bwd_dkv": cuda_ms(torch, lambda: dkv_fn(q, k, v, dout, den, dden), 10),
+        "pair": cuda_ms(torch, lambda: K.taylor_bwd(q, k, v, dout, out, alpha=3.0), 10),
+    }
+    plain = {
+        "taylor_bwd_dq": cuda_ms(torch, lambda: ref_mod.taylor_bwd_dq_ref(
+            *b(q, k, v, dout, out)), 3),
+        "taylor_bwd_dkv": cuda_ms(torch, lambda: ref_mod.taylor_bwd_dkv_ref(
+            *b(q, k, v, dout, den, dden)), 3),
+        "pair": cuda_ms(torch, lambda: ref_mod.taylor_attention_bwd_ref(
+            *b(q, k, v, dout, out)), 3),
+    }
+    cost = taylor_bwd_cost(bk, m["g"], m["n"], m["d"], m["dv"], K.BWD_CHUNK,
+                           q.element_size())
+    products = BWD_TF32_PRODUCTS[dname]
+    name = case_name(m, dname)
+    print(f"{tag} taylor_bwd {name} {m}: rel_err against float64 " +
+          " ".join(f"{k_}={e:.3e}" for k_, e in errs.items()) + f" (tol {BWD_TOL})")
+    row = {}
+    for kname in ("taylor_bwd_dq", "taylor_bwd_dkv", "pair"):
+        flops, tensor, nbytes = cost[kname]
+        f32_ms, _ = bound_ms(flops, nbytes)
+        bms, by = bound_ms(flops, nbytes, tensor, products)
+        print(f"{tag}   {kname} {name}: kernel_ms={ms[kname]:.4f} "
+              f"plain_ms={plain[kname]:.4f} bound_ms={bms:.4f} ({by}; tensor cores; "
+              f"bound/kernel {bms / ms[kname]:.1%}) bound_ms(f32 cores)={f32_ms:.4f} "
+              f"(bound/kernel {f32_ms / ms[kname]:.1%}) gflop={flops / 1e9:.2f} "
+              f"(tensor-core share {sum(tensor.values()) / flops:.3f}) "
+              f"mb={nbytes / 1e6:.1f} achieved_tflops={flops / ms[kname] / 1e9:.2f}")
+        row[kname] = dict(ms=ms[kname], plain_ms=plain[kname], bound_ms=bms,
+                          bound_by=by, bound_f32_cores_ms=f32_ms,
+                          max_abs_err=abs_err.get(kname))
+    if bad:
+        fail(f"taylor_bwd {name} disagrees with its plain version: {bad}")
+    return row
 
 
 def phase_backward(torch, K, ops, ref_mod, ln):
@@ -398,52 +483,8 @@ def phase_backward(torch, K, ops, ref_mod, ln):
     trainable wrapper against autograd of the plain forward, and the padded
     rows and columns of the raw gradients, which must be 0."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = {}
-    dq_fn = lambda q, k, v, dout, out: K.taylor_bwd_dq(q, k, v, dout, out, alpha=3.0)
-    dkv_fn = lambda q, k, v, dout, den, dden: K.taylor_bwd_dkv(q, k, v, dout, den, dden,
-                                                               alpha=3.0)
-    for m, dname in BWD_CASES:
-        bk = m["b"] * m["hk"]
-        q, k, v, dout = bwd_inputs(torch, m, getattr(torch, dname), gen, ln)
-        out = K.taylor_fwd(q, k, v, alpha=3.0)
-        errs, abs_err, bad, (den, dden) = bwd_check(torch, ref_mod, q, k, v, dout, out,
-                                                    dq_fn, dkv_fn)
-        b = lambda *x: [t[None] for t in x]
-        ms = {
-            "taylor_bwd_dq": cuda_ms(torch, lambda: dq_fn(q, k, v, dout, out), 10),
-            "taylor_bwd_dkv": cuda_ms(torch, lambda: dkv_fn(q, k, v, dout, den, dden), 10),
-            "pair": cuda_ms(torch, lambda: K.taylor_bwd(q, k, v, dout, out, alpha=3.0), 10),
-        }
-        plain = {
-            "taylor_bwd_dq": cuda_ms(torch, lambda: ref_mod.taylor_bwd_dq_ref(
-                *b(q, k, v, dout, out)), 3),
-            "taylor_bwd_dkv": cuda_ms(torch, lambda: ref_mod.taylor_bwd_dkv_ref(
-                *b(q, k, v, dout, den, dden)), 3),
-            "pair": cuda_ms(torch, lambda: ref_mod.taylor_attention_bwd_ref(
-                *b(q, k, v, dout, out)), 3),
-        }
-        cost = taylor_bwd_cost(bk, m["g"], m["n"], m["d"], m["dv"], K.BWD_CHUNK,
-                               q.element_size())
-        products = BWD_TF32_PRODUCTS[dname]
-        name = case_name(m, dname)
-        print(f"[3b] taylor_bwd {name} {m}: rel_err " +
-              " ".join(f"{k_}={e:.3e}" for k_, e in errs.items()) + f" (tol {BWD_TOL})")
-        rows[name] = {}
-        for kname in ("taylor_bwd_dq", "taylor_bwd_dkv", "pair"):
-            flops, tensor, nbytes = cost[kname]
-            f32_ms, _ = bound_ms(flops, nbytes)
-            bms, by = bound_ms(flops, nbytes, tensor, products)
-            print(f"[3b]   {kname} {name}: kernel_ms={ms[kname]:.4f} "
-                  f"plain_ms={plain[kname]:.4f} bound_ms={bms:.4f} ({by}; tensor cores; "
-                  f"bound/kernel {bms / ms[kname]:.1%}) bound_ms(f32 cores)={f32_ms:.4f} "
-                  f"(bound/kernel {f32_ms / ms[kname]:.1%}) gflop={flops / 1e9:.2f} "
-                  f"(tensor-core share {sum(tensor.values()) / flops:.3f}) "
-                  f"mb={nbytes / 1e6:.1f} achieved_tflops={flops / ms[kname] / 1e9:.2f}")
-            rows[name][kname] = dict(ms=ms[kname], plain_ms=plain[kname], bound_ms=bms,
-                                     bound_by=by, bound_f32_cores_ms=f32_ms,
-                                     max_abs_err=abs_err.get(kname))
-        if bad:
-            fail(f"taylor_bwd {name} disagrees with its plain version: {bad}")
+    rows = {case_name(m, dname): bwd_case(torch, K, ref_mod, ln, gen, m, dname)
+            for m, dname in BWD_CASES}
     for order, b, h, hk, n, d, dv in GRAD_EDGE:
         q = torch.randn(b, h, n, d, device="cuda", generator=gen, requires_grad=True)
         k = torch.randn(b, hk, n, d, device="cuda", generator=gen, requires_grad=True)
@@ -511,7 +552,7 @@ def kernel_launches_per_step(torch, cfg):
 def train_steps(torch, K, cfg, init_state, step, batch, steps, tag):
     """Runs ``steps`` training steps from ``init_state()`` with the kernels'
     counts set to 0 just before, printing each step; fails unless every step
-    launches ``kernel_launches_per_step`` and has a finite loss.  Only
+    launches ``kernel_launches_per_step`` and has a finite loss and aux loss.  Only
     this frame holds the state, so each step's input state is freed as the
     next is made.  Returns (state, losses, host seconds per step, launches
     over the run, peak bytes)."""
@@ -530,12 +571,13 @@ def train_steps(torch, K, cfg, init_state, step, batch, steps, tag):
         times.append(time.perf_counter() - t0)
         got = tuple(a - b for a, b in zip(taylor_counters(K), c0))
         losses.append(loss)
-        print(f"{tag} step {i + 1}: loss={loss:.4f} {times[-1] * 1e3:.1f} ms "
+        aux = float(metrics["aux_loss"])
+        print(f"{tag} step {i + 1}: loss={loss:.4f} aux={aux:.4f} {times[-1] * 1e3:.1f} ms "
               f"launches fwd,dq,dkv={got}")
         if got != expect:
             fail(f"{tag} training step launched (fwd, dq, dkv) = {got}, expected {expect}")
-        if not math.isfinite(loss):
-            fail(f"{tag} loss is not finite at step {i + 1}")
+        if not (math.isfinite(loss) and math.isfinite(aux)):
+            fail(f"{tag} loss or aux loss is not finite at step {i + 1}")
     launches = dict(zip(("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"), taylor_counters(K)))
     return state, losses, times, launches, torch.cuda.max_memory_allocated()
 
@@ -601,16 +643,17 @@ def phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init
                 peak_gib=peak / 2**30, torch_step_ms=torch_step * 1e3, grad_rel_err=worst)
 
 
-def serve_requests(torch, ServeEngine, Request, params, cfg):
-    """Phase 5/6 traffic: 6 greedy requests on 4 slots.  Returns (prompts,
-    outputs, engine stats, wall seconds, the slotted cache's facts: its
-    runs' state types, bytes per slot and S2 bytes per slot).  The engine,
-    which holds the weights and the cache, is freed on return."""
+def serve_requests(torch, ServeEngine, Request, params, cfg, lens=PROMPT_LENS, max_slots=4):
+    """Phase 5/6 traffic: greedy requests of prompts ``lens`` (6 by default)
+    on ``max_slots`` slots.  Returns (prompts, outputs, engine stats, wall
+    seconds, the slotted cache's facts: its runs' state types, bytes per
+    slot and S2 bytes per slot).  The engine, which holds the weights and
+    the cache, is freed on return."""
     from repro_torch.serve import slots
 
     gen = torch.Generator().manual_seed(1)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen) for n in PROMPT_LENS]
-    eng = ServeEngine(params, cfg, max_slots=4, n_max=N_MAX, decode_block=16)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen) for n in lens]
+    eng = ServeEngine(params, cfg, max_slots=max_slots, n_max=N_MAX, decode_block=16)
     rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW)) for p in prompts]
     t0 = time.perf_counter()
     outs = eng.run()
@@ -1601,7 +1644,317 @@ def phase_spec_state(torch, K, infer, full_f32, softmax_tokens):
     return out
 
 
+@contextlib.contextmanager
+def forced_routing(torch, moe, layers):
+    """Two forwards of an MoE model of ``layers`` MoE layers with the first
+    one's routing: inside this context the first forward records each
+    ``moe._route`` call's experts, and the second takes those experts with
+    gates from its own router (its probabilities at them, renormalised), so
+    the two differ only continuously.  Yields a dict that ends up holding
+    ``flips``, the (token, layer) pairs whose own top-k differed, and
+    ``flip_gap``, the largest gap between the k-th and (k+1)-th router
+    probabilities of the first forward at those pairs (0 without a flip)."""
+    orig, calls = moe._route, []
+    out = dict(flips=0, flip_gap=0.0, replayed=0)
+
+    def route(params, x, m):
+        gates, idx, aux = orig(params, x, m)
+        probs = torch.softmax(x.float() @ params["router"]["w"], dim=-1)
+        if len(calls) < layers:
+            top = probs.sort(dim=-1, descending=True).values
+            calls.append((idx, top[:, m.top_k - 1] - top[:, m.top_k]))
+            return gates, idx, aux
+        want, gap = calls[out["replayed"]]
+        out["replayed"] += 1
+        flip = (idx.sort(dim=-1).values != want.sort(dim=-1).values).any(dim=-1)
+        out["flips"] += int(flip.sum())
+        if flip.any():
+            out["flip_gap"] = max(out["flip_gap"], float(gap[flip].max()))
+        gates = probs.gather(1, want)
+        return gates / gates.sum(dim=-1, keepdim=True), want, aux
+
+    moe._route = route
+    try:
+        yield out
+    finally:
+        moe._route = orig
+
+
+def zoo_forward(torch, K, infer, params, cfg, tokens, tag, moe=None):
+    """An inference forward through the kernels (bf16): its launches
+    against ``kernel_layers``, the logits against attn_impl="torch" with
+    phase 4's tolerances (bf16 5e-2, f32 1e-3), and both forwards' times.
+    With ``moe`` (the MoE module), the bf16 torch forward takes the kernel
+    forward's routing (``forced_routing``): a top-k flip between two bf16
+    runs is a discontinuity, not an error of the attention; the flips are
+    counted and the unforced error printed beside the checked one."""
+    expect = kernel_layers(torch, cfg)
+    tcfg = cfg.replace(attn_impl="torch")
+    layers = cfg.n_groups * cfg.pattern.count("moe") + cfg.tail.count("moe")
+    with forced_routing(torch, moe, layers) if moe else contextlib.nullcontext() as flips:
+        K.taylor_fwd.launches = 0
+        logits, _ = infer(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        launches = K.taylor_fwd.launches
+        if launches != expect:
+            fail(f"{tag} lm_apply launched taylor_fwd {launches} times, expected {expect}")
+        if logits.shape != tokens.shape + (cfg.vocab,) or not torch.isfinite(logits).all():
+            fail(f"{tag} lm_apply logits have the wrong shape or are not finite")
+        err = rel_err(torch, logits, infer(params, {"tokens": tokens}, tcfg)[0])
+    forced = ""
+    if moe:
+        free = rel_err(torch, logits, infer(params, {"tokens": tokens}, tcfg)[0])
+        forced = (f" with the kernel forward's routing ({flips['flips']} (token, layer) "
+                  f"top-k flips, largest top-k probability gap among them "
+                  f"{flips['flip_gap']:.3e}; each router choosing for itself {free:.3e})")
+    del logits
+    cfg32 = cfg.replace(dtype="float32")
+    err32 = rel_err(torch, infer(params, {"tokens": tokens}, cfg32)[0],
+                    infer(params, {"tokens": tokens}, cfg32.replace(attn_impl="torch"))[0])
+    ms = cuda_ms(torch, lambda: infer(params, {"tokens": tokens}, cfg), 2)
+    torch_ms = cuda_ms(torch, lambda: infer(params, {"tokens": tokens}, tcfg), 2)
+    print(f"{tag} lm_apply {cfg.name} b,n={tuple(tokens.shape)} {cfg.dtype}: taylor_fwd "
+          f"launches={launches}; logits vs attn_impl='torch' rel_err={err:.3e} (tol 5e-2)"
+          f"{forced}, float32 {err32:.3e} (tol 1e-3); forward_ms={ms:.2f} "
+          f"forward_ms(torch attention)={torch_ms:.2f}")
+    if not (err < 5e-2 and err32 < 1e-3):
+        fail(f"{tag} kernel forward disagrees with the torch forward: {err}, {err32}")
+    return dict(launches=launches, rel_err=err, rel_err_f32=err32, forward_ms=ms,
+                torch_forward_ms=torch_ms, **({"top_k_flips": flips["flips"]} if moe else {}))
+
+
+def zoo_train(torch, K, cfg, steps, tag):
+    """``steps`` training steps at phase 7's batch and schedule, from a state
+    drawn on the card's generator (seed 0).  Returns the summary."""
+    from repro_torch.data import make_task
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train import make_train_step, train_state_init
+
+    opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], steps))
+    batch = bigram_batch(torch, make_task, cfg)
+    # the functional AdamW holds ~9 copies of the params at its peak (params,
+    # grads, clipped grads, m, v and their successors, the updates), 55-66 GiB
+    # here: free what earlier parts left (engines are freed by the cyclic GC)
+    gc.collect()
+    torch.cuda.empty_cache()
+    init = lambda: train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt)
+    state, losses, times, launches, peak = train_steps(
+        torch, K, cfg, init, make_train_step(cfg, opt), batch, steps, tag)
+    del state
+    steady = sum(times[1:]) / (len(times) - 1)
+    tokens = TRAIN["b"] * TRAIN["n"]
+    out = dict(losses=losses, first_step_ms=times[0] * 1e3, step_ms=steady * 1e3,
+               tokens_per_s=tokens / steady, peak_gib=peak / 2**30, launches=launches)
+    print(f"{tag} {cfg.name} training {cfg.dtype} remat={cfg.remat} b={TRAIN['b']} "
+          f"n={TRAIN['n']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; first step "
+          f"{out['first_step_ms']:.1f} ms, then {out['step_ms']:.1f} ms/step = "
+          f"{out['tokens_per_s']:.0f} tokens/s; peak memory {out['peak_gib']:.2f} GiB; "
+          f"launches {launches}")
+    return out
+
+
+def zoo_serve(torch, K, infer, params, cfg, lens, max_slots, tag):
+    """f32 serving of prompts ``lens`` on ``max_slots`` slots, every token
+    against the ``lm_apply`` argmax (phase 6's near-tie rule) and against
+    the model's own prefill + decode path.  Returns the summary."""
+    from repro_torch.models import lm_decode_step, lm_prefill
+    from repro_torch.serve import Request, ServeEngine, slots
+
+    cfg32 = cfg.replace(dtype="float32")
+    prompts, outs, st, wall, cache = serve_requests(torch, ServeEngine, Request, params, cfg32,
+                                                    lens, max_slots)
+    mismatches, ties = cross_check(torch, infer, params, cfg32, prompts, outs)
+    own, own_ties = cross_check_decode(torch, lm_prefill, lm_decode_step, slots, params,
+                                       cfg32, prompts, outs)
+    tps = st["decode_tokens"] / st["decode_seconds"]
+    print(f"{tag} {cfg.name} f32 serving of {len(outs)} requests x {MAX_NEW} tokens (prompts "
+          f"{list(lens)}) on {max_slots} slots in {wall:.2f} s: prefill "
+          f"{st['prefill_seconds']:.3f} s, decode {tps:.1f} tokens/s; slot_state_bytes "
+          f"{cache['slot_bytes']} ({cache['runs']}); tokens vs lm_apply argmax: "
+          f"mismatches={mismatches} near_ties={ties}; vs its own prefill + decode: "
+          f"mismatches={own} near_ties={own_ties}")
+    if mismatches or own:
+        fail(f"{tag} {cfg.name}: engine tokens differ from the model's argmax")
+    return dict(decode_tokens_per_s=tps, prefill_s=st["prefill_seconds"], wall_s=wall,
+                slot_bytes=cache["slot_bytes"], near_ties=ties)
+
+
+def zoo_params(torch, cfg):
+    """Random weights of ``cfg`` from seed 0, drawn on the card's generator
+    (a CPU draw of billions of parameters takes minutes)."""
+    from repro_torch.models import lm_init
+
+    return lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+
+def phase_zoo(torch, K, ref_mod, ln, infer):
+    """Phase 12: the model zoo's dense and MoE decoders at their published
+    widths.  (a) qwen2-1.5b, the full model: forward, 6 training steps and
+    4-slot f32 serving through the kernels at head dim 128; (b) the three
+    kernels at the training launches of (a), (c), (e) and (f) against their
+    plain versions; (c) granite-20b (MQA, GELU MLP) at ZOO_DEPTH's depth:
+    forward, 2 training steps, 4 requests; (d) gemma-7b (head dim 256,
+    outside the kernels' envelope: the torch paths, 0 launches) serving 2
+    requests; (e) qwen2-moe-a2.7b: dense vs capacity dispatch with ample
+    capacity, the forward, 4 requests, 2 training steps on the capacity path
+    at the published capacity; (f) ``zoo_scripts``."""
+    from repro_torch import serve_longcontext, train_resume
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    out = {}
+    tokens_of = lambda cfg: torch.randint(0, cfg.vocab, (TRAIN["b"], TRAIN["n"]),
+                                          generator=torch.Generator().manual_seed(0)).cuda()
+
+    # (a) qwen2-1.5b at full width
+    cfg = get_config("qwen2-1.5b")
+    params = zoo_params(torch, cfg)
+    q = dict(forward=zoo_forward(torch, K, infer, params, cfg, tokens_of(cfg), "[12a]"))
+    q["serve"] = zoo_serve(torch, K, infer, params, cfg, PROMPT_LENS, 4, "[12a]")
+    del params
+    q["train"] = zoo_train(torch, K, cfg, ZOO_TRAIN_STEPS["qwen2-1.5b"], "[12a]")
+    if not q["train"]["losses"][-1] < q["train"]["losses"][0]:
+        fail(f"[12a] qwen2-1.5b loss did not fall: {q['train']['losses']}")
+    out["qwen2-1.5b"] = q
+
+    # (b) the three kernels at the zoo's training launches (ZOO_ATTN)
+    kgen = torch.Generator(device="cuda").manual_seed(12)
+    out["cases"] = {}
+    for m, dname in ZOO_CASES:
+        row = bwd_case(torch, K, ref_mod, ln, kgen, m, dname, tag="[12b]")
+        row["taylor_fwd"] = fwd_case(torch, K, ref_mod, ln, kgen, m, dname, tag="[12b]")
+        out["cases"][case_name(m, dname)] = dict(row, shape=dict(m, dtype=dname))
+
+    # (c) granite-20b, depth cut
+    cfg = get_config("granite-20b", n_groups=ZOO_DEPTH["granite-20b"])
+    params = zoo_params(torch, cfg)
+    g = dict(forward=zoo_forward(torch, K, infer, params, cfg, tokens_of(cfg), "[12c]"))
+    g["serve"] = zoo_serve(torch, K, infer, params, cfg, PROMPT_LENS[:4], 4, "[12c]")
+    del params
+    g["train"] = zoo_train(torch, K, cfg, ZOO_TRAIN_STEPS["granite-20b"], "[12c]")
+    out["granite-20b"] = g
+
+    # (d) gemma-7b, depth cut: head dim 256 runs the torch paths
+    cfg = get_config("gemma-7b", n_groups=ZOO_DEPTH["gemma-7b"])
+    if kernel_layers(torch, cfg):
+        fail("[12d] gemma-7b's head dim 256 would reach the kernels")
+    params = zoo_params(torch, cfg)
+    K.taylor_fwd.launches = 0
+    out["gemma-7b"] = zoo_serve(torch, K, infer, params, cfg, GEMMA_LENS, 2, "[12d]")
+    print(f"[12d] taylor_fwd launches over gemma-7b's serving and checks: "
+          f"{K.taylor_fwd.launches}")
+    if K.taylor_fwd.launches:
+        fail(f"[12d] gemma-7b launched taylor_fwd {K.taylor_fwd.launches} times")
+    del params
+
+    # (e) qwen2-moe-a2.7b, depth cut
+    cfg = get_config("qwen2-moe-a2.7b", n_groups=ZOO_DEPTH["qwen2-moe-a2.7b"])
+    params = zoo_params(torch, cfg)
+    m = cfg.moe
+    ample = dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k)
+    x = torch.randn(1, MOE_TOKENS, cfg.d_model, device="cuda", generator=kgen)
+    p0 = params["blocks"][0]["moe"]
+    with torch.no_grad():
+        run = {impl: (lambda c=cfg.replace(moe=dataclasses.replace(ample, impl=impl)):
+                      moe.moe_apply(p0, x, c)) for impl in ("dense", "ep")}
+        (yd, ad), (ye, ae) = run["dense"](), run["ep"]()
+        moe_ms = {impl: cuda_ms(torch, fn, 3) for impl, fn in run.items()}
+    err, aux_rel = float((yd - ye).abs().max()), float((ad - ae).abs() / ad.abs())
+    print(f"[12e] qwen2-moe-a2.7b layer 0 MoE, {MOE_TOKENS} f32 tokens, capacity_factor "
+          f"{ample.capacity_factor} (nothing dropped): dense vs ep max_abs_err={err:.3e} "
+          f"(atol {MOE_TOL}), aux rel_err={aux_rel:.3e} (rtol 1e-5); ms dense "
+          f"{moe_ms['dense']:.2f}, ep {moe_ms['ep']:.2f}")
+    if not (err < MOE_TOL and aux_rel < 1e-5):
+        fail(f"[12e] dense and capacity dispatch disagree: {err}, aux {aux_rel}")
+    e = dict(dense_vs_ep_err=err, moe_ms=moe_ms)
+    e["forward"] = zoo_forward(torch, K, infer, params, cfg, tokens_of(cfg), "[12e]", moe)
+    e["serve"] = zoo_serve(torch, K, infer, params, cfg, PROMPT_LENS[:4], 4, "[12e]")
+    del params, p0, run
+    ep_cfg = cfg.replace(moe=dataclasses.replace(m, impl="ep"))
+    e["train"] = zoo_train(torch, K, ep_cfg, ZOO_TRAIN_STEPS["qwen2-moe-a2.7b"], "[12e]")
+    out["qwen2-moe-a2.7b"] = e
+
+    # (f) the ported scripts, on the card
+    out["scripts"] = zoo_scripts(torch, K, train_resume, serve_longcontext)
+    return out
+
+
+def zoo_scripts(torch, K, train_resume, serve_longcontext):
+    """Phase 12 (f): ``repro_torch.train_resume`` (its launches counted
+    against its steps) and ``repro_torch.serve_longcontext`` (serving: no
+    launch) on the card; then the reduced qwen2-1.5b's f32 gradients at
+    train_resume's batch through the kernels against the torch recompute,
+    as phase 7 holds the full model's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_task
+    from repro_torch.models import lm_init
+    from repro_torch.train import loss_and_grads, make_loss_fn
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_reduced("qwen2-1.5b")
+    # the uninterrupted run, then the run stopped part way and its resumption
+    steps = 2 * train_resume.STEPS
+    expect = tuple(steps * x for x in kernel_launches_per_step(torch, cfg))
+    t0 = time.perf_counter()
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    divergence = train_resume.main([])
+    torch.cuda.synchronize()
+    launches = taylor_counters(K)
+    growth, (loop_tps, engine_tps, slot_bytes) = serve_longcontext.main([])
+    torch.cuda.synchronize()
+    serve_launches = tuple(a - b for a, b in zip(taylor_counters(K), launches))
+    wall = time.perf_counter() - t0
+    print(f"[12f] train_resume: max param divergence {divergence:.2e} (< 1e-5), launches "
+          f"fwd,dq,dkv={launches} over {steps} steps (expected {expect}); serve_longcontext: "
+          f"engine {engine_tps:.0f} vs per-token loop {loop_tps:.0f} tokens/s, launches "
+          f"{serve_launches}; both in {wall:.1f} s")
+    if launches != expect:
+        fail(f"[12f] train_resume launched (fwd, dq, dkv) = {launches}, expected {expect}")
+    if any(serve_launches):
+        fail(f"[12f] serve_longcontext launched (fwd, dq, dkv) = {serve_launches}")
+
+    task = make_task("bigram", cfg.vocab, train_resume.SEQ_LEN, train_resume.BATCH, seed=0)
+    batch = {k_: torch.from_numpy(x).cuda() for k_, x in task.batch_at(0).items()}
+    params = lm_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    c0 = taylor_counters(K)
+    grads = {impl: loss_and_grads(make_loss_fn(cfg.replace(attn_impl=impl)), params,
+                                  batch)[2] for impl in ("cuda", "torch")}
+    if taylor_counters(K)[2] == c0[2]:
+        fail("[12f] the reduced gradient check did not run the backward kernels")
+    errs = [rel_err(torch, a, b) for a, b in zip(tree_leaves(grads["cuda"]),
+                                                 tree_leaves(grads["torch"]))]
+    worst = max(errs)
+    print(f"[12f] reduced qwen2-1.5b float32 gradients at b,n=({train_resume.BATCH}, "
+          f"{train_resume.SEQ_LEN}), kernels vs torch recompute, over {len(errs)} leaves: "
+          f"max rel_err {worst:.3e} (tol 1e-3)")
+    if not worst < 1e-3:
+        fail(f"[12f] reduced kernel gradients disagree with the torch recompute: {worst}")
+    return dict(resume_divergence=divergence, steps=steps,
+                launches=dict(zip(("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"), launches)),
+                grad_rel_err=worst, loop_tokens_per_s=loop_tps,
+                engine_tokens_per_s=engine_tps, slot_bytes=slot_bytes, growth=growth)
+
+
+def zoo_launches(zoo, name):
+    """Phase 12's launches of kernel ``name`` by path, for the kernels line."""
+    out = {f"{arch}_train_{ZOO_TRAIN_STEPS[arch]}_steps": zoo[arch]["train"]["launches"][name]
+           for arch in ZOO_TRAIN_STEPS}
+    if name == "taylor_fwd":
+        out.update({f"{arch}_lm_apply": zoo[arch]["forward"]["launches"]
+                    for arch in ("qwen2-1.5b", "granite-20b", "qwen2-moe-a2.7b")})
+    out[f"train_resume_{zoo['scripts']['steps']}_steps"] = zoo["scripts"]["launches"][name]
+    return out
+
+
+def zoo_rows(zoo, name):
+    """Phase 12 (b)'s rows of kernel ``name``, one per ZOO_CASES case: {case: row}."""
+    return {case: dict(row[name], shape=row["shape"]) for case, row in zoo["cases"].items()}
+
+
 def main() -> int:
+    # phase 12 trains billion-parameter models next to what serving left
+    # allocated: growable segments keep the allocator from fragmenting
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1783,7 +2136,26 @@ def main() -> int:
           f"{spec['fp8']['slot_bytes']}; paged softmax peak {spec['paged']['peak_pages']} of "
           f"{spec['paged']['total_pages']} pages")
 
-    # ---- 12. kernels line ----
+    # ---- 12. the model zoo's dense and MoE decoders ----
+    t0 = time.perf_counter()
+    zoo = phase_zoo(torch, K, ref_mod, ln, infer)
+    q, g, e = zoo["qwen2-1.5b"], zoo["granite-20b"], zoo["qwen2-moe-a2.7b"]
+    print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
+    print("[12] summary (full widths; forward and training b=4 n=1024 bf16 remat full, "
+          "serving f32): qwen2-1.5b forward "
+          f"{q['forward']['forward_ms']:.2f} ms, train {q['train']['step_ms']:.1f} ms/step "
+          f"({q['train']['tokens_per_s']:.0f} tokens/s, peak {q['train']['peak_gib']:.2f} GiB), "
+          f"decode {q['serve']['decode_tokens_per_s']:.1f} tokens/s at "
+          f"{q['serve']['slot_bytes']} bytes per slot; granite-20b x{ZOO_DEPTH['granite-20b']} "
+          f"groups train {g['train']['step_ms']:.1f} ms/step, decode "
+          f"{g['serve']['decode_tokens_per_s']:.1f} tokens/s at {g['serve']['slot_bytes']} "
+          f"bytes per slot; gemma-7b x{ZOO_DEPTH['gemma-7b']} decode "
+          f"{zoo['gemma-7b']['decode_tokens_per_s']:.1f} tokens/s at "
+          f"{zoo['gemma-7b']['slot_bytes']} bytes per slot; qwen2-moe-a2.7b "
+          f"x{ZOO_DEPTH['qwen2-moe-a2.7b']} train (ep) {e['train']['step_ms']:.1f} ms/step, "
+          f"decode {e['serve']['decode_tokens_per_s']:.1f} tokens/s")
+
+    # ---- 13. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -1799,7 +2171,8 @@ def main() -> int:
             f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"]["taylor_fwd"],
             "hybrid_lm_apply": hybrid["lm_apply_launches"]["taylor_fwd"],
             f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"]["taylor_fwd"],
-            "phase11_serving": spec["launches"]},
+            "phase11_serving": spec["launches"],
+            **zoo_launches(zoo, "taylor_fwd")},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -1810,6 +2183,7 @@ def main() -> int:
         "ms_train_shape": krows[case_name(TRAIN_ATTN, "bfloat16")]["ms"],
         "plain_ms_train_shape": krows[case_name(TRAIN_ATTN, "bfloat16")]["plain_ms"],
         "shape": shape,
+        "zoo_cases": zoo_rows(zoo, "taylor_fwd"),
     }]
     for name, line in (("taylor_bwd_dq", 55), ("taylor_bwd_dkv", 158)):
         b = brows["bfloat16"][name]
@@ -1823,7 +2197,8 @@ def main() -> int:
                 "train_8_steps": train["launches"][name],
                 f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"][name],
                 "hybrid_lm_apply": hybrid["lm_apply_launches"][name],
-                f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"][name]},
+                f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"][name],
+                **zoo_launches(zoo, name)},
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -1834,10 +2209,11 @@ def main() -> int:
             "ms_train_shape": brows[case_name(TRAIN_ATTN, "bfloat16")][name]["ms"],
             "plain_ms_train_shape": brows[case_name(TRAIN_ATTN, "bfloat16")][name]["plain_ms"],
             "shape": shape,
+            "zoo_cases": zoo_rows(zoo, name),
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 13. device line ----
+    # ---- 14. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

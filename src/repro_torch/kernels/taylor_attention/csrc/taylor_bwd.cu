@@ -335,23 +335,18 @@ __device__ __forceinline__ void tile_product(const float* ap, int row8, int k4, 
 
 // One 16-row tile of a moment update against all D/8 n-tiles f, on the tensor cores:
 // M[row][f] += Σ_j A[row][j]·X[j][f] over the chunk's rows j (X at row stride XS).
-// aval(j) gives (A[g][j], A[g+8][j]) for this lane; the accumulators are read from the
-// slab at cp (c0), c1 further (column + 1), c2 (row + 8) and 8·cn per n-tile, and
-// written back.
+// aval(j) gives (A[g][j], A[g+8][j]) for this lane; the slab entries are at cp (c0), c1
+// further (column + 1), c2 (row + 8) and 8·cn per n-tile.  The chunk's sum is taken from
+// zero and added to the slab once: accumulating onto the slab would round each of the
+// 3·C/8 split products at the slab's magnitude, and pass 2's carry absorbs G·N/C such
+// sums: at G = 48, n = 1024 that put f32 dk past chip_smoke.py's BWD_TOL against a
+// float64 reference, further off than the f32 plain version.
 template <bool SPLIT_A, bool SPLIT_X, int D, int XS, typename AVal>
 __device__ __forceinline__ void update_tile(float* cp, int c1, int c2, int cn,
                                             const float* xs, AVal aval) {
   constexpr int NT = D / 8;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  float c[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    float* p = cp + nt * 8 * cn;
-    c[nt][0] = p[0];
-    c[nt][1] = p[c1];
-    c[nt][2] = p[c2];
-    c[nt][3] = p[c2 + c1];
-  }
+  float c[NT][4] = {};
 #pragma unroll 4
   for (int j0 = 0; j0 < kChunk; j0 += 8) {
     const float2 u = aval(j0 + t), w = aval(j0 + t + 4);
@@ -372,10 +367,10 @@ __device__ __forceinline__ void update_tile(float* cp, int c1, int c2, int cn,
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     float* p = cp + nt * 8 * cn;
-    p[0] = c[nt][0];
-    p[c1] = c[nt][1];
-    p[c2] = c[nt][2];
-    p[c2 + c1] = c[nt][3];
+    p[0] += c[nt][0];
+    p[c1] += c[nt][1];
+    p[c2] += c[nt][2];
+    p[c2 + c1] += c[nt][3];
   }
 }
 

@@ -22,11 +22,16 @@ Tensor = torch.Tensor
 DEN_EPS = 1e-6
 
 
+def _up(x: Tensor) -> Tensor:
+    """x in float32, or float64 if it is float64 (a float64 oracle run)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _scores(q: Tensor, k: Tensor, alpha: float, order: int):
     """(s, p, causal mask): scaled logits, masked Taylor weights."""
     n, d = q.shape[-2], q.shape[-1]
     a = 1.0 / (alpha * d**0.5)
-    s = torch.einsum("bkgid,bkjd->bkgij", q.float(), k.float()) * a
+    s = torch.einsum("bkgid,bkjd->bkgij", _up(q), _up(k)) * a
     p = 1.0 + s
     if order >= 2:
         p = p + 0.5 * s.square()
@@ -58,7 +63,7 @@ def taylor_attention_ref(
       Causally-masked normalised attention output ``[B, HK, G, N, DV]``.
     """
     _, p, _ = _scores(q, k, alpha, order)
-    num = torch.einsum("bkgij,bkjv->bkgiv", p, v.float())
+    num = torch.einsum("bkgij,bkjv->bkgiv", p, _up(v))
     den = _clamp(p.sum(dim=-1))
     return (num / den[..., None]).to(v.dtype)
 
@@ -77,17 +82,17 @@ def taylor_bwd_dq_ref(
     a = 1.0 / (alpha * d**0.5)
     s, p, mask = _scores(q, k, alpha, order)
     den = _clamp(p.sum(dim=-1))
-    do = dout.float()
+    do = _up(dout)
     dnum = do / den[..., None]
-    dden = -(do * out.float()).sum(dim=-1) / den
+    dden = -(do * _up(out)).sum(dim=-1) / den
     ds = _dscores(dnum, dden, v, s, mask, a, order)
-    dq = torch.einsum("bkgij,bkjd->bkgid", ds, k.float())
+    dq = torch.einsum("bkgij,bkjd->bkgid", ds, _up(k))
     return dq, den, dden
 
 
 def _dscores(dnum, dden, v, s, mask, a, order):
     """ds = causal(dp · d/ds[1 + s + s²/2]) · a with dp = dnum·Vᵀ + dden."""
-    dp = torch.einsum("bkgiv,bkjv->bkgij", dnum, v.float()) + dden[..., None]
+    dp = torch.einsum("bkgiv,bkjv->bkgij", dnum, _up(v)) + dden[..., None]
     if order >= 2:
         dp = dp * (1.0 + s)
     return torch.where(mask, dp, 0.0) * a
@@ -102,9 +107,9 @@ def taylor_bwd_dkv_ref(
     d = q.shape[-1]
     a = 1.0 / (alpha * d**0.5)
     s, p, mask = _scores(q, k, alpha, order)
-    dnum = dout.float() / den[..., None]
+    dnum = _up(dout) / den[..., None]
     ds = _dscores(dnum, dden, v, s, mask, a, order)
-    dk = torch.einsum("bkgij,bkgid->bkjd", ds, q.float())
+    dk = torch.einsum("bkgij,bkgid->bkjd", ds, _up(q))
     dv = torch.einsum("bkgij,bkgiv->bkjv", p, dnum)
     return dk, dv
 

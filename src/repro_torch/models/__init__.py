@@ -1,6 +1,12 @@
-"""Model layer of the port: config, layers, attention, blocks, decoder LM."""
+"""Model layer of the port: config, layers, attention, MoE, blocks, decoder LM."""
 
-from repro_torch.models.config import ModelConfig, count_params, schedule_runs
+from repro_torch.models.config import (
+    ModelConfig,
+    MoEConfig,
+    count_active_params,
+    count_params,
+    schedule_runs,
+)
 from repro_torch.models.lm import (
     lm_apply,
     lm_decode_step,
@@ -14,6 +20,8 @@ from repro_torch.models.lm import (
 
 __all__ = [
     "ModelConfig",
+    "MoEConfig",
+    "count_active_params",
     "count_params",
     "lm_apply",
     "lm_decode_step",

@@ -2,7 +2,9 @@
 
 ``cfg.attention`` resolves to an ``AttentionBackend``
 (``repro_torch.backends``): this module owns the projections
-(wq ``[d, h, hd]``, wk/wv ``[d, hk, hd]``, wo ``[h, hd, d]``) and RoPE, and
+(wq ``[d, h, hd]``, wk/wv ``[d, hk, hd]``, wo ``[h, hd, d]``; with
+``qkv_bias`` a ``b`` of ``[h, hd]`` / ``[hk, hd]`` each, added before RoPE)
+and RoPE, and
 hands projected heads to the backend's ``apply`` / ``prefill`` /
 ``prefill_chunk`` / ``decode_step``.  Activations are ``[b, n, d]``;
 heads ``[b, h, n, hd]``.
@@ -22,19 +24,24 @@ Tensor = torch.Tensor
 
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not yet ported to torch")
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     return {
-        "wq": dense_init(gen, (d, h, hd), dtype=dtype),
-        "wk": dense_init(gen, (d, hk, hd), dtype=dtype),
-        "wv": dense_init(gen, (d, hk, hd), dtype=dtype),
+        "wq": dense_init(gen, (d, h, hd), bias=cfg.qkv_bias, dtype=dtype),
+        "wk": dense_init(gen, (d, hk, hd), bias=cfg.qkv_bias, dtype=dtype),
+        "wv": dense_init(gen, (d, hk, hd), bias=cfg.qkv_bias, dtype=dtype),
         "wo": dense_init(gen, (h, hd, d), in_axes=2, dtype=dtype),
     }
 
 
+def _head_bias(p, dtype) -> Tensor:
+    """A projection's ``b`` [heads, hd] (``qkv_bias``) as [heads, 1, hd]."""
+    return p["b"].to(dtype)[:, None, :]
+
+
 def _project_q(params, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor]):
     q = torch.einsum("bnd,dhk->bhnk", x, params["wq"]["w"].to(x.dtype))
+    if "b" in params["wq"]:  # the bias comes before RoPE, as in the JAX package
+        q = q + _head_bias(params["wq"], x.dtype)
     if cfg.pos == "rope" and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
     return q
@@ -43,6 +50,9 @@ def _project_q(params, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor])
 def _project_kv(params, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor]):
     k = torch.einsum("bnd,dhk->bhnk", x, params["wk"]["w"].to(x.dtype))
     v = torch.einsum("bnd,dhk->bhnk", x, params["wv"]["w"].to(x.dtype))
+    if "b" in params["wk"]:
+        k = k + _head_bias(params["wk"], x.dtype)
+        v = v + _head_bias(params["wv"], x.dtype)
     if cfg.pos == "rope" and positions is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
@@ -133,6 +143,10 @@ def attention_decode(params, x_t: Tensor, cache, cfg: ModelConfig, pos) -> Tuple
     q = torch.einsum("bd,dhk->bhk", x_t, params["wq"]["w"].to(dtype))
     k = torch.einsum("bd,dhk->bhk", x_t, params["wk"]["w"].to(dtype))
     v = torch.einsum("bd,dhk->bhk", x_t, params["wv"]["w"].to(dtype))
+    if "b" in params["wq"]:
+        q = q + params["wq"]["b"].to(dtype)
+        k = k + params["wk"]["b"].to(dtype)
+        v = v + params["wv"]["b"].to(dtype)
     if cfg.pos == "rope":
         p = pos_b[:, None, None]  # broadcast against [b, h, 1, hd]
         q = apply_rope(q[:, :, None, :], p, cfg.rope_theta)[:, :, 0, :]

@@ -1,7 +1,10 @@
 """Block-kind dispatcher: init / full-sequence apply / prefill / chunked
 prefill / decode.
 
-Only the ``"attn"`` kind (pre-norm self-attention + MLP) is ported.
+Ported kinds: ``"attn"`` (pre-norm self-attention + MLP) and ``"moe"``
+(pre-norm self-attention + mixture-of-experts FFN).  Only ``block_apply``
+returns the MoE load-balance loss; the serving paths drop it, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 
@@ -18,18 +22,29 @@ Tensor = torch.Tensor
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
+    if kind not in ("attn", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not yet ported to torch")
 
 
 def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype=torch.float32):
     _check_kind(kind)
-    return {
+    params = {
         "norm1": norm_init(cfg.d_model, dtype, device=gen.device),
         "attn": attn.attention_init(gen, cfg, dtype),
         "norm2": norm_init(cfg.d_model, dtype, device=gen.device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype),
     }
+    if kind == "moe":
+        params["moe"] = moe_mod.moe_init(gen, cfg, dtype)
+    else:
+        params["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)
+    return params
+
+
+def _ffn(params, kind: str, h: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Optional[Tensor]]:
+    """The block's FFN on ``h`` [b, n, d]: (y, the MoE aux loss or None)."""
+    if kind == "moe":
+        return moe_mod.moe_apply(params["moe"], h, cfg)
+    return mlp_apply(params["mlp"], h, cfg.act), None
 
 
 def block_apply(
@@ -41,8 +56,10 @@ def block_apply(
     h = norm_apply(params["norm1"], x, cfg.norm, eps)
     x = x + attn.attention_apply(params["attn"], h, cfg, positions)
     h = norm_apply(params["norm2"], x, cfg.norm, eps)
-    x = x + mlp_apply(params["mlp"], h, cfg.act)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(params, kind, h, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def block_prefill(
@@ -56,7 +73,7 @@ def block_prefill(
     y, cache = attn.attention_prefill(params["attn"], h, cfg, n_max, positions)
     x = x + y
     h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
-    return x + mlp_apply(params["mlp"], h2, cfg.act), cache
+    return x + _ffn(params, kind, h2, cfg)[0], cache
 
 
 def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
@@ -67,7 +84,8 @@ def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
     y, cache = attn.attention_decode(params["attn"], h, cache, cfg, pos)
     x_t = x_t + y
     h2 = norm_apply(params["norm2"], x_t, cfg.norm, eps)
-    return x_t + mlp_apply(params["mlp"], h2, cfg.act), cache
+    # the FFN sees the token as a length-1 sequence [b, 1, d]
+    return x_t + _ffn(params, kind, h2[:, None, :], cfg)[0][:, 0, :], cache
 
 
 def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
@@ -92,4 +110,4 @@ def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
     y, cache = attn.attention_prefill_chunk(params["attn"], h, cache, cfg, positions)
     x = x + y
     h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
-    return x + mlp_apply(params["mlp"], h2, cfg.act), cache
+    return x + _ffn(params, kind, h2, cfg)[0], cache

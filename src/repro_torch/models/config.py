@@ -3,22 +3,37 @@
 
 A model is a repeating ``pattern`` of blocks applied ``n_groups`` times plus
 an optional ``tail``.  The port runs decoder-only models of ``"attn"``
+(attention + MLP) and ``"moe"`` (attention + mixture-of-experts FFN)
 blocks on the ``taylor``, ``softmax``, ``softmax_window`` and ``linear_elu``
 backends, uniform or per pattern position (``attention_schedule``: hybrid
 models such as the Based-style taylor + ``softmax_window`` interleave).
-MoE, SSM, encoder-decoder and VLM fields are not yet ported.
+SSM, encoder-decoder and VLM fields are not yet ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 from repro_torch.core.feature_map import TaylorConfig
 
-BLOCK_KINDS = ("attn",)
+BLOCK_KINDS = ("attn", "moe")
+ACTS = ("silu", "gelu", "geglu")
 ATTN_IMPLS = ("auto", "torch", "cuda")
 REMATS = ("none", "full", "dots_saveable")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    d_ff_shared: int = 0           # total shared-expert hidden size
+    capacity_factor: float = 1.25  # for the capacity ("ep") dispatch path
+    router_noise: float = 0.0      # carried, read by no path (as in the JAX package)
+    impl: str = "auto"             # "dense" | "ep" | "ep_a2a" | "auto"
+    a2a_quant: str = "none"        # "none" | "int8": read by "ep_a2a" only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +51,7 @@ class ModelConfig:
     tail: Tuple[str, ...] = ()
 
     head_dim: int = 0              # 0 → d_model // n_heads
-    act: str = "silu"              # "silu"
+    act: str = "silu"              # "silu" | "geglu" | "gelu" (tanh GELU)
     norm: str = "rmsnorm"          # "rmsnorm"
     norm_eps: float = 1e-6
     qkv_bias: bool = False
@@ -70,6 +85,8 @@ class ModelConfig:
     # O(window) ring-buffer KV cache.
     attn_window: int = 128
 
+    moe: Optional[MoEConfig] = None
+
     # --- numerics / training ---
     dtype: str = "bfloat16"        # activation dtype
     param_dtype: str = "float32"
@@ -86,6 +103,10 @@ class ModelConfig:
                 raise ValueError(
                     f"block kind {kind!r} is not yet ported (have {BLOCK_KINDS})"
                 )
+        if "moe" in self.pattern + self.tail and self.moe is None:
+            raise ValueError("a 'moe' block needs ModelConfig.moe")
+        if self.act not in ACTS:
+            raise ValueError(f"act must be one of {ACTS}, got {self.act!r}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl must be auto|torch|cuda, got {self.attn_impl!r}"
@@ -206,14 +227,49 @@ def schedule_runs(cfg: ModelConfig) -> Tuple[Tuple[str, str, int], ...]:
     return tuple(out)
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count of ``lm_init(cfg)``, from the shapes alone."""
+def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
+    """Params of one MLP of hidden ``d_ff``: gated (silu, geglu) 3 matrices,
+    gelu 2 matrices with their biases."""
+    d = cfg.d_model
+    if cfg.act == "gelu":
+        return 2 * d * d_ff + d_ff + d
+    return 3 * d * d_ff
+
+
+def _block_params(cfg: ModelConfig, kind: str) -> int:
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    block = (
-        2 * d                              # norm1, norm2
-        + d * h * hd + 2 * d * hk * hd     # wq, wk, wv
-        + h * hd * d                       # wo
-        + 3 * d * cfg.d_ff                 # SiLU-gated MLP
-    )
-    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    return embed + d + cfg.n_layers * block
+    n = 2 * d                                        # norm1, norm2
+    n += d * h * hd + 2 * d * hk * hd + h * hd * d   # wq, wk, wv, wo
+    if cfg.qkv_bias:
+        n += h * hd + 2 * hk * hd
+    if kind == "attn":
+        return n + _mlp_params(cfg, cfg.d_ff)
+    m = cfg.moe                                      # "moe"
+    n += d * m.n_experts + m.n_experts * _mlp_params(cfg, m.d_ff_expert)
+    if m.n_shared_experts:
+        n += _mlp_params(cfg, m.d_ff_shared)
+    return n
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count of ``lm_init(cfg)``, from the shapes alone (the
+    JAX package's ``count_params``, which traces its ``lm_init``)."""
+    per_group = sum(_block_params(cfg, kind) for kind in cfg.pattern)
+    tail = sum(_block_params(cfg, kind) for kind in cfg.tail)
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return embed + cfg.d_model + cfg.n_groups * per_group + tail
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k routed experts + shared ones).
+
+    The JAX package's formula: the full count less the inactive routed
+    experts' matrices (``mult · d · d_ff_expert`` each, mult 3 gated or 2;
+    their gelu biases stay counted); embeddings included."""
+    full = count_params(cfg)
+    if cfg.moe is None:
+        return full
+    m = cfg.moe
+    mult = 3 if cfg.act in ("silu", "geglu") else 2
+    n_moe_blocks = cfg.pattern.count("moe") * cfg.n_groups + cfg.tail.count("moe")
+    return full - n_moe_blocks * (m.n_experts - m.top_k) * mult * cfg.d_model * m.d_ff_expert

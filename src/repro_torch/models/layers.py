@@ -22,11 +22,15 @@ def trunc_normal(gen: torch.Generator, shape, std: float, dtype=torch.float32) -
     return (x * std).to(dtype)
 
 
-def dense_init(gen: torch.Generator, shape, in_axes: int = 1, dtype=torch.float32):
+def dense_init(gen: torch.Generator, shape, bias: bool = False, in_axes: int = 1,
+               dtype=torch.float32):
     """Projection weight with fan-in init; the first ``in_axes`` axes are
-    contracted."""
+    contracted.  ``bias`` adds a zero ``b`` of the output axes' shape."""
     fan_in = math.prod(shape[:in_axes])
-    return {"w": trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype)}
+    params = {"w": trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype)}
+    if bias:
+        params["b"] = torch.zeros(shape[in_axes:], dtype=dtype, device=gen.device)
+    return params
 
 
 def norm_init(d: int, dtype=torch.float32, device=None):
@@ -75,20 +79,36 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype=torch.float32):
-    if act != "silu":
-        raise NotImplementedError(f"mlp act {act!r} is not yet ported to torch")
-    return {
-        "w_gate": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
-        "w_up": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
-        "w_down": dense_init(gen, (d_ff, d), dtype=dtype)["w"],
-    }
+    """Gated MLP (silu, geglu: w_gate, w_up, w_down) or the plain 2-matrix
+    gelu MLP with biases (w_up, b_up, w_down, b_down)."""
+    if act in ("silu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
+            "w_up": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
+            "w_down": dense_init(gen, (d_ff, d), dtype=dtype)["w"],
+        }
+    if act == "gelu":
+        return {
+            "w_up": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
+            "b_up": torch.zeros((d_ff,), dtype=dtype, device=gen.device),
+            "w_down": dense_init(gen, (d_ff, d), dtype=dtype)["w"],
+            "b_down": torch.zeros((d,), dtype=dtype, device=gen.device),
+        }
+    raise ValueError(act)
 
 
 def mlp_apply(params, x: Tensor, act: str) -> Tensor:
-    """SiLU-gated MLP in x's dtype."""
-    if act != "silu":
-        raise NotImplementedError(f"mlp act {act!r} is not yet ported to torch")
+    """The MLP in x's dtype; GELU in its tanh form (JAX's ``approximate=True``).
+
+    Weights with leading expert axes (``[E, d, d_ff]``, biases ``[E, 1,
+    d_ff]``) broadcast against ``x`` as a batched product."""
     dtype = x.dtype
-    gate = x @ params["w_gate"].to(dtype)
-    up = x @ params["w_up"].to(dtype)
-    return (F.silu(gate) * up) @ params["w_down"].to(dtype)
+    if act in ("silu", "geglu"):
+        gate = x @ params["w_gate"].to(dtype)
+        up = x @ params["w_up"].to(dtype)
+        g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+        return (g * up) @ params["w_down"].to(dtype)
+    if act == "gelu":
+        h = F.gelu(x @ params["w_up"].to(dtype) + params["b_up"].to(dtype), approximate="tanh")
+        return h @ params["w_down"].to(dtype) + params["b_down"].to(dtype)
+    raise ValueError(act)

@@ -88,8 +88,9 @@ def lm_init(
     init scales; not its random numbers).
 
     Args:
-      gen: a seeded CPU ``torch.Generator``.  Draws happen on the CPU, so
-        one seed gives the same weights on every device.
+      gen: a seeded ``torch.Generator``.  Draws happen on its device: a
+        CPU generator gives the same weights on every device, a CUDA one
+        draws billions of parameters on the card in seconds.
       cfg: model config.
       dtype: param dtype (default ``cfg.param_dtype``).
       device: ``None`` (the CUDA card; raises without one) or e.g. "cpu".

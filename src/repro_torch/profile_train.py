@@ -1,13 +1,14 @@
 """Where the time of one training step goes, on the card.
 
-Trains smollm-135m at its published widths on chip_smoke.py's training
-shape (b=4, n=1024, bf16, remat "full"; random weights from a seed, one
-fixed bigram batch) for 3 warm-up steps, then records 3 steps with
+Trains a model at its published widths (smollm-135m, or ``--arch``) on
+chip_smoke.py's training shape (b=4, n=1024, bf16, remat "full"; random
+weights from a seed, drawn on the card; one fixed bigram batch) for 3
+warm-up steps, then records 3 steps with
 ``torch.profiler`` and prints the device time by kernel group (the three
 Taylor kernels, matrix products, everything else), the device's busy and
 idle share of the wall time, and one JSON line with those numbers.
 
-  PYTHONPATH=src python -m repro_torch.profile_train
+  PYTHONPATH=src python -m repro_torch.profile_train [--arch qwen2-1.5b]
 
 It needs a CUDA device, and exits 1 if the profiler recorded no device
 time.
@@ -15,8 +16,10 @@ time.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -46,13 +49,17 @@ def _group(name: str) -> str:
     return "other"
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    args = ap.parse_args(argv)
     device = resolve_device(None)
-    cfg = get_config("smollm-135m")
+    cfg = get_config(args.arch)
     task = make_task("bigram", cfg.vocab, SEQ, BATCH, seed=0)
     batch = {k: torch.from_numpy(v).to(device) for k, v in task.batch_at(0).items()}
     opt = adamw(cosine_warmup(2e-3, 2, WARMUP + STEPS))
-    state = train_state_init(torch.Generator().manual_seed(0), cfg, opt, device=device)
+    state = train_state_init(torch.Generator(device=device).manual_seed(0), cfg, opt,
+                             device=device)
     step = make_train_step(cfg, opt)
     for _ in range(WARMUP):
         state, m = step(state, batch)
@@ -105,4 +112,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

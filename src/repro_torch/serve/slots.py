@@ -72,7 +72,8 @@ def slot_state_kinds(cfg: ModelConfig) -> Dict[str, str]:
     """Per-block-kind decode-state kinds of this config's cache.
 
     ``"kv"`` leaves are O(n_max) per slot (or O(window) for a ring),
-    ``"moments"`` O(1) in context length.  Under a hybrid schedule a block
+    ``"moments"`` O(1) in context length.  An ``"moe"`` block keeps its
+    attention's state, as an ``"attn"`` block does.  Under a hybrid schedule a block
     kind can hold several state kinds at once; they are joined with "+" in
     first-appearance pattern order, e.g. ``{"attn": "moments+kv"}``.
 

@@ -3,8 +3,9 @@
 The process may be re-launched after any failure; the loop resumes from
 the newest *committed* checkpoint (torn saves are invisible by
 construction).  The data pipeline is stateless in the step index, so
-resume is sample-exact.  Checkpoints are written asynchronously every
-``checkpoint_every`` steps and on exit.
+resume is sample-exact.  Checkpoints are written every
+``checkpoint_every`` steps (asynchronously unless ``async_save`` is off)
+and on exit.
 
 ``max_wall_seconds`` stops the loop cleanly mid-run (a simulated
 preemption in tests); a second invocation continues to the target step.
@@ -34,6 +35,7 @@ class TrainLoopConfig:
     checkpoint_every: int = 100
     log_every: int = 10
     keep: int = 3
+    async_save: bool = True
     max_wall_seconds: Optional[float] = None
 
 
@@ -65,7 +67,7 @@ def run_training(
             and (step + 1) % loop.checkpoint_every == 0
         ):
             save_checkpoint(loop.checkpoint_dir, step + 1, state,
-                            block=False, keep=loop.keep)
+                            block=not loop.async_save, keep=loop.keep)
         if loop.max_wall_seconds and time.monotonic() - t0 > loop.max_wall_seconds:
             log(f"[loop] wall-clock budget hit at step {step + 1} (simulated preemption)")
             break

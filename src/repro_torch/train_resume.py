@@ -1,0 +1,79 @@
+"""Fault tolerance demo: training survives a (simulated) preemption.
+
+The port's counterpart of the JAX package's ``examples/train_resume.py``:
+reduced qwen2-1.5b on bigram data trains 30 steps uninterrupted; then a
+second run with a checkpoint every 10 steps is stopped at step 15, and a
+third invocation of the same loop resumes from the newest committed
+checkpoint and finishes.  The data pipeline is stateless in the step index,
+so the resumed weights must equal the uninterrupted run's (max |Δ| < 1e-5).
+It runs on the CUDA card; pass ``--device cpu`` for the CPU.
+
+  PYTHONPATH=src python -m repro_torch.train_resume --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import tempfile
+
+import torch
+
+from repro_torch.configs import get_reduced
+from repro_torch.data import make_task
+from repro_torch.device import resolve_device
+from repro_torch.optim import adamw, constant
+from repro_torch.train import TrainLoopConfig, make_train_step, run_training, train_state_init
+from repro_torch.tree import tree_leaves
+
+STEPS = 30
+SEQ_LEN, BATCH = 32, 4
+
+
+def main(argv=None) -> float:
+    """Runs the demo; returns the max param divergence of the resumed run."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default=None, help="default: the CUDA card")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    cfg = get_reduced("qwen2-1.5b")
+    task = make_task("bigram", cfg.vocab, SEQ_LEN, BATCH, seed=0)
+
+    def batch_at(s):
+        return {k: torch.from_numpy(v).to(device) for k, v in task.batch_at(s).items()}
+
+    opt = adamw(constant(1e-3))
+    step = make_train_step(cfg, opt)
+
+    def fresh():
+        return train_state_init(torch.Generator().manual_seed(0), cfg, opt, device=device)
+
+    # --- uninterrupted reference ---
+    ref = run_training(step, fresh(), batch_at, TrainLoopConfig(total_steps=STEPS, log_every=10))
+
+    # --- interrupted + resumed ---
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_resume_")
+    try:
+        print("\n[phase 1] training with checkpoint_every=10, killed at step ~15")
+        run_training(step, fresh(), batch_at,
+                     TrainLoopConfig(total_steps=15, checkpoint_dir=ckpt, checkpoint_every=10,
+                                     log_every=10, async_save=False))
+        print("\n[phase 2] rerunning the same command — auto-resume:")
+        resumed = run_training(step, fresh(), batch_at,
+                               TrainLoopConfig(total_steps=STEPS, checkpoint_dir=ckpt,
+                                               checkpoint_every=10, log_every=10,
+                                               async_save=False))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(ref.params), tree_leaves(resumed.params)))
+    print(f"\nmax param divergence vs uninterrupted run: {diff:.2e}")
+    if not diff < 1e-5:
+        raise SystemExit("resume is not exact!")
+    print("resume is exact ✓")
+    return diff
+
+
+if __name__ == "__main__":
+    main()

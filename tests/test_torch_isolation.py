@@ -48,7 +48,12 @@ def test_training_modules_stand_alone():
     assert {"repro_torch.core.taylor_vjp", "repro_torch.optim.optimizers",
             "repro_torch.optim.schedules", "repro_torch.data.synthetic",
             "repro_torch.train.step", "repro_torch.train.loop",
-            "repro_torch.checkpoint.store", "repro_torch.quickstart"} <= mods
+            "repro_torch.checkpoint.store", "repro_torch.quickstart",
+            "repro_torch.models.moe", "repro_torch.train_resume",
+            "repro_torch.serve_longcontext", "repro_torch.configs.qwen2_1_5b",
+            "repro_torch.configs.granite_20b", "repro_torch.configs.gemma_7b",
+            "repro_torch.configs.qwen2_moe_a2_7b",
+            "repro_torch.configs.kimi_k2_1t_a32b"} <= mods
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"

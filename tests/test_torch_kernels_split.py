@@ -242,17 +242,20 @@ def carry_read(k, v, ds2, exact_k, single=False):
 
 
 def carry_update(q, dnum, dden, ds2, dz2, exact_q, single=False):
-    """Chunk 1's queries of every head into the carry, as pass 2:
+    """Chunk 1's queries into the carry, head by head, as pass 2:
     dS2[e,f,v] += Σ_i (q_ie·(a²/2)dnum_iv)·Q[i,f] and dz2[e,f] += Σ_i
     ((a²/2)dden_i·q_ie)·Q[i,f], A = those f32 products (split for either
-    input type), B = Q."""
-    qc, dn, w = _rows(q, 1), _rows(dnum, 1), _rows(dden, 1)
-    a = (qc.T[:, None, :] * (HALF_A2 * dn).T[None]).astype(np.float32)  # [e, v, i]
-    ds2_new = tf32_matmul(a, qc, True, not exact_q, acc=ds2.transpose(0, 2, 1),
-                          single=single).transpose(0, 2, 1)
-    az = (qc * (HALF_A2 * w)[:, None]).T.astype(np.float32)  # [e, i]
-    dz2_new = tf32_matmul(az, qc, True, not exact_q, acc=dz2, single=single)
-    return ds2_new, dz2_new
+    input type), B = Q; each head's sum over the chunk is taken from zero
+    and added to the f32 carry once."""
+    for g in range(G):
+        rows = slice(g * BWD_CHUNK, (g + 1) * BWD_CHUNK)
+        qc, dn, w = _rows(q, 1)[rows], _rows(dnum, 1)[rows], _rows(dden, 1)[rows]
+        a = (qc.T[:, None, :] * (HALF_A2 * dn).T[None]).astype(np.float32)  # [e, v, i]
+        ds2 = ds2 + tf32_matmul(a, qc, True, not exact_q,
+                                single=single).transpose(0, 2, 1)
+        az = (qc * (HALF_A2 * w)[:, None]).T.astype(np.float32)  # [e, i]
+        dz2 = dz2 + tf32_matmul(az, qc, True, not exact_q, single=single)
+    return ds2, dz2
 
 
 def _bwd_errors(dtype: str, contraction: str, single: bool):

@@ -66,7 +66,7 @@ def test_configs_copy_the_jax_values():
         assert ours.taylor.order == theirs.taylor.order
         assert ours.taylor.alpha == theirs.taylor.alpha
     with pytest.raises(ValueError, match="not yet ported"):
-        get_config("gemma-7b")
+        get_config("zamba2-7b")
 
 
 def test_lm_init_matches_jax_shapes_and_scales(weights):

@@ -8,8 +8,10 @@ the symbols they export, and loads each through the package's own binding
 (``kernel.bind``).  Holds each against the plain PyTorch versions with
 chip_smoke.py's checks at its cases (forward: phase 3's ``FWD_CASES`` and
 ``fwd_errors``; backward: phase 3b's ``BWD_CASES`` and ``bwd_check``, every
-gradient within ``BWD_TOL``), and times each kernel of each build in turns
-(A B … B A, ``--rounds`` times) with CUDA events on one card.  Prints the
+gradient within ``BWD_TOL`` of the float64 plain version; then phase 12's
+head-dim-128 launches, ``ZOO_CASES``), and times each
+kernel of each build in turns (A B … B A, ``--rounds`` times) with CUDA
+events on one card.  Prints the
 card's name and power limit first; exits 1 if a build fails a check.  For
 comparing a change with its parent:
 
@@ -118,6 +120,7 @@ def main() -> int:
     kind, libs = build(K, args.sources)
     cases, check, seed = ((cs.BWD_CASES, bwd_case, 1) if kind == "taylor_bwd"
                           else (cs.FWD_CASES, fwd_case, 0))
+    cases += cs.ZOO_CASES
     gen = torch.Generator(device="cuda").manual_seed(seed)
     ok = True
     for m, dname in cases:
