@@ -14,9 +14,11 @@ Poisson trace and the health sweep's price), then speculative decoding and
 the slot-state codecs (phase 11: n-gram and order-1 drafts, int8/fp8
 moments, paged softmax KV, speculation over int8 moments), then the model
 zoo at published widths (phase 12: qwen2-1.5b whole, the kernels at head
-dim 128, granite-20b, gemma-7b and qwen2-moe-a2.7b at cut depth, the
-train_resume and serve_longcontext scripts), and prints one JSON line
-describing every ported kernel followed by the device line.
+dim 128 and at zamba2's head dim 112, granite-20b, gemma-7b and
+qwen2-moe-a2.7b at cut depth, the train_resume and serve_longcontext
+scripts), then Mamba2 (phase 13: mamba2-780m whole, zamba2-7b whole for
+the forward and serving, zamba2-7b's training at cut depth), and prints
+one JSON line describing every ported kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -162,11 +164,26 @@ ZOO_TRAIN_STEPS = {"qwen2-1.5b": 6, "granite-20b": 2, "qwen2-moe-a2.7b": 2}
 ZOO_ATTN = {"qwen2-1.5b": dict(b=4, hk=2, g=6, n=1024, d=128, dv=128),
             "granite-20b": dict(b=4, hk=1, g=48, n=1024, d=128, dv=128),
             "qwen2-moe-a2.7b": dict(b=4, hk=16, g=1, n=1024, d=128, dv=128),
-            "qwen2-1.5b reduced": dict(b=4, hk=2, g=2, n=128, d=16, dv=16)}
+            "qwen2-1.5b reduced": dict(b=4, hk=2, g=2, n=128, d=16, dv=16),
+            # zamba2-7b's shared block: head dim 112, which the wrapper pads to
+            # 128 (``padded_qk``); the bounds count d = 112
+            "zamba2-7b": dict(b=4, hk=32, g=1, n=1024, d=112, dv=112)}
 ZOO_CASES = tuple((m, dname) for m in ZOO_ATTN.values() for dname in ("bfloat16", "float32"))
 GEMMA_LENS = (100, 128)  # gemma-7b's requests: 2 slots of ~2.1 GB of state each
 MOE_TOKENS = 512  # the dense-vs-capacity comparison's tokens
 MOE_TOL = 1e-4  # its atol: tests/test_models.py::test_moe_dispatch_paths_agree's
+# Phase 13: Mamba2 (SSD) at published widths (random weights, seed 0, drawn on
+# the card).  mamba2-780m and zamba2-7b run whole for the forward and serving;
+# zamba2-7b trains at SSM_TRAIN_GROUPS of its 11 groups (with the 4-mamba
+# tail): the whole model with its AdamW state (~31 B/param, phase 12's
+# granite) would take 183 GB.
+SSM_TRAIN_STEPS = {"mamba2-780m": 6, "zamba2-7b": 2}
+SSM_TRAIN_GROUPS = 2
+ZAMBA_LENS = PROMPT_LENS[:4]  # zamba2's requests: 4 slots of ~2.1 GB of state each
+SSM_CHUNK = (PROMPT_LENS[:3], 128)  # mamba2's chunked-prefill serving: prompts, chunk
+SSD_RECURRENCE = 256  # tokens of layer 0's chunked SSD vs its token recurrence
+SSD_TOL = 1e-4  # that comparison's rel tolerance, float32
+SHARED_GRAD_TOL = 1e-3  # zamba2's shared-block gradient, kernels vs torch (phase 7's)
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -328,25 +345,41 @@ def fwd_errors(torch, out, ref32):
     return errs, {k_: (e_, tols[k_]) for k_, e_ in errs.items() if not e_ < tols[k_]}
 
 
+def padded_qk(torch, K, q, k, alpha=3.0):
+    """(q, k, alpha) in the kernels' layout: q and k zero-padded to the
+    smallest head dim of ``K.TILES`` at least d, and alpha rescaled so that
+    the logits keep the true d (``ops._kernel_layout``/``_effective_alpha``,
+    what the wrapper does for zamba2's d = 112).  Unchanged when d is one."""
+    d = q.shape[-1]
+    d_pad = min(t for t in K.TILES if t >= d)
+    if d_pad == d:
+        return q, k, alpha
+    pad = lambda x: torch.nn.functional.pad(x, (0, d_pad - d))
+    return pad(q), pad(k), alpha * math.sqrt(d / d_pad)
+
+
 def fwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3]"):
     """The forward kernel against its plain version at shape ``m`` in
-    ``dname``: checked (fails on a disagreement), timed and bounded.
-    Returns its row."""
+    ``dname``: checked (fails on a disagreement), timed and bounded.  A head
+    dim outside ``K.TILES`` runs padded (``padded_qk``) against the plain
+    version at the true d, and its bound counts the true d.  Returns its
+    row."""
     dtype = getattr(torch, dname)
     bk = m["b"] * m["hk"]
     q, k, v = fwd_inputs(torch, m, dtype, gen, ln)
-    out = K.taylor_fwd(q, k, v, alpha=3.0)
+    qp, kp, alpha = padded_qk(torch, K, q, k)
+    out = K.taylor_fwd(qp, kp, v, alpha=alpha)
     ref32 = ref_mod.taylor_attention_ref(q.float()[None], k.float()[None],
                                          v.float()[None], alpha=3.0)[0]
     torch.cuda.synchronize()
     errs, bad = fwd_errors(torch, out, ref32)
     abs_err = float((out.float() - ref32.to(dtype).float()).abs().max())
-    kernel_ms = cuda_ms(torch, lambda: K.taylor_fwd(q, k, v, alpha=3.0), 10)
+    kernel_ms = cuda_ms(torch, lambda: K.taylor_fwd(qp, kp, v, alpha=alpha), 10)
     plain_ms = cuda_ms(
         torch, lambda: ref_mod.taylor_attention_ref(q[None], k[None], v[None]), 3
     )
     flops, tensor, nbytes = taylor_fwd_cost(
-        bk, m["g"], m["n"], m["d"], m["dv"], K.TILES[m["d"]][1], q.element_size())
+        bk, m["g"], m["n"], m["d"], m["dv"], K.TILES[qp.shape[-1]][1], q.element_size())
     products = FWD_TF32_PRODUCTS[dname]
     f32_ms, _ = bound_ms(flops, nbytes)
     tensor_ms, by = bound_ms(flops, nbytes, tensor, products)
@@ -428,20 +461,34 @@ def bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn, dkv_fn):
 def bwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3b]"):
     """Both backward kernels against their plain versions at shape ``m`` in
     ``dname``: checked to BWD_TOL (fails on a disagreement), timed and
-    bounded.  Returns {kernel: row} for dq, dkv and the pair."""
-    dq_fn = lambda q, k, v, dout, out: K.taylor_bwd_dq(q, k, v, dout, out, alpha=3.0)
-    dkv_fn = lambda q, k, v, dout, den, dden: K.taylor_bwd_dkv(q, k, v, dout, den, dden,
-                                                               alpha=3.0)
+    bounded.  A head dim outside ``K.TILES`` runs padded (``padded_qk``),
+    dq and dk sliced back to the true d, against the plain versions at the
+    true d.  Returns {kernel: row} for dq, dkv and the pair."""
     bk = m["b"] * m["hk"]
     q, k, v, dout = bwd_inputs(torch, m, getattr(torch, dname), gen, ln)
-    out = K.taylor_fwd(q, k, v, alpha=3.0)
+    qp, kp, alpha = padded_qk(torch, K, q, k)
+    d = m["d"]
+
+    def dq_fn(q, k, v, dout, out):
+        dq, den, dden = K.taylor_bwd_dq(*padded_qk(torch, K, q, k)[:2], v, dout, out,
+                                        alpha=alpha)
+        return dq[..., :d], den, dden
+
+    def dkv_fn(q, k, v, dout, den, dden):
+        dk, dv = K.taylor_bwd_dkv(*padded_qk(torch, K, q, k)[:2], v, dout, den, dden,
+                                  alpha=alpha)
+        return dk[..., :d], dv
+
+    out = K.taylor_fwd(qp, kp, v, alpha=alpha)
     errs, abs_err, bad, (den, dden) = bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn,
                                                 dkv_fn)
     b = lambda *x: [t[None] for t in x]
-    ms = {
-        "taylor_bwd_dq": cuda_ms(torch, lambda: dq_fn(q, k, v, dout, out), 10),
-        "taylor_bwd_dkv": cuda_ms(torch, lambda: dkv_fn(q, k, v, dout, den, dden), 10),
-        "pair": cuda_ms(torch, lambda: K.taylor_bwd(q, k, v, dout, out, alpha=3.0), 10),
+    ms = {  # the kernels alone, on inputs already in their layout
+        "taylor_bwd_dq": cuda_ms(torch, lambda: K.taylor_bwd_dq(qp, kp, v, dout, out,
+                                                                alpha=alpha), 10),
+        "taylor_bwd_dkv": cuda_ms(torch, lambda: K.taylor_bwd_dkv(qp, kp, v, dout, den, dden,
+                                                                  alpha=alpha), 10),
+        "pair": cuda_ms(torch, lambda: K.taylor_bwd(qp, kp, v, dout, out, alpha=alpha), 10),
     }
     plain = {
         "taylor_bwd_dq": cuda_ms(torch, lambda: ref_mod.taylor_bwd_dq_ref(
@@ -538,8 +585,10 @@ def kernel_layers(torch, cfg):
     lcfg = cfg.layer_cfg("taylor")
     if get_backend("taylor").resolve_impl(lcfg, torch.device("cuda")) != "cuda":
         return 0
-    per_group = sum(rl for _, bk, rl in schedule_runs(cfg) if bk == "taylor")
-    return per_group * cfg.n_groups + (len(cfg.tail) if cfg.attention == "taylor" else 0)
+    per_group = sum(rl for kind, bk, rl in schedule_runs(cfg)
+                    if bk == "taylor" and kind != "mamba")
+    tail = sum(kind != "mamba" for kind in cfg.tail) if cfg.attention == "taylor" else 0
+    return per_group * cfg.n_groups + tail
 
 
 def kernel_launches_per_step(torch, cfg):
@@ -1935,6 +1984,203 @@ def zoo_scripts(torch, K, train_resume, serve_longcontext):
                 engine_tokens_per_s=engine_tps, slot_bytes=slot_bytes, growth=growth)
 
 
+def ssd_recurrence_check(torch, params, cfg, tag):
+    """Layer 0's chunked SSD (``mamba_apply``, chunk ``cfg.attn_chunk``)
+    against its own token recurrence (``mamba_decode_step`` token after
+    token) over SSD_RECURRENCE tokens in float32: two independent forms of
+    one SSM.  Returns the rel error."""
+    from repro_torch.models.layers import norm_apply
+    from repro_torch.models.ssm import mamba_apply, mamba_decode_step, mamba_init_cache
+
+    cfg32 = cfg.replace(dtype="float32")
+    p = params["blocks"][0]
+    x = torch.randn(1, SSD_RECURRENCE, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(13))
+    with torch.no_grad():
+        h = norm_apply(p["norm1"], x, cfg.norm, cfg.norm_eps)
+        whole = mamba_apply(p["mamba"], h, cfg32, chunk=cfg.attn_chunk)
+        cache, ys = mamba_init_cache(cfg32, 1, x.device), []
+        for t in range(SSD_RECURRENCE):
+            y, cache = mamba_decode_step(p["mamba"], h[:, t], cache, cfg32)
+            ys.append(y)
+    err = rel_err(torch, whole, torch.stack(ys, dim=1))
+    print(f"{tag} {cfg.name} layer 0, float32: the chunked SSD (chunk {cfg.attn_chunk}) vs "
+          f"its token recurrence over {SSD_RECURRENCE} tokens: rel_err={err:.3e} "
+          f"(tol {SSD_TOL})")
+    if not err < SSD_TOL:
+        fail(f"{tag} the chunked SSD disagrees with its recurrence: {err}")
+    return err
+
+
+def ssm_forward(torch, K, infer, params, cfg, tokens, tag):
+    """The attention-free forward (bf16): finite logits of the right shape,
+    no Taylor launch, its time, and the bf16 logits' distance from float32's
+    (reported).  Returns the summary."""
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    logits = infer(params, {"tokens": tokens}, cfg)[0]
+    torch.cuda.synchronize()
+    launches = taylor_counters(K)
+    if logits.shape != tokens.shape + (cfg.vocab,) or not torch.isfinite(logits).all():
+        fail(f"{tag} lm_apply logits have the wrong shape or are not finite")
+    if any(launches):
+        fail(f"{tag} the attention-free forward launched (fwd, dq, dkv) = {launches}")
+    err32 = rel_err(torch, logits, infer(params, {"tokens": tokens},
+                                         cfg.replace(dtype="float32"))[0])
+    del logits
+    ms = cuda_ms(torch, lambda: infer(params, {"tokens": tokens}, cfg), 2)
+    print(f"{tag} lm_apply {cfg.name} b,n={tuple(tokens.shape)} {cfg.dtype}: launches "
+          f"(fwd, dq, dkv) = {launches}; bf16 logits vs float32 rel_err={err32:.3e} "
+          f"(reported); forward_ms={ms:.2f}")
+    return dict(launches=launches[0], forward_ms=ms, bf16_vs_f32=err32)
+
+
+def check_state_bytes(cfg, serve, tag):
+    """The engine's bytes per slot against ``lm_state_bytes`` (float32)."""
+    from repro_torch.models import lm_state_bytes
+
+    want = lm_state_bytes(cfg.replace(dtype="float32"), 1, N_MAX)
+    print(f"{tag} {cfg.name} bytes per slot (float32 state) {serve['slot_bytes']:,}; "
+          f"lm_state_bytes {want:,}")
+    if serve["slot_bytes"] != want:
+        fail(f"{tag} slot bytes {serve['slot_bytes']} != lm_state_bytes {want}")
+    return want
+
+
+def phase_ssm(torch, K, infer):
+    """Phase 13: Mamba2 (SSD) at published widths.  (a) mamba2-780m, the
+    whole model: its bf16 forward, layer 0's chunked SSD against its token
+    recurrence, f32 serving of phase 6's requests (tokens against the
+    ``lm_apply`` argmax and its own prefill + decode; bytes per slot against
+    ``lm_state_bytes``), chunked-prefill serving against whole-prompt
+    serving, 6 training steps; no Taylor launch anywhere.  (b) zamba2-7b
+    whole: the forward through the kernels (11 shared-block launches at
+    head dim 112 padded to 128, logits against attn_impl="torch"), f32
+    serving of 4 requests, an int8 slot store whose mamba nodes stay dense
+    byte for byte.  (c) zamba2-7b at SSM_TRAIN_GROUPS groups: training steps
+    through the three kernels, then the shared block's float32 gradient
+    through the kernels against the torch recompute.  (The kernels at
+    zamba2's launch are phase 12 (b)'s ``ZOO_ATTN["zamba2-7b"]`` cases.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_task
+    from repro_torch.models import lm_prefill, schedule_runs
+    from repro_torch.models.ssm import MambaCache
+    from repro_torch.serve import Request, ServeEngine, slots
+    from repro_torch.serve.state_repr import make_state_store
+    from repro_torch.train import loss_and_grads, make_loss_fn
+    from repro_torch.tree import tree_items
+
+    out = {}
+    tokens_of = lambda cfg: torch.randint(0, cfg.vocab, (TRAIN["b"], TRAIN["n"]),
+                                          generator=torch.Generator().manual_seed(0)).cuda()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) mamba2-780m, the whole model
+    cfg = get_config("mamba2-780m")
+    params = zoo_params(torch, cfg)
+    a = dict(forward=ssm_forward(torch, K, infer, params, cfg, tokens_of(cfg), "[13a]"))
+    a["ssd_vs_recurrence"] = ssd_recurrence_check(torch, params, cfg, "[13a]")
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    a["serve"] = zoo_serve(torch, K, infer, params, cfg, PROMPT_LENS, 4, "[13a]")
+    a["state_bytes"] = check_state_bytes(cfg, a["serve"], "[13a]")
+    cfg32 = cfg.replace(dtype="float32")
+    lens, chunk = SSM_CHUNK
+    runs = {}
+    for name, kw in (("whole", {}), ("chunked", dict(prefill_chunk=chunk))):
+        gen = torch.Generator().manual_seed(1)  # serve_requests' prompts
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen) for n in lens]
+        eng = ServeEngine(params, cfg32, max_slots=4, n_max=N_MAX, decode_block=16, **kw)
+        rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW))
+                for p in prompts]
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        check_no_faults(eng.stats(), f"[13a] {name} prefill")
+        runs[name] = dict(tokens=[res[r] for r in rids], wall=time.perf_counter() - t0,
+                          prefill_s=eng.stats()["prefill_seconds"])
+        del eng
+    differ, ties, bad = diverging_requests(torch, infer, params, cfg32, prompts,
+                                           runs["whole"]["tokens"], runs["chunked"]["tokens"])
+    launches = taylor_counters(K)
+    print(f"[13a] chunked prefill (chunk {chunk}: each mamba block scans its token "
+          f"recurrence) vs whole prefill (the chunked SSD), prompts {list(lens)}: {differ} "
+          f"requests differ, {ties} at a near-tie (gap<{NEAR_TIE}), {bad} not; prefill "
+          f"{runs['chunked']['prefill_s']:.3f} s vs {runs['whole']['prefill_s']:.3f} s; "
+          f"launches (fwd, dq, dkv) over (a)'s serving: {launches}")
+    if bad:
+        fail(f"[13a] chunked-prefill tokens differ from whole-prefill tokens in {bad} requests")
+    if any(launches):
+        fail(f"[13a] mamba2-780m's serving launched the Taylor kernels {launches}")
+    a["chunked"] = dict(differ=differ, near_ties=ties, chunked_prefill_s=runs["chunked"][
+        "prefill_s"], whole_prefill_s=runs["whole"]["prefill_s"])
+    del params, runs
+    a["train"] = zoo_train(torch, K, cfg, SSM_TRAIN_STEPS["mamba2-780m"], "[13a]")
+    if not a["train"]["losses"][-1] < a["train"]["losses"][0]:
+        fail(f"[13a] mamba2-780m loss did not fall: {a['train']['losses']}")
+    out["mamba2-780m"] = a
+
+    # (b) zamba2-7b, the whole model: forward and serving
+    cfg = get_config("zamba2-7b")
+    params = zoo_params(torch, cfg)
+    z = dict(forward=zoo_forward(torch, K, infer, params, cfg, tokens_of(cfg), "[13b]"))
+    z["serve"] = zoo_serve(torch, K, infer, params, cfg, ZAMBA_LENS, 4, "[13b]")
+    z["state_bytes"] = check_state_bytes(cfg, z["serve"], "[13b]")
+    cfg32 = cfg.replace(dtype="float32")
+    prompt = torch.randint(0, cfg.vocab, (ZAMBA_LENS[0],),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    _, one = lm_prefill(params, {"tokens": prompt[None]}, cfg32, N_MAX)
+    store = make_state_store(cfg32, 4, N_MAX, state_dtype="int8")
+    stored = store.write_slot(store.init_caches(), one, 1)
+    raw, back = slots.read_slot(stored, 1), store.read_slot(stored, 1)  # stored; decoded
+    nodes = lambda c: list(c["group"]) + list(c["tail"])
+    dense = [(o, r, b_) for o, r, b_ in zip(nodes(one), nodes(raw), nodes(back))
+             if isinstance(o, MambaCache)]
+    same = all(torch.equal(r_, o_) and torch.equal(b_, o_)
+               for o, r, b_ in dense for o_, r_, b_ in zip(o, r, b_))
+    want = sum(k == "mamba" for k, _, _ in schedule_runs(cfg)) + cfg.tail.count("mamba")
+    moments = [type(x.s2).__name__ for x in nodes(stored) if hasattr(x, "s2")]
+    int8_bytes = store.slot_bytes(stored)
+    print(f"[13b] int8 slot store: {len(dense)} mamba nodes (of {want}) stored dense and "
+          f"byte-identical to the prefill's after write and read: {same}; moment S2 leaves "
+          f"{sorted(set(moments))}; bytes per slot {int8_bytes:,} (dense "
+          f"{z['state_bytes']:,})")
+    if not (same and len(dense) == want and set(moments) == {"QuantizedLeaf"}):
+        fail("[13b] the int8 store changed a mamba node or left a moment dense")
+    z["int8_slot_bytes"] = int8_bytes
+    del params, one, store, stored, back, dense
+
+    # (c) zamba2-7b at SSM_TRAIN_GROUPS groups: training, the shared block's gradient
+    cfg = get_config("zamba2-7b", n_groups=SSM_TRAIN_GROUPS)
+    z["train"] = zoo_train(torch, K, cfg, SSM_TRAIN_STEPS["zamba2-7b"], "[13c]")
+    if not z["train"]["losses"][-1] < z["train"]["losses"][0]:
+        fail(f"[13c] zamba2-7b loss did not fall: {z['train']['losses']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = zoo_params(torch, cfg)
+    batch = bigram_batch(torch, make_task, cfg)
+    cfg32 = cfg.replace(dtype="float32")
+    c0 = taylor_counters(K)
+    grads = {impl: dict(tree_items(loss_and_grads(make_loss_fn(cfg32.replace(attn_impl=impl)),
+                                                  params, batch)[2]["shared"]))
+             for impl in ("cuda", "torch")}
+    got = tuple(a_ - b_ for a_, b_ in zip(taylor_counters(K), c0))
+    errs = {path: rel_err(torch, grads["cuda"][path], grads["torch"][path])
+            for path in grads["torch"]}
+    worst = max(errs.values())
+    print(f"[13c] zamba2-7b x{SSM_TRAIN_GROUPS} float32 gradients of the shared block "
+          f"({len(errs)} leaves, summed over its {SSM_TRAIN_GROUPS} occurrences), kernels vs "
+          f"torch recompute: max rel_err {worst:.3e} at {max(errs, key=errs.get)} (tol "
+          f"{SHARED_GRAD_TOL}); kernel launches (fwd, dq, dkv) = {got}")
+    if got != kernel_launches_per_step(torch, cfg):
+        fail(f"[13c] the gradient check launched (fwd, dq, dkv) = {got}")
+    if not worst < SHARED_GRAD_TOL:
+        fail(f"[13c] the shared block's kernel gradient disagrees: {worst}")
+    z["shared_grad_rel_err"] = worst
+    out["zamba2-7b"] = z
+    del params, grads
+    return out
+
+
 def zoo_launches(zoo, name):
     """Phase 12's launches of kernel ``name`` by path, for the kernels line."""
     out = {f"{arch}_train_{ZOO_TRAIN_STEPS[arch]}_steps": zoo[arch]["train"]["launches"][name]
@@ -1943,6 +2189,15 @@ def zoo_launches(zoo, name):
         out.update({f"{arch}_lm_apply": zoo[arch]["forward"]["launches"]
                     for arch in ("qwen2-1.5b", "granite-20b", "qwen2-moe-a2.7b")})
     out[f"train_resume_{zoo['scripts']['steps']}_steps"] = zoo["scripts"]["launches"][name]
+    return out
+
+
+def ssm_launches(ssm, name):
+    """Phase 13's launches of kernel ``name`` by path, for the kernels line."""
+    out = {f"{arch}_train_{SSM_TRAIN_STEPS[arch]}_steps": ssm[arch]["train"]["launches"][name]
+           for arch in SSM_TRAIN_STEPS}
+    if name == "taylor_fwd":
+        out.update({f"{arch}_lm_apply": ssm[arch]["forward"]["launches"] for arch in ssm})
     return out
 
 
@@ -2155,7 +2410,24 @@ def main() -> int:
           f"x{ZOO_DEPTH['qwen2-moe-a2.7b']} train (ep) {e['train']['step_ms']:.1f} ms/step, "
           f"decode {e['serve']['decode_tokens_per_s']:.1f} tokens/s")
 
-    # ---- 13. kernels line ----
+    # ---- 13. Mamba2 (SSD): mamba2-780m and zamba2-7b ----
+    t0 = time.perf_counter()
+    ssm = phase_ssm(torch, K, infer)
+    a, z = ssm["mamba2-780m"], ssm["zamba2-7b"]
+    print(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
+    print("[13] summary (full widths; forward and training b=4 n=1024 bf16 remat full, "
+          f"serving f32): mamba2-780m forward {a['forward']['forward_ms']:.2f} ms, train "
+          f"{a['train']['step_ms']:.1f} ms/step ({a['train']['tokens_per_s']:.0f} tokens/s, "
+          f"peak {a['train']['peak_gib']:.2f} GiB), decode "
+          f"{a['serve']['decode_tokens_per_s']:.1f} tokens/s at {a['serve']['slot_bytes']} "
+          f"bytes per slot; zamba2-7b forward {z['forward']['forward_ms']:.2f} ms "
+          f"({z['forward']['launches']} taylor_fwd launches), decode "
+          f"{z['serve']['decode_tokens_per_s']:.1f} tokens/s at {z['serve']['slot_bytes']} "
+          f"bytes per slot (int8 {z['int8_slot_bytes']}); zamba2-7b x{SSM_TRAIN_GROUPS} "
+          f"groups train {z['train']['step_ms']:.1f} ms/step, peak "
+          f"{z['train']['peak_gib']:.2f} GiB")
+
+    # ---- 14. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -2172,7 +2444,8 @@ def main() -> int:
             "hybrid_lm_apply": hybrid["lm_apply_launches"]["taylor_fwd"],
             f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"]["taylor_fwd"],
             "phase11_serving": spec["launches"],
-            **zoo_launches(zoo, "taylor_fwd")},
+            **zoo_launches(zoo, "taylor_fwd"),
+            **ssm_launches(ssm, "taylor_fwd")},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -2198,7 +2471,8 @@ def main() -> int:
                 f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"][name],
                 "hybrid_lm_apply": hybrid["lm_apply_launches"][name],
                 f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"][name],
-                **zoo_launches(zoo, name)},
+                **zoo_launches(zoo, name),
+                **ssm_launches(ssm, name)},
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -2213,7 +2487,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 14. device line ----
+    # ---- 15. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,16 @@ decode state (``prefill``), how to advance that state by one token
 (``decode_step``) or by a chunk of prompt tokens (``prefill_chunk``) and
 how to check a state's health.  The model layer and
 the serve engine resolve backends exclusively through
-``repro_torch.backends.registry``.  Methods take projected heads: q
-``[b, h, n, d]``, k/v ``[b, hk, n, ·]`` (single-token: ``[b, h, d]``).
+``repro_torch.backends.registry``.
+
+Two protocol levels (the ``level`` flag):
+
+  * ``"qkv"``   — the methods take projected heads: q ``[b, h, n, d]``,
+    k/v ``[b, hk, n, ·]`` (single-token: ``[b, h, d]``).  Every attention
+    backend; only these can be ``ModelConfig.attention``.
+  * ``"block"`` — the backend fuses its own projections, so the methods
+    take the block's params and ``[b, n, d_model]`` activations (the SSM
+    backend: a block kind, not an attention choice).
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ class AttentionBackend:
     """Base class + protocol of one attention algorithm."""
 
     name: str = ""
-    state_kind: str = "kv"  # "kv" | "moments"
+    level: str = "qkv"  # "qkv" | "block"
+    state_kind: str = "kv"  # "kv" | "moments" | "ssm"
     impls: Tuple[str, ...] = ("torch",)
     # Serve-layer slot-state representations: which compact encodings of
     # this backend's decode state the engine may hold between dispatches
@@ -39,7 +48,7 @@ class AttentionBackend:
     @property
     def bounded_state(self) -> bool:
         """True when the decode state is O(1) in context length: moments
-        are, a full KV cache is not; a bounded KV ring (``softmax_window``)
+        and an SSM state are, a full KV cache is not; a bounded KV ring (``softmax_window``)
         overrides this.  The per-layer gate behind
         ``ModelConfig.supports_long_context``."""
         return self.state_kind != "kv"

@@ -1,8 +1,8 @@
 """Attention-backend registry: the single resolution point for
-``ModelConfig.attention`` and for every name of
-``ModelConfig.attention_schedule``.  A backend of the JAX package that is
-not yet ported raises "not yet ported"; any other unregistered name raises
-"unknown attention backend", as in the JAX package."""
+``ModelConfig.attention``, for every name of
+``ModelConfig.attention_schedule`` and for the block-level ``"ssm"``
+backend of the mamba blocks.  An unregistered name raises "unknown
+attention backend", as in the JAX package."""
 
 from __future__ import annotations
 
@@ -11,8 +11,6 @@ from typing import Dict
 from repro_torch.backends.base import AttentionBackend
 
 _REGISTRY: Dict[str, AttentionBackend] = {}
-# Backends of the JAX package that the port does not have yet.
-_NOT_YET_PORTED = ("ssm",)
 
 
 def register_backend(backend: AttentionBackend) -> AttentionBackend:
@@ -27,11 +25,6 @@ def register_backend(backend: AttentionBackend) -> AttentionBackend:
 
 def get_backend(name: str) -> AttentionBackend:
     """Look up a registered backend by name."""
-    if name in _NOT_YET_PORTED:
-        raise ValueError(
-            f"attention backend {name!r} is not yet ported to torch "
-            f"(registered: {sorted(_REGISTRY)})"
-        )
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown attention backend {name!r}; registered: {sorted(_REGISTRY)}"
@@ -45,7 +38,20 @@ def available_backends() -> Dict[str, AttentionBackend]:
 
 
 def resolve_backend(cfg) -> AttentionBackend:
-    """Resolve ``cfg.attention`` to a backend validated against ``cfg``."""
+    """Resolve ``cfg.attention`` to a backend validated against ``cfg``;
+    a block-level backend cannot be one."""
     backend = get_backend(cfg.attention)
+    if backend.level != "qkv":
+        raise ValueError(
+            f"backend {backend.name!r} is {backend.level}-level and cannot "
+            "serve as ModelConfig.attention (use it as a block kind instead)"
+        )
     backend.validate(cfg)
     return backend
+
+
+def state_backend(kind: str, cfg) -> AttentionBackend:
+    """The backend holding the decode state of a block of ``kind`` under the
+    layer config ``cfg``: the block-level "ssm" one for a mamba block, else
+    ``resolve_backend(cfg)``."""
+    return get_backend("ssm") if kind == "mamba" else resolve_backend(cfg)

@@ -3,8 +3,8 @@
 Each ``configs/<arch>.py`` exports ``CONFIG`` (the published config) and
 ``reduced()`` (a tiny same-family config for CPU tests), with the JAX
 package's values.  Only the architectures in ``ARCHS`` are ported (the
-dense and MoE decoders, in the JAX package's order); the others —
-zamba2-7b, whisper-medium, mamba2-780m, llama-3.2-vision-11b — raise.
+dense, MoE and Mamba2 decoders, in the JAX package's order); the others —
+whisper-medium and llama-3.2-vision-11b — raise.
 """
 
 from __future__ import annotations
@@ -15,12 +15,14 @@ from typing import Optional
 from repro_torch.models.config import ModelConfig
 
 ARCHS = (
+    "zamba2-7b",
     "granite-20b",
     "qwen2-1.5b",
     "gemma-7b",
     "smollm-135m",
     "kimi-k2-1t-a32b",
     "qwen2-moe-a2.7b",
+    "mamba2-780m",
 )
 
 

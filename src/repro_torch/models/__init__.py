@@ -1,8 +1,10 @@
-"""Model layer of the port: config, layers, attention, MoE, blocks, decoder LM."""
+"""Model layer of the port: config, layers, attention, MoE, Mamba2 (SSD),
+blocks, decoder LM."""
 
 from repro_torch.models.config import (
     ModelConfig,
     MoEConfig,
+    SSMConfig,
     count_active_params,
     count_params,
     schedule_runs,
@@ -21,6 +23,7 @@ from repro_torch.models.lm import (
 __all__ = [
     "ModelConfig",
     "MoEConfig",
+    "SSMConfig",
     "count_active_params",
     "count_params",
     "lm_apply",

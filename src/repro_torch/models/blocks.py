@@ -1,8 +1,11 @@
 """Block-kind dispatcher: init / full-sequence apply / prefill / chunked
 prefill / decode.
 
-Ported kinds: ``"attn"`` (pre-norm self-attention + MLP) and ``"moe"``
-(pre-norm self-attention + mixture-of-experts FFN).  Only ``block_apply``
+Ported kinds: ``"attn"`` and ``"shared_attn"`` (pre-norm self-attention +
+MLP; the shared block's one set of weights is passed in by ``models/lm.py``
+at each occurrence), ``"moe"`` (pre-norm self-attention +
+mixture-of-experts FFN) and ``"mamba"`` (pre-norm Mamba2 / SSD, through the
+block-level ``"ssm"`` backend of the registry).  Only ``block_apply``
 returns the MoE load-balance loss; the serving paths drop it, as in the
 JAX package.
 """
@@ -13,21 +16,26 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.backends import get_backend
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import ssm
+from repro_torch.models.config import BLOCK_KINDS, ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 
 Tensor = torch.Tensor
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("attn", "moe"):
+    if kind not in BLOCK_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not yet ported to torch")
 
 
 def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype=torch.float32):
     _check_kind(kind)
+    if kind == "mamba":
+        return {"norm1": norm_init(cfg.d_model, dtype, device=gen.device),
+                "mamba": ssm.mamba_init(gen, cfg, dtype)}
     params = {
         "norm1": norm_init(cfg.d_model, dtype, device=gen.device),
         "attn": attn.attention_init(gen, cfg, dtype),
@@ -54,6 +62,9 @@ def block_apply(
     _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(params["norm1"], x, cfg.norm, eps)
+    if kind == "mamba":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + get_backend("ssm").apply(params["mamba"], h, cfg), aux
     x = x + attn.attention_apply(params["attn"], h, cfg, positions)
     h = norm_apply(params["norm2"], x, cfg.norm, eps)
     y, aux = _ffn(params, kind, h, cfg)
@@ -66,10 +77,14 @@ def block_prefill(
     params, kind: str, x: Tensor, cfg: ModelConfig, n_max: int,
     positions: Optional[Tensor] = None,
 ):
-    """Returns (x, cache)."""
+    """Returns (x, cache): a ``MambaCache`` for a mamba block, the attention
+    backend's state otherwise."""
     _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(params["norm1"], x, cfg.norm, eps)
+    if kind == "mamba":
+        y, cache = get_backend("ssm").prefill(params["mamba"], h, cfg, n_max)
+        return x + y, cache
     y, cache = attn.attention_prefill(params["attn"], h, cfg, n_max, positions)
     x = x + y
     h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
@@ -81,6 +96,9 @@ def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
     _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(params["norm1"], x_t, cfg.norm, eps)
+    if kind == "mamba":
+        y, cache = get_backend("ssm").decode_step(params["mamba"], h, cache, cfg, pos)
+        return x_t + y, cache
     y, cache = attn.attention_decode(params["attn"], h, cache, cfg, pos)
     x_t = x_t + y
     h2 = norm_apply(params["norm2"], x_t, cfg.norm, eps)
@@ -91,7 +109,9 @@ def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
 def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
                         positions: Tensor):
     """Advance one block's decode cache by a chunk of prompt tokens: the
-    residual structure of ``block_decode`` over ``c`` tokens at once.
+    residual structure of ``block_decode`` over ``c`` tokens at once.  A
+    mamba block runs its token recurrence (``decode_step``) over the chunk,
+    as the JAX package does, not the chunked SSD.
 
     Args:
       params: block params.
@@ -107,6 +127,12 @@ def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
     _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(params["norm1"], x, cfg.norm, eps)
+    if kind == "mamba":
+        ssm_backend, ys = get_backend("ssm"), []
+        for i in range(h.shape[1]):
+            y_t, cache = ssm_backend.decode_step(params["mamba"], h[:, i], cache, cfg, None)
+            ys.append(y_t)
+        return x + torch.stack(ys, dim=1), cache
     y, cache = attn.attention_prefill_chunk(params["attn"], h, cache, cfg, positions)
     x = x + y
     h2 = norm_apply(params["norm2"], x, cfg.norm, eps)

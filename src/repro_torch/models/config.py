@@ -3,11 +3,13 @@
 
 A model is a repeating ``pattern`` of blocks applied ``n_groups`` times plus
 an optional ``tail``.  The port runs decoder-only models of ``"attn"``
-(attention + MLP) and ``"moe"`` (attention + mixture-of-experts FFN)
-blocks on the ``taylor``, ``softmax``, ``softmax_window`` and ``linear_elu``
-backends, uniform or per pattern position (``attention_schedule``: hybrid
-models such as the Based-style taylor + ``softmax_window`` interleave).
-SSM, encoder-decoder and VLM fields are not yet ported.
+(attention + MLP), ``"moe"`` (attention + mixture-of-experts FFN),
+``"mamba"`` (Mamba2 / SSD) and ``"shared_attn"`` (attention + MLP whose
+weights every occurrence shares) blocks.  The attention blocks run on the
+``taylor``, ``softmax``, ``softmax_window`` and ``linear_elu`` backends,
+uniform or per pattern position (``attention_schedule``: hybrid models such
+as the Based-style taylor + ``softmax_window`` interleave).  The
+encoder-decoder and VLM fields are not yet ported.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Optional, Tuple
 
 from repro_torch.core.feature_map import TaylorConfig
 
-BLOCK_KINDS = ("attn", "moe")
+BLOCK_KINDS = ("attn", "moe", "mamba", "shared_attn")
 ACTS = ("silu", "gelu", "geglu")
 ATTN_IMPLS = ("auto", "torch", "cuda")
 REMATS = ("none", "full", "dots_saveable")
@@ -34,6 +36,21 @@ class MoEConfig:
     router_noise: float = 0.0      # carried, read by no path (as in the JAX package)
     impl: str = "auto"             # "dense" | "ep" | "ep_a2a" | "auto"
     a2a_quant: str = "none"        # "none" | "int8": read by "ep_a2a" only
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64             # P — SSD head channel dim
+    conv_width: int = 4
+    n_groups: int = 1              # B/C groups (GQA analogue)
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_ssm_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +103,7 @@ class ModelConfig:
     attn_window: int = 128
 
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
 
     # --- numerics / training ---
     dtype: str = "bfloat16"        # activation dtype
@@ -105,6 +123,8 @@ class ModelConfig:
                 )
         if "moe" in self.pattern + self.tail and self.moe is None:
             raise ValueError("a 'moe' block needs ModelConfig.moe")
+        if "mamba" in self.pattern + self.tail and self.ssm is None:
+            raise ValueError("a 'mamba' block needs ModelConfig.ssm")
         if self.act not in ACTS:
             raise ValueError(f"act must be one of {ACTS}, got {self.act!r}")
         if self.attn_impl not in ATTN_IMPLS:
@@ -145,8 +165,13 @@ class ModelConfig:
         if norm:
             from repro_torch.backends.registry import get_backend  # noqa: PLC0415 (cycle)
 
-            for name in norm.values():
-                get_backend(name)  # raises on unknown or unported names
+            for pos, name in norm.items():
+                backend = get_backend(name)  # raises on unknown names
+                if backend.level != "qkv":
+                    raise ValueError(
+                        f"attention_schedule position {pos}: backend {name!r} "
+                        f"is {backend.level}-level, not a qkv attention backend"
+                    )
         object.__setattr__(
             self,
             "attention_schedule",
@@ -162,9 +187,14 @@ class ModelConfig:
         return self.n_groups * len(self.pattern) + len(self.tail)
 
     @property
+    def is_attention_free(self) -> bool:
+        """True when every block is a mamba block (no attention layer)."""
+        return set(self.pattern) | set(self.tail) <= {"mamba"}
+
+    @property
     def pattern_backends(self) -> Tuple[str, ...]:
         """Backend name per pattern position: the scheduled name, else
-        ``attention``."""
+        ``attention`` (mamba positions too, where it is never read)."""
         sched = dict(self.attention_schedule)
         return tuple(sched.get(i, self.attention) for i in range(len(self.pattern)))
 
@@ -179,10 +209,11 @@ class ModelConfig:
 
     @property
     def attention_backend_names(self) -> Tuple[str, ...]:
-        """Sorted unique backend names of the attention layers (the pattern's
-        and, with a tail, the default)."""
-        names = set(self.pattern_backends)
-        if self.tail:
+        """Sorted unique backend names of the attention layers: the
+        pattern's positions that are not mamba blocks and, with a tail that
+        holds an attention block, the default."""
+        names = {b for b, kind in zip(self.pattern_backends, self.pattern) if kind != "mamba"}
+        if any(kind != "mamba" for kind in self.tail):
             names.add(self.attention)
         return tuple(sorted(names))
 
@@ -195,6 +226,8 @@ class ModelConfig:
     @property
     def uses_kv_cache(self) -> bool:
         """True if any layer's backend keeps a KV cache (full or a ring)."""
+        if self.is_attention_free:
+            return False
         from repro_torch.backends.registry import get_backend  # noqa: PLC0415 (cycle)
 
         return any(get_backend(n).state_kind == "kv" for n in self.attention_backend_names)
@@ -202,7 +235,10 @@ class ModelConfig:
     @property
     def supports_long_context(self) -> bool:
         """True if every layer's decode state is bounded in context length
-        (moments, or an O(window) ring): no layer keeps an O(n) KV cache."""
+        (moments, an SSM state, or an O(window) ring): no layer keeps an
+        O(n) KV cache."""
+        if self.is_attention_free:
+            return True
         from repro_torch.backends.registry import get_backend  # noqa: PLC0415 (cycle)
 
         return all(get_backend(n).bounded_state for n in self.attention_backend_names)
@@ -236,13 +272,27 @@ def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
     return 3 * d * d_ff
 
 
+def _mamba_params(cfg: ModelConfig) -> int:
+    """Params of one mamba block: norm1 and ``ssm.mamba_init``'s leaves."""
+    s, d = cfg.ssm, cfg.d_model
+    di, nh = s.d_inner(d), s.n_ssm_heads(d)
+    conv_ch = di + 2 * s.n_groups * s.d_state        # x, B, C
+    n = d                                            # norm1
+    n += d * (di + conv_ch + nh)                     # in_proj: z, x, B, C, dt
+    n += s.conv_width * conv_ch + conv_ch            # conv_w, conv_b
+    n += 3 * nh                                      # A_log, D, dt_bias
+    return n + di * d + di                           # out_proj, gate_norm
+
+
 def _block_params(cfg: ModelConfig, kind: str) -> int:
+    if kind == "mamba":
+        return _mamba_params(cfg)
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     n = 2 * d                                        # norm1, norm2
     n += d * h * hd + 2 * d * hk * hd + h * hd * d   # wq, wk, wv, wo
     if cfg.qkv_bias:
         n += h * hd + 2 * hk * hd
-    if kind == "attn":
+    if kind in ("attn", "shared_attn"):
         return n + _mlp_params(cfg, cfg.d_ff)
     m = cfg.moe                                      # "moe"
     n += d * m.n_experts + m.n_experts * _mlp_params(cfg, m.d_ff_expert)
@@ -253,11 +303,12 @@ def _block_params(cfg: ModelConfig, kind: str) -> int:
 
 def count_params(cfg: ModelConfig) -> int:
     """Exact parameter count of ``lm_init(cfg)``, from the shapes alone (the
-    JAX package's ``count_params``, which traces its ``lm_init``)."""
-    per_group = sum(_block_params(cfg, kind) for kind in cfg.pattern)
-    tail = sum(_block_params(cfg, kind) for kind in cfg.tail)
+    JAX package's ``count_params``, which traces its ``lm_init``).  The
+    shared block's weights are counted once, however often it occurs."""
+    own = lambda kinds: sum(_block_params(cfg, k) for k in kinds if k != "shared_attn")
+    shared = _block_params(cfg, "shared_attn") if "shared_attn" in cfg.pattern + cfg.tail else 0
     embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    return embed + cfg.d_model + cfg.n_groups * per_group + tail
+    return embed + cfg.d_model + cfg.n_groups * own(cfg.pattern) + own(cfg.tail) + shared
 
 
 def count_active_params(cfg: ModelConfig) -> int:

@@ -3,8 +3,11 @@
 The JAX tree stacks every block leaf over the depth scan:
 ``blocks/group/r{j}/... [n_groups, run_len, ...]`` (one run per stretch of
 equal block kind and attention backend: ``schedule_runs``) and
-``blocks/tail/t{i}/...``.  The port keeps one dict
-per layer, in layer order.  The caller converts the JAX arrays with
+``blocks/tail/t{i}/...``.  A ``shared_attn`` block's weights live once, in
+``blocks/shared``: its runs have no ``r{j}`` (the other runs keep their
+run index ``j``) and its tail positions no ``t{i}``.  The port keeps one
+dict per layer, in layer order (``None`` at the shared block's
+occurrences), and the shared block under ``"shared"``.  The caller converts the JAX arrays with
 ``np.asarray`` (this module imports no JAX)::
 
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
@@ -41,16 +44,20 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
     group = tree["blocks"]["group"]
     blocks = []
     for gi in range(cfg.n_groups):
-        for j, (_, _, run_len) in enumerate(schedule_runs(cfg)):
+        for j, (kind, _, run_len) in enumerate(schedule_runs(cfg)):
             for r in range(run_len):
-                blocks.append(tree_map(lambda x: to_t(x[gi, r]), group[f"r{j}"]))
-    for i in range(len(cfg.tail)):
-        blocks.append(tree_map(to_t, tree["blocks"]["tail"][f"t{i}"]))
+                blocks.append(None if kind == "shared_attn"
+                              else tree_map(lambda x: to_t(x[gi, r]), group[f"r{j}"]))
+    for i, kind in enumerate(cfg.tail):
+        blocks.append(None if kind == "shared_attn"
+                      else tree_map(to_t, tree["blocks"]["tail"][f"t{i}"]))
     params = {
         "embed": tree_map(to_t, tree["embed"]),
         "final_norm": tree_map(to_t, tree["final_norm"]),
         "blocks": blocks,
     }
+    if "shared" in tree["blocks"]:
+        params["shared"] = tree_map(to_t, tree["blocks"]["shared"])
     if "unembed" in tree:
         params["unembed"] = tree_map(to_t, tree["unembed"])
     return params
@@ -65,10 +72,11 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     blocks = params["blocks"]
     group = {}
     offset = 0
-    for j, (_, _, run_len) in enumerate(schedule_runs(cfg)):
-        rows = [[blocks[gi * per_group + offset + r] for r in range(run_len)]
-                for gi in range(cfg.n_groups)]
-        group[f"r{j}"] = _stack(rows)
+    for j, (kind, _, run_len) in enumerate(schedule_runs(cfg)):
+        if kind != "shared_attn":
+            rows = [[blocks[gi * per_group + offset + r] for r in range(run_len)]
+                    for gi in range(cfg.n_groups)]
+            group[f"r{j}"] = _stack(rows)
         offset += run_len
     n_group = cfg.n_groups * per_group
     tree = {
@@ -78,7 +86,9 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     }
     if cfg.tail:  # as in the JAX tree, which has no "tail" entry without one
         tree["blocks"]["tail"] = {f"t{i}": tree_map(to_np, blocks[n_group + i])
-                                  for i in range(len(cfg.tail))}
+                                  for i, kind in enumerate(cfg.tail) if kind != "shared_attn"}
+    if "shared" in params:
+        tree["blocks"]["shared"] = tree_map(to_np, params["shared"])
     if "unembed" in params:
         tree["unembed"] = tree_map(to_np, params["unembed"])
     return tree

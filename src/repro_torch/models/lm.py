@@ -7,7 +7,11 @@ leaves)::
     {"embed": {"w": [vocab, d]}, "final_norm": {"scale": [d]},
      "blocks": [layer params, ...]}          # n_layers, group-major, then tail
 
-(plus ``"unembed"`` when embeddings are untied).  Each layer runs under
+(plus ``"unembed"`` when embeddings are untied, and ``"shared"`` when the
+pattern holds ``"shared_attn"`` blocks: that block's one set of weights,
+used by every occurrence, whose ``"blocks"`` entries are ``None``.  So
+every tree walk, the optimizer and ``count_params`` see each shared leaf
+once, and autograd sums its gradient over the occurrences.)  Each layer runs under
 its run's config view (``ModelConfig.layer_cfg`` of the backend that
 ``attention_schedule`` gives its pattern position; the tail under the
 default), in one plain loop over the layers.  Decode caches keep the JAX
@@ -17,8 +21,9 @@ address them alike: one stacked state per run of ``schedule_runs``::
     {"group": (state with leaves [n_groups, run_len, b, ...] per run,),
      "tail": (state [b, ...] per tail block,), "kv_src": None}
 
-where a state is the run's backend's NamedTuple (``TaylorState`` or
-``KVCache``); a hybrid schedule gives a tuple of both.
+where a state is the run's backend's NamedTuple (``TaylorState``,
+``KVCache``, or a mamba block's ``MambaCache``); a hybrid schedule or a
+Mamba2 hybrid gives a tuple of several.
 
 Inputs are a dict ``{"tokens": [b, n] int64/int32}``.
 """
@@ -30,7 +35,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.backends import resolve_backend
+from repro_torch.backends import state_backend
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (
     block_apply,
@@ -73,6 +78,13 @@ def _layer_cfgs(cfg: ModelConfig) -> List[Tuple[str, ModelConfig]]:
     return group * cfg.n_groups + [(kind, tail_cfg) for kind in cfg.tail]
 
 
+def _layers(params, cfg: ModelConfig):
+    """``(kind, layer config, layer params)`` of every layer, in layer
+    order; each shared_attn occurrence gets the one ``params["shared"]``."""
+    return [(kind, lcfg, params["shared"] if kind == "shared_attn" else p)
+            for (kind, lcfg), p in zip(_layer_cfgs(cfg), params["blocks"])]
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -105,8 +117,11 @@ def lm_init(
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
         "final_norm": norm_init(cfg.d_model, dtype),
-        "blocks": [block_init(gen, kind, lcfg, dtype) for kind, lcfg in _layer_cfgs(cfg)],
+        "blocks": [None if kind == "shared_attn" else block_init(gen, kind, lcfg, dtype)
+                   for kind, lcfg in _layer_cfgs(cfg)],
     }
+    if "shared_attn" in cfg.pattern + cfg.tail:
+        params["shared"] = block_init(gen, "shared_attn", cfg, dtype)
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
     return tree_to(params, device)
@@ -161,7 +176,7 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     block = _remat(block_apply, cfg)
-    for (kind, lcfg), p in zip(_layer_cfgs(cfg), params["blocks"]):
+    for kind, lcfg, p in _layers(params, cfg):
         x, a = block(p, kind, x, lcfg, positions)
         aux = aux + a
     return _logits(params, x, cfg), aux
@@ -222,7 +237,7 @@ def lm_prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int):
     x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     states = []
-    for (kind, lcfg), p in zip(_layer_cfgs(cfg), params["blocks"]):
+    for kind, lcfg, p in _layers(params, cfg):
         x, c = block_prefill(p, kind, x, lcfg, n_max, positions)
         states.append(c)
     logits = _logits(params, x[:, -1:, :], cfg)[:, 0, :]
@@ -246,8 +261,7 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
     """
     x_t = _embed_tokens(params, token_t, cfg)
     new_states = []
-    for (kind, lcfg), p, c in zip(_layer_cfgs(cfg), params["blocks"],
-                                  _split_caches(caches, cfg)):
+    for (kind, lcfg, p), c in zip(_layers(params, cfg), _split_caches(caches, cfg)):
         x_t, c = block_decode(p, kind, x_t, c, lcfg, pos)
         new_states.append(c)
     logits = _logits(params, x_t, cfg)
@@ -314,8 +328,7 @@ def _chunk_hidden(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
     )  # [b, c]
     x = _embed_tokens(params, tokens, cfg)
     new_states = []
-    for (kind, lcfg), p, cch in zip(_layer_cfgs(cfg), params["blocks"],
-                                    _split_caches(caches, cfg)):
+    for (kind, lcfg, p), cch in zip(_layers(params, cfg), _split_caches(caches, cfg)):
         x, cch = block_prefill_chunk(p, kind, x, cch, lcfg, positions)
         new_states.append(cch)
     return x, _pack_caches(new_states, cfg)
@@ -323,28 +336,31 @@ def _chunk_hidden(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
 
 def lm_init_caches(cfg: ModelConfig, batch: int, n_max: int, device=None):
     """Zero decode caches with the exact structure ``lm_prefill`` produces
-    (KV leaves in ``cfg.dtype``, the activations' dtype).  Each run's state
-    comes from its own backend, so a hybrid schedule gives a tuple of
-    different state types."""
+    (KV leaves and a mamba block's conv window in ``cfg.dtype``, the
+    activations' dtype).  Each run's state comes from its own backend (a
+    mamba run's from the block-level "ssm" one), so a hybrid schedule or a
+    Mamba2 hybrid gives a tuple of different state types."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
 
-    def one(rcfg):
-        return resolve_backend(rcfg).init_cache(rcfg, batch, n_max, device, dtype)
+    def one(kind, rcfg):
+        return state_backend(kind, rcfg).init_cache(rcfg, batch, n_max, device, dtype)
 
     def stack(state, rl):
         return tree_map(lambda x: x.expand((cfg.n_groups, rl) + x.shape).clone(), state)
 
-    group = tuple(stack(one(rcfg), rl) for _, rcfg, rl in _cfg_runs(cfg)) \
+    group = tuple(stack(one(kind, rcfg), rl) for kind, rcfg, rl in _cfg_runs(cfg)) \
         if cfg.n_groups else ()
     tail_cfg = cfg.layer_cfg(cfg.attention)
-    return {"group": group, "tail": tuple(one(tail_cfg) for _ in cfg.tail), "kv_src": None}
+    return {"group": group, "tail": tuple(one(kind, tail_cfg) for kind in cfg.tail),
+            "kv_src": None}
 
 
 def lm_state_bytes(cfg: ModelConfig, batch: int, n_max: int) -> int:
     """Decode-state bytes of the whole cache, summed per layer, each run
-    with its own backend's state (taylor moments O(1), a softmax KV cache
-    O(n_max), a softmax_window ring O(window)); KV leaves in ``cfg.dtype``.
+    with its own backend's state (taylor moments and SSM states O(1), a
+    softmax KV cache O(n_max), a softmax_window ring O(window)); KV leaves
+    and conv windows in ``cfg.dtype``.
 
     Shapes only: the cache is built on the ``meta`` device, so nothing is
     allocated on the card."""

@@ -8,7 +8,10 @@ warm-up steps, then records 3 steps with
 Taylor kernels, matrix products, everything else), the device's busy and
 idle share of the wall time, and one JSON line with those numbers.
 
-  PYTHONPATH=src python -m repro_torch.profile_train [--arch qwen2-1.5b]
+  PYTHONPATH=src python -m repro_torch.profile_train [--arch qwen2-1.5b] [--n-groups 2]
+
+``--n-groups`` cuts the depth (zamba2-7b's 5.9 B params with their AdamW
+state do not fit one card; 2 of its 11 groups do).
 
 It needs a CUDA device, and exits 1 if the profiler recorded no device
 time.
@@ -52,9 +55,12 @@ def _group(name: str) -> str:
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--n-groups", type=int, default=None, help="default: the published depth")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     cfg = get_config(args.arch)
+    if args.n_groups is not None:
+        cfg = cfg.replace(n_groups=args.n_groups)
     task = make_task("bigram", cfg.vocab, SEQ, BATCH, seed=0)
     batch = {k: torch.from_numpy(v).to(device) for k, v in task.batch_at(0).items()}
     opt = adamw(cosine_warmup(2e-3, 2, WARMUP + STEPS))
@@ -86,7 +92,7 @@ def main(argv=()) -> int:
                 other.append((dev_us / 1e3 / STEPS, ev.key[:90]))
     busy_ms = sum(by_group.values())
     per_step = {g: t / STEPS for g, t in sorted(by_group.items(), key=lambda x: -x[1])}
-    print(f"{cfg.name} b={BATCH} n={SEQ} {cfg.dtype} remat={cfg.remat}: "
+    print(f"{cfg.name} x{cfg.n_groups} groups b={BATCH} n={SEQ} {cfg.dtype} remat={cfg.remat}: "
           f"{STEPS} profiled steps, {wall_ms / STEPS:.1f} ms/step wall")
     if busy_ms == 0:
         print("device time: not measured (the profiler recorded no CUDA kernel)")

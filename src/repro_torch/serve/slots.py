@@ -12,7 +12,8 @@ Layout (the structure ``lm_prefill`` returns):
 
 ``caches["group"]`` holds one state per run of ``schedule_runs``, each of
 its own backend's type (a hybrid schedule mixes ``TaylorState`` and
-``KVCache``); every slot operation walks each run's state alike.
+``KVCache``, a Mamba2 hybrid adds ``MambaCache``); every slot operation
+walks each run's state alike.
 
 ``write_slot`` and ``clear_slot`` update the cache IN PLACE (the JAX
 package donates the buffer for the same effect) and return it;
@@ -31,7 +32,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.backends import get_backend, resolve_backend
+from repro_torch.backends import get_backend, resolve_backend, state_backend
 from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.lm import lm_init_caches
 from repro_torch.tree import tree_leaves
@@ -72,8 +73,9 @@ def slot_state_kinds(cfg: ModelConfig) -> Dict[str, str]:
     """Per-block-kind decode-state kinds of this config's cache.
 
     ``"kv"`` leaves are O(n_max) per slot (or O(window) for a ring),
-    ``"moments"`` O(1) in context length.  An ``"moe"`` block keeps its
-    attention's state, as an ``"attn"`` block does.  Under a hybrid schedule a block
+    ``"moments"`` and ``"ssm"`` O(1) in context length.  An ``"moe"`` or
+    ``"shared_attn"`` block keeps its attention's state, as an ``"attn"``
+    block does; a ``"mamba"`` block the ``"ssm"`` state.  Under a hybrid schedule a block
     kind can hold several state kinds at once; they are joined with "+" in
     first-appearance pattern order, e.g. ``{"attn": "moments+kv"}``.
 
@@ -89,10 +91,11 @@ def slot_state_kinds(cfg: ModelConfig) -> Dict[str, str]:
             kinds.append(state_kind)
         out[kind] = "+".join(kinds)
 
+    ssm_kind = get_backend("ssm").state_kind
     for kind, bk in zip(cfg.pattern, cfg.pattern_backends):
-        add(kind, get_backend(bk).state_kind)
+        add(kind, ssm_kind if kind == "mamba" else get_backend(bk).state_kind)
     for kind in cfg.tail:
-        add(kind, get_backend(cfg.attention).state_kind)
+        add(kind, ssm_kind if kind == "mamba" else get_backend(cfg.attention).state_kind)
     return out
 
 
@@ -141,8 +144,9 @@ def read_slot(caches, slot: int):
 def slot_health(caches, cfg: ModelConfig) -> Tensor:
     """Per-slot health of the whole slotted cache (the corruption sweep).
 
-    Applies each run's backend ``state_health`` (finite moments / KV plus
-    the backend's invariants, e.g. KV ``length`` bounds) with the group
+    Applies each run's backend ``state_health`` (finite moments / KV /
+    SSD state plus the backend's invariants, e.g. KV ``length`` bounds; a
+    mamba run's from the "ssm" backend) with the group
     runs' stacking axes folded into the batch axis, then AND-reduces every
     layer of a slot.
 
@@ -157,7 +161,7 @@ def slot_health(caches, cfg: ModelConfig) -> Tensor:
       trusted.
     """
     parts = []
-    for (_, bk, _), state in zip(schedule_runs(cfg), caches["group"]):
+    for (kind, bk, _), state in zip(schedule_runs(cfg), caches["group"]):
         rcfg = cfg.layer_cfg(bk)
         g, r, n_slots = next(x for x in state if x is not None).shape[:3]
         # [n_groups, run_len, slots, ...] -> [slots * n_groups * run_len, ...]
@@ -166,11 +170,11 @@ def slot_health(caches, cfg: ModelConfig) -> Tensor:
                 (n_slots * g * r,) + x.shape[3:])
             for x in state
         ))
-        h = resolve_backend(rcfg).state_health(flat, rcfg)
+        h = state_backend(kind, rcfg).state_health(flat, rcfg)
         parts.append(h.reshape(n_slots, g * r).all(dim=1))
     tail_cfg = cfg.layer_cfg(cfg.attention)
-    for state in caches["tail"]:
-        parts.append(resolve_backend(tail_cfg).state_health(state, tail_cfg))
+    for kind, state in zip(cfg.tail, caches["tail"]):
+        parts.append(state_backend(kind, tail_cfg).state_health(state, tail_cfg))
     ok = parts[0]
     for p in parts[1:]:
         ok = ok & p

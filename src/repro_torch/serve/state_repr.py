@@ -70,8 +70,10 @@ def _map_state_nodes(cfg: ModelConfig, fn, *trees, with_backend: bool = False) -
     The codec building block: applies ``fn`` to each attention-state node
     (``TaylorState`` / ``KVCache`` / their encoded forms) of one or more
     congruent cache trees, run by run as ``lm_init_caches`` built them, so
-    a hybrid schedule's per-run states stay congruent.  Other top-level
-    keys of ``trees[0]`` (``kv_src``, ``paged``) pass through untouched.
+    a hybrid schedule's per-run states stay congruent.  A mamba block's
+    O(1) ``MambaCache`` is never re-encoded: it stays dense under every
+    codec.  Other top-level keys of ``trees[0]`` (``kv_src``, ``paged``)
+    pass through untouched.
 
     Args:
       cfg: model config (pattern, tail and schedule decide the runs).
@@ -88,14 +90,17 @@ def _map_state_nodes(cfg: ModelConfig, fn, *trees, with_backend: bool = False) -
     """
     out = dict(trees[0])
 
-    def call(bk, *nodes):
+    def call(kind, bk, *nodes):
+        if kind == "mamba":
+            return nodes[0]
         return fn(bk, *nodes) if with_backend else fn(*nodes)
 
     out["group"] = tuple(
-        call(bk, *nodes)
-        for (_, bk, _), nodes in zip(schedule_runs(cfg), zip(*[t["group"] for t in trees]))
+        call(kind, bk, *nodes)
+        for (kind, bk, _), nodes in zip(schedule_runs(cfg), zip(*[t["group"] for t in trees]))
     )
-    out["tail"] = tuple(call(cfg.attention, *nodes) for nodes in zip(*[t["tail"] for t in trees]))
+    out["tail"] = tuple(call(kind, cfg.attention, *nodes)
+                        for kind, nodes in zip(cfg.tail, zip(*[t["tail"] for t in trees])))
     return out
 
 

@@ -12,7 +12,9 @@ qwen2-1.5b through ``ServeEngine`` (slotted moment-state cache, decode
 blocks, mid-flight admission) against the one-request-at-a-time per-token
 loop ``generate_loop``.
 
-It runs on the CUDA card; pass ``--device cpu`` for the CPU.
+It runs on the CUDA card; pass ``--device cpu`` for the CPU.  The two
+parts' functions take smaller sizes (``cache_growth(device, n_ctxs)``,
+``continuous_batching(device, n_req, new_tokens)``).
 
   PYTHONPATH=src python -m repro_torch.serve_longcontext --device cpu
 """
@@ -44,7 +46,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def cache_growth(device):
+def cache_growth(device, n_ctxs=N_CTX):
     """{backend: {n_ctx: (cache bytes, µs per decode token)}}."""
     rng = np.random.default_rng(0)
     out = {}
@@ -53,7 +55,7 @@ def cache_growth(device):
         params = lm_init(torch.Generator().manual_seed(0), cfg, device=device)
         print(f"\n== backend: {backend} (MQA kv=1) ==")
         out[backend] = {}
-        for n_ctx in N_CTX:
+        for n_ctx in n_ctxs:
             caches = lm_init_caches(cfg, 1, n_ctx, device=device)
             prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 64))).to(device)
             _, caches_p = lm_prefill(params, {"tokens": prompt}, cfg, n_max=n_ctx)
@@ -72,12 +74,11 @@ def cache_growth(device):
     return out
 
 
-def continuous_batching(device):
+def continuous_batching(device, n_req=8, new_tokens=32):
     """(tokens/s of the per-token loop, of the engine, per-slot state bytes)."""
     rng = np.random.default_rng(0)
     cfg = get_reduced("qwen2-1.5b")  # taylor backend
     params = lm_init(torch.Generator().manual_seed(0), cfg, device=device)
-    n_req, new_tokens = 8, 32
     prompts = [rng.integers(0, cfg.vocab, (int(n),)).astype(np.int64)
                for n in rng.integers(8, 33, n_req)]
     print(f"\n== continuous batching: {n_req} mixed-length requests, "

@@ -1,12 +1,14 @@
 """Fault tolerance demo: training survives a (simulated) preemption.
 
 The port's counterpart of the JAX package's ``examples/train_resume.py``:
-reduced qwen2-1.5b on bigram data trains 30 steps uninterrupted; then a
-second run with a checkpoint every 10 steps is stopped at step 15, and a
-third invocation of the same loop resumes from the newest committed
-checkpoint and finishes.  The data pipeline is stateless in the step index,
-so the resumed weights must equal the uninterrupted run's (max |Δ| < 1e-5).
-It runs on the CUDA card; pass ``--device cpu`` for the CPU.
+reduced qwen2-1.5b on bigram data trains ``STEPS`` (30) steps
+uninterrupted; then a second run with a checkpoint every third of them (10)
+is stopped at half of them (15), and a third invocation of the same loop
+resumes from the newest committed checkpoint and finishes.  The data
+pipeline is stateless in the step index, so the resumed weights must equal
+the uninterrupted run's (max |Δ| < 1e-5).  It runs on the CUDA card; pass
+``--device cpu`` for the CPU.  ``run(device, steps)`` is the demo at
+another length.
 
   PYTHONPATH=src python -m repro_torch.train_resume --device cpu
 """
@@ -35,7 +37,14 @@ def main(argv=None) -> float:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    return run(resolve_device(args.device))
+
+
+def run(device, steps: int = STEPS) -> float:
+    """The demo with ``steps`` (at least 6) steps a full run, a checkpoint
+    every ``steps // 3`` and the stop at ``steps // 2``; returns the max
+    param divergence of the resumed run."""
+    every, stop = steps // 3, steps // 2
 
     cfg = get_reduced("qwen2-1.5b")
     task = make_task("bigram", cfg.vocab, SEQ_LEN, BATCH, seed=0)
@@ -50,19 +59,21 @@ def main(argv=None) -> float:
         return train_state_init(torch.Generator().manual_seed(0), cfg, opt, device=device)
 
     # --- uninterrupted reference ---
-    ref = run_training(step, fresh(), batch_at, TrainLoopConfig(total_steps=STEPS, log_every=10))
+    ref = run_training(step, fresh(), batch_at,
+                       TrainLoopConfig(total_steps=steps, log_every=every))
 
     # --- interrupted + resumed ---
     ckpt = tempfile.mkdtemp(prefix="repro_torch_resume_")
     try:
-        print("\n[phase 1] training with checkpoint_every=10, killed at step ~15")
+        print(f"\n[phase 1] training with checkpoint_every={every}, killed at step ~{stop}")
         run_training(step, fresh(), batch_at,
-                     TrainLoopConfig(total_steps=15, checkpoint_dir=ckpt, checkpoint_every=10,
-                                     log_every=10, async_save=False))
+                     TrainLoopConfig(total_steps=stop, checkpoint_dir=ckpt,
+                                     checkpoint_every=every, log_every=every,
+                                     async_save=False))
         print("\n[phase 2] rerunning the same command — auto-resume:")
         resumed = run_training(step, fresh(), batch_at,
-                               TrainLoopConfig(total_steps=STEPS, checkpoint_dir=ckpt,
-                                               checkpoint_every=10, log_every=10,
+                               TrainLoopConfig(total_steps=steps, checkpoint_dir=ckpt,
+                                               checkpoint_every=every, log_every=every,
                                                async_save=False))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)

@@ -53,7 +53,9 @@ def test_training_modules_stand_alone():
             "repro_torch.serve_longcontext", "repro_torch.configs.qwen2_1_5b",
             "repro_torch.configs.granite_20b", "repro_torch.configs.gemma_7b",
             "repro_torch.configs.qwen2_moe_a2_7b",
-            "repro_torch.configs.kimi_k2_1t_a32b"} <= mods
+            "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.models.ssm",
+            "repro_torch.backends.ssm", "repro_torch.configs.mamba2_780m",
+            "repro_torch.configs.zamba2_7b"} <= mods
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"

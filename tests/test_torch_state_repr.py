@@ -36,6 +36,7 @@ from repro.backends import state as jstate
 from repro.configs import get_reduced as j_get_reduced
 from repro.core import TaylorState as JTaylorState
 from repro.models import lm as jlm
+from repro.models.ssm import MambaCache as JMambaCache
 from repro.serve import state_repr as jrepr
 from repro_torch.backends import available_backends
 from repro_torch.backends import state as tstate
@@ -96,10 +97,15 @@ def _store_kw(rep):
 @functools.lru_cache(maxsize=None)
 def _model(key):
     """(JAX cfg, port cfg, JAX params, port params) of the reduced
-    smollm-135m on one backend (or the taylor/softmax hybrid, ``"mixed"``)."""
-    kw = MIXED if key == "mixed" else dict(attention=key)
-    jcfg = j_get_reduced("smollm-135m").replace(**kw)
-    cfg = get_reduced("smollm-135m", **kw)
+    smollm-135m on one backend (or the taylor/softmax hybrid, ``"mixed"``);
+    a block-level backend ("ssm") fuses the whole layer, so its model is
+    the reduced mamba2-780m (the JAX package's conformance grid's choice)."""
+    if key != "mixed" and available_backends()[key].level == "block":
+        jcfg, cfg = j_get_reduced("mamba2-780m"), get_reduced("mamba2-780m")
+    else:
+        kw = MIXED if key == "mixed" else dict(attention=key)
+        jcfg = j_get_reduced("smollm-135m").replace(**kw)
+        cfg = get_reduced("smollm-135m", **kw)
     jp = jlm.lm_init(jax.random.PRNGKey(0), jcfg)
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg, device="cpu")
     return jcfg, cfg, jp, tp
@@ -117,7 +123,8 @@ def _np(x):
 
 def _to_jax(tree):
     """A port cache tree as the JAX package's (same layout, same leaves)."""
-    kinds = {"TaylorState": JTaylorState, "KVCache": jstate.KVCache}
+    kinds = {"TaylorState": JTaylorState, "KVCache": jstate.KVCache,
+             "MambaCache": JMambaCache}
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -287,8 +294,8 @@ def test_page_allocator_exhaustion_and_reset():
 
 def test_grid_covers_the_advertised_representations():
     assert GRID == [("linear_elu", "dense"), ("linear_elu", "paged"), ("softmax", "dense"),
-                    ("softmax", "paged"), ("softmax_window", "dense"), ("taylor", "dense"),
-                    ("taylor", "int8"), ("taylor", "fp8")]
+                    ("softmax", "paged"), ("softmax_window", "dense"), ("ssm", "dense"),
+                    ("taylor", "dense"), ("taylor", "int8"), ("taylor", "fp8")]
 
 
 @pytest.mark.parametrize("backend,rep", GRID)

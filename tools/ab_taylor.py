@@ -9,7 +9,8 @@ the symbols they export, and loads each through the package's own binding
 chip_smoke.py's checks at its cases (forward: phase 3's ``FWD_CASES`` and
 ``fwd_errors``; backward: phase 3b's ``BWD_CASES`` and ``bwd_check``, every
 gradient within ``BWD_TOL`` of the float64 plain version; then phase 12's
-head-dim-128 launches, ``ZOO_CASES``), and times each
+zoo launches, ``ZOO_CASES``, zamba2's head dim 112 padded to 128 as the
+wrapper pads it), and times each
 kernel of each build in turns (A B … B A, ``--rounds`` times) with CUDA
 events on one card.  Prints the
 card's name and power limit first; exits 1 if a build fails a check.  For
@@ -71,11 +72,12 @@ def fwd_case(torch, K, ref_mod, ln, libs, m, dname, gen):
     """Phase 3's check of each library at one case: [(errors, failures,
     {kernel: launch})]."""
     q, k, v = cs.fwd_inputs(torch, m, getattr(torch, dname), gen, ln)
+    qp, kp, alpha = cs.padded_qk(torch, K, q, k)
     ref32 = ref_mod.taylor_attention_ref(q.float()[None], k.float()[None], v.float()[None],
                                          alpha=3.0)[0]
     results = []
     for lib in libs:
-        run = lambda lib=lib: K.launch_fwd(lib, q, k, v, 3.0, 2)
+        run = lambda lib=lib: K.launch_fwd(lib, qp, kp, v, alpha, 2)
         errs, bad = cs.fwd_errors(torch, run(), ref32)
         results.append((errs, bad, {"fwd": run}))
     return results
@@ -85,14 +87,27 @@ def bwd_case(torch, K, ref_mod, ln, libs, m, dname, gen):
     """Phase 3b's check of each library at one case, as ``fwd_case``: pass 2
     runs on the library's own pass-1 rows."""
     q, k, v, dout = cs.bwd_inputs(torch, m, getattr(torch, dname), gen, ln)
-    out = K.taylor_fwd(q, k, v, alpha=3.0)
+    qp, kp, alpha = cs.padded_qk(torch, K, q, k)
+    d = q.shape[-1]
+    out = K.taylor_fwd(qp, kp, v, alpha=alpha)
     results = []
     for lib in libs:
-        dq_fn = lambda *x, lib=lib: K.launch_bwd_dq(lib, *x, 3.0, 2)
-        dkv_fn = lambda *x, lib=lib: K.launch_bwd_dkv(lib, *x, 3.0, 2)
+        # padded q and k in; dq and dk sliced back to the true head dim
+        def dq_fn(q, k, v, dout, out, lib=lib):
+            dq, den, dden = K.launch_bwd_dq(lib, *cs.padded_qk(torch, K, q, k)[:2], v, dout,
+                                            out, alpha, 2)
+            return dq[..., :d], den, dden
+
+        def dkv_fn(q, k, v, dout, den, dden, lib=lib):
+            dk, dv = K.launch_bwd_dkv(lib, *cs.padded_qk(torch, K, q, k)[:2], v, dout, den,
+                                      dden, alpha, 2)
+            return dk[..., :d], dv
+
         errs, _, bad, rows = cs.bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn, dkv_fn)
-        results.append((errs, bad, {"dq": lambda f=dq_fn: f(q, k, v, dout, out),
-                                    "dkv": lambda f=dkv_fn, r=rows: f(q, k, v, dout, *r)}))
+        results.append((errs, bad, {
+            "dq": lambda lib=lib: K.launch_bwd_dq(lib, qp, kp, v, dout, out, alpha, 2),
+            "dkv": lambda lib=lib, r=rows: K.launch_bwd_dkv(lib, qp, kp, v, dout, *r, alpha,
+                                                            2)}))
     return results
 
 
