@@ -17,8 +17,12 @@ zoo at published widths (phase 12: qwen2-1.5b whole, the kernels at head
 dim 128 and at zamba2's head dim 112, granite-20b, gemma-7b and
 qwen2-moe-a2.7b at cut depth, the train_resume and serve_longcontext
 scripts), then Mamba2 (phase 13: mamba2-780m whole, zamba2-7b whole for
-the forward and serving, zamba2-7b's training at cut depth), and prints
-one JSON line describing every ported kernel followed by the device line.
+the forward and serving, zamba2-7b's training at cut depth), then the
+cross-attention families (phase 14: whisper-medium whole with its audio
+frames, on Taylor and softmax attention; llama-3.2-vision-11b whole for the
+forward and serving with its images, its training at cut depth; neither
+reaches a kernel, as in the reference), and prints one JSON line
+describing every ported kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -184,6 +188,27 @@ SSM_CHUNK = (PROMPT_LENS[:3], 128)  # mamba2's chunked-prefill serving: prompts,
 SSD_RECURRENCE = 256  # tokens of layer 0's chunked SSD vs its token recurrence
 SSD_TOL = 1e-4  # that comparison's rel tolerance, float32
 SHARED_GRAD_TOL = 1e-3  # zamba2's shared-block gradient, kernels vs torch (phase 7's)
+# Phase 14: the cross-attention families at published widths (random weights,
+# seed 0, drawn on the card; sources drawn from N(0, 1) with a seed: the
+# conv front end and the vision tower are stubs in the reference too).
+# whisper-medium runs whole everywhere; llama-3.2-vision-11b (40.5 GB of f32
+# params) runs whole for the forward and serving and trains at
+# VLM_TRAIN_GROUPS of its 8 groups (4 attn + 1 cross each; ~31 B/param with
+# AdamW, phase 12's granite, puts one group near 63 GiB at b = 4).
+CROSS_ARCHS = ("whisper-medium", "llama-3.2-vision-11b")
+CROSS_PARAMS = {"whisper-medium": 758_248_448, "llama-3.2-vision-11b": 10_115_977_216}
+CROSS_FWD_B = {"whisper-medium": 4, "llama-3.2-vision-11b": 2}  # forward rows, n = 1024
+# f32 bytes per slot at N_MAX (the reference's lm_state_bytes)
+CROSS_SLOT_BYTES = {"whisper-medium": 837_012_480, "llama-3.2-vision-11b": 3_298_166_272}
+WHISPER_TRAIN_STEPS = 6
+WHISPER_LENS = PROMPT_LENS[:4]  # whisper's requests, each with its own audio frames
+WHISPER_SOFTMAX_LENS = PROMPT_LENS[:2]  # (b): the softmax baseline's requests
+TEACHER = dict(b=2, n=256, steps=8)  # (a)'s teacher-forced prefill + decode vs lm_apply
+TEACHER_TOL = 2e-3  # its atol = rtol (tests/test_models.py)
+VLM_LENS = PROMPT_LENS[:2]  # the VLM's requests: 2 slots of 3.3 GB of state each
+VLM_IMAGE_STEPS = 8  # tokens of one prompt under two images
+VLM_TRAIN_GROUPS = 1
+VLM_TRAIN = dict(steps=2, b=4)
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -692,18 +717,22 @@ def phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init
                 peak_gib=peak / 2**30, torch_step_ms=torch_step * 1e3, grad_rel_err=worst)
 
 
-def serve_requests(torch, ServeEngine, Request, params, cfg, lens=PROMPT_LENS, max_slots=4):
+def serve_requests(torch, ServeEngine, Request, params, cfg, lens=PROMPT_LENS, max_slots=4,
+                   extras=None, **engine_kw):
     """Phase 5/6 traffic: greedy requests of prompts ``lens`` (6 by default)
-    on ``max_slots`` slots.  Returns (prompts, outputs, engine stats, wall
-    seconds, the slotted cache's facts: its runs' state types, bytes per
-    slot and S2 bytes per slot).  The engine, which holds the weights and
-    the cache, is freed on return."""
-    from repro_torch.serve import slots
-
+    on ``max_slots`` slots; ``extras`` (a list, one dict of numpy arrays
+    [1, ...] per request) gives each request its own source.  Returns
+    (prompts, outputs, engine stats, wall seconds, the slotted cache's
+    facts: its runs' state types, bytes per slot and S2 bytes per slot).
+    The engine, which holds the weights and the cache, is freed on
+    return."""
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen) for n in lens]
-    eng = ServeEngine(params, cfg, max_slots=max_slots, n_max=N_MAX, decode_block=16)
-    rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW)) for p in prompts]
+    eng = ServeEngine(params, cfg, max_slots=max_slots, n_max=N_MAX, decode_block=16,
+                      **engine_kw)
+    rids = [eng.submit(Request(tokens=p.numpy(), max_new_tokens=MAX_NEW,
+                               extras=extras[i] if extras else {}))
+            for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
     outs = eng.run()
     torch.cuda.synchronize()
@@ -713,7 +742,7 @@ def serve_requests(torch, ServeEngine, Request, params, cfg, lens=PROMPT_LENS, m
             fail(f"request of prompt {len(p)} did not finish with {MAX_NEW} tokens")
     check_no_faults(eng.stats(), f"serving {cfg.attention} ({cfg.dtype})")
     cache = dict(runs=[type(x).__name__ for x in eng.caches["group"]],
-                 slot_bytes=slots.slot_bytes(eng.caches, eng.max_slots),
+                 slot_bytes=eng.slot_state_bytes,
                  s2_bytes=s2_bytes_per_slot(eng.caches, eng.max_slots))
     return prompts, [outs[r] for r in rids], eng.stats(), wall, cache
 
@@ -727,14 +756,20 @@ def check_no_faults(st, what):
              f"quarantined={st.get('quarantined', 0)} without an injected fault")
 
 
-def cross_check(torch, lm_apply, params, cfg, prompts, outs):
+def on_card(torch, ex):
+    """A request's extras (numpy arrays) as tensors on the card."""
+    return {k: torch.as_tensor(v).cuda() for k, v in (ex or {}).items()}
+
+
+def cross_check(torch, lm_apply, params, cfg, prompts, outs, extras=None):
     """Phase 6: each engine token against the argmax of ``lm_apply`` (through
-    the kernel) over prompt + output.  Returns (mismatches that are not
-    near-ties, positions whose top-2 logit gap is below NEAR_TIE)."""
+    the kernel) over prompt + output, with each request's own extras.
+    Returns (mismatches that are not near-ties, positions whose top-2 logit
+    gap is below NEAR_TIE)."""
     near_ties = mismatches = 0
-    for p, o in zip(prompts, outs):
+    for i, (p, o) in enumerate(zip(prompts, outs)):
         seq = torch.cat([p, torch.as_tensor(o[:-1])]).cuda()[None]
-        lg, _ = lm_apply(params, {"tokens": seq}, cfg)
+        lg, _ = lm_apply(params, {"tokens": seq, **on_card(torch, extras and extras[i])}, cfg)
         lg = lg[0, len(p) - 1:]
         top2 = lg.topk(2, dim=-1).values
         gap = (top2[:, 0] - top2[:, 1]).cpu()
@@ -747,19 +782,21 @@ def cross_check(torch, lm_apply, params, cfg, prompts, outs):
     return mismatches, near_ties
 
 
-def cross_check_decode(torch, lm_prefill, lm_decode_step, slots, params, cfg, prompts, outs):
+def cross_check_decode(torch, lm_prefill, lm_decode_step, slots, params, cfg, prompts, outs,
+                       extras=None):
     """Each engine token against the argmax of the model's own serving path
     with the engine's tokens fed back: every request prefilled alone into a
     slot of one cache, then all decoded together.  For ``linear_elu``, whose
     decode reads its KV cache with the exact softmax (as the JAX package's
     does) while ``lm_apply`` runs elu linear attention, this is the oracle
     past the first token.  Returns (mismatches that are not near-ties,
-    near-ties)."""
+    near-ties).  ``extras``: each request's source, as in ``cross_check``."""
     n_max = max(len(p) for p in prompts) + MAX_NEW
     caches = slots.init_slot_caches(cfg, len(prompts), n_max)
     first = []
     for j, p in enumerate(prompts):
-        lg, c = lm_prefill(params, {"tokens": p.cuda()[None]}, cfg, n_max)
+        ex = on_card(torch, extras and extras[j])
+        lg, c = lm_prefill(params, {"tokens": p.cuda()[None], **ex}, cfg, n_max)
         caches = slots.write_slot(caches, c, j)
         first.append(lg[0])
     logits = [torch.stack(first)]
@@ -1772,15 +1809,18 @@ def zoo_forward(torch, K, infer, params, cfg, tokens, tag, moe=None):
                 torch_forward_ms=torch_ms, **({"top_k_flips": flips["flips"]} if moe else {}))
 
 
-def zoo_train(torch, K, cfg, steps, tag):
-    """``steps`` training steps at phase 7's batch and schedule, from a state
-    drawn on the card's generator (seed 0).  Returns the summary."""
+def zoo_train(torch, K, cfg, steps, tag, extras=None, b=None):
+    """``steps`` training steps at phase 7's batch and schedule (its first
+    ``b`` rows, all by default), from a state drawn on the card's generator
+    (seed 0), with ``extras`` (tensors on the card) beside the tokens.
+    Returns the summary."""
     from repro_torch.data import make_task
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.train import make_train_step, train_state_init
 
     opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], steps))
-    batch = bigram_batch(torch, make_task, cfg)
+    batch = {k_: x[:b] for k_, x in bigram_batch(torch, make_task, cfg).items()}
+    batch.update(extras or {})
     # the functional AdamW holds ~9 copies of the params at its peak (params,
     # grads, clipped grads, m, v and their successors, the updates), 55-66 GiB
     # here: free what earlier parts left (engines are freed by the cyclic GC)
@@ -1791,10 +1831,11 @@ def zoo_train(torch, K, cfg, steps, tag):
         torch, K, cfg, init, make_train_step(cfg, opt), batch, steps, tag)
     del state
     steady = sum(times[1:]) / (len(times) - 1)
-    tokens = TRAIN["b"] * TRAIN["n"]
+    rows = batch["tokens"].shape[0]
+    tokens = rows * TRAIN["n"]
     out = dict(losses=losses, first_step_ms=times[0] * 1e3, step_ms=steady * 1e3,
                tokens_per_s=tokens / steady, peak_gib=peak / 2**30, launches=launches)
-    print(f"{tag} {cfg.name} training {cfg.dtype} remat={cfg.remat} b={TRAIN['b']} "
+    print(f"{tag} {cfg.name} training {cfg.dtype} remat={cfg.remat} b={rows} "
           f"n={TRAIN['n']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; first step "
           f"{out['first_step_ms']:.1f} ms, then {out['step_ms']:.1f} ms/step = "
           f"{out['tokens_per_s']:.0f} tokens/s; peak memory {out['peak_gib']:.2f} GiB; "
@@ -1802,19 +1843,20 @@ def zoo_train(torch, K, cfg, steps, tag):
     return out
 
 
-def zoo_serve(torch, K, infer, params, cfg, lens, max_slots, tag):
-    """f32 serving of prompts ``lens`` on ``max_slots`` slots, every token
-    against the ``lm_apply`` argmax (phase 6's near-tie rule) and against
-    the model's own prefill + decode path.  Returns the summary."""
+def zoo_serve(torch, K, infer, params, cfg, lens, max_slots, tag, extras=None):
+    """f32 serving of prompts ``lens`` on ``max_slots`` slots (each request
+    with its ``extras``), every token against the ``lm_apply`` argmax
+    (phase 6's near-tie rule) and against the model's own prefill + decode
+    path.  Returns the summary."""
     from repro_torch.models import lm_decode_step, lm_prefill
     from repro_torch.serve import Request, ServeEngine, slots
 
     cfg32 = cfg.replace(dtype="float32")
     prompts, outs, st, wall, cache = serve_requests(torch, ServeEngine, Request, params, cfg32,
-                                                    lens, max_slots)
-    mismatches, ties = cross_check(torch, infer, params, cfg32, prompts, outs)
+                                                    lens, max_slots, extras)
+    mismatches, ties = cross_check(torch, infer, params, cfg32, prompts, outs, extras)
     own, own_ties = cross_check_decode(torch, lm_prefill, lm_decode_step, slots, params,
-                                       cfg32, prompts, outs)
+                                       cfg32, prompts, outs, extras)
     tps = st["decode_tokens"] / st["decode_seconds"]
     print(f"{tag} {cfg.name} f32 serving of {len(outs)} requests x {MAX_NEW} tokens (prompts "
           f"{list(lens)}) on {max_slots} slots in {wall:.2f} s: prefill "
@@ -1825,7 +1867,7 @@ def zoo_serve(torch, K, infer, params, cfg, lens, max_slots, tag):
     if mismatches or own:
         fail(f"{tag} {cfg.name}: engine tokens differ from the model's argmax")
     return dict(decode_tokens_per_s=tps, prefill_s=st["prefill_seconds"], wall_s=wall,
-                slot_bytes=cache["slot_bytes"], near_ties=ties)
+                slot_bytes=cache["slot_bytes"], near_ties=ties, tokens=outs)
 
 
 def zoo_params(torch, cfg):
@@ -2181,6 +2223,281 @@ def phase_ssm(torch, K, infer):
     return out
 
 
+def source_extras(torch, cfg, b, seed, device="cuda"):
+    """The family's source input for ``b`` rows from ``seed``:
+    ``audio_frames`` [b, n_audio_ctx, d_model] (encdec) or ``image_embeds``
+    [b, n_image_tokens, vision_dim] (vlm), float32 on ``device``.  Every
+    entry is N(0, 1), half of its variance from one vector that all tokens
+    of the row share, as the patch embeddings of one image share its
+    content: with independent tokens the attention's average over 1500-1600
+    of them cancels the source out (on one H100, two such images moved the
+    full-width VLM's last logits by 0.14 of a 4.3 range and gave the same
+    tokens; with a shared vector of unit variance, by 4.0)."""
+    name, width = (("audio_frames", cfg.d_model) if cfg.family == "encdec"
+                   else ("image_embeds", cfg.vision_dim))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shared = torch.randn((b, 1, width), generator=gen, device=device)
+    own = torch.randn((b, cfg.n_source_tokens, width), generator=gen, device=device)
+    return {name: (shared + own) * 0.5**0.5}
+
+
+def request_extras(torch, cfg, n, seed):
+    """One source per request (numpy arrays [1, ...], ``Request.extras``)."""
+    rows = source_extras(torch, cfg, n, seed, device="cpu")
+    return [{k: v[i:i + 1].numpy() for k, v in rows.items()} for i in range(n)]
+
+
+def cross_forward(torch, K, infer, params, cfg, batch, tag):
+    """The inference forward of a cross model (bf16): its logits' shape and
+    finiteness, no Taylor launch (the kernels' envelope excludes cross
+    models, as the reference's does), and its time."""
+    K.taylor_fwd.launches = 0
+    logits, _ = infer(params, batch, cfg)
+    torch.cuda.synchronize()
+    launches = K.taylor_fwd.launches
+    tokens = batch["tokens"]
+    if logits.shape != tokens.shape + (cfg.vocab,) or not torch.isfinite(logits).all():
+        fail(f"{tag} lm_apply logits have the wrong shape or are not finite")
+    del logits
+    ms = cuda_ms(torch, lambda: infer(params, batch, cfg), 2)
+    src = {k: tuple(v.shape) for k, v in batch.items() if k != "tokens"}
+    print(f"{tag} lm_apply {cfg.name} b,n={tuple(tokens.shape)} {src} {cfg.dtype}: "
+          f"taylor_fwd launches={launches} (attention on the torch paths: cross model); "
+          f"forward_ms={ms:.2f}")
+    if launches:
+        fail(f"{tag} lm_apply of a cross model launched taylor_fwd {launches} times")
+    return dict(launches=launches, forward_ms=ms)
+
+
+def teacher_forced(torch, infer, params, cfg, tag):
+    """tests/test_models.py's check at full width, float32: prefill of the
+    first n - steps tokens, then the true tokens decoded one by one; every
+    logit row against ``lm_apply`` over the whole sequence at atol = rtol =
+    TEACHER_TOL."""
+    from repro_torch.models import lm_decode_step, lm_prefill
+
+    b, n, steps = TEACHER["b"], TEACHER["n"], TEACHER["steps"]
+    tokens = torch.randint(0, cfg.vocab, (b, n), generator=torch.Generator().manual_seed(2)).cuda()
+    batch = {"tokens": tokens, **source_extras(torch, cfg, b, 2)}
+    full, _ = infer(params, batch, cfg)
+    got, caches = lm_prefill(params, dict(batch, tokens=tokens[:, :n - steps]), cfg, n)
+    rows = [(got, full[:, n - steps - 1])]
+    for i in range(n - steps, n - 1):
+        got, caches = lm_decode_step(params, tokens[:, i], caches, i, cfg)
+        rows.append((got, full[:, i]))
+    worst = max(float(((g - w).abs() - TEACHER_TOL * w.abs()).max()) for g, w in rows)
+    diff = max(float((g - w).abs().max()) for g, w in rows)
+    print(f"{tag} {cfg.name} f32 teacher-forced prefill of {n - steps} + {steps - 1} decode "
+          f"steps vs lm_apply, b={b}: max |diff| {diff:.3e}, worst |diff| - rtol*|ref| "
+          f"{worst:.3e} (atol = rtol = {TEACHER_TOL})")
+    if not worst <= TEACHER_TOL:
+        fail(f"{tag} prefill + decode disagrees with lm_apply: {worst}")
+    return diff
+
+
+def raises(fn, exc, match):
+    """True when ``fn()`` raises ``exc`` with ``match`` in its message."""
+    try:
+        fn()
+    except exc as e:  # the refusal under test
+        return match in str(e)
+    return False
+
+
+def cross_store_check(torch, params, cfg32, exs, tag):
+    """An int8 slot store: each cross pair's self moments quantised, its
+    CrossCache and ``kv_src`` stored dense and byte-identical to the
+    prefill's after write and read."""
+    from repro_torch.backends.state import CrossCache
+    from repro_torch.models import lm_prefill
+    from repro_torch.serve import slots
+    from repro_torch.serve.state_repr import make_state_store
+    from repro_torch.tree import tree_leaves
+
+    prompt = torch.randint(0, cfg32.vocab, (WHISPER_LENS[0],),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    _, one = lm_prefill(params, {"tokens": prompt[None], **on_card(torch, exs[0])}, cfg32, N_MAX)
+    store = make_state_store(cfg32, 4, N_MAX, state_dtype="int8")
+    stored = store.write_slot(store.init_caches(), one, 1)
+    raw, back = slots.read_slot(stored, 1), store.read_slot(stored, 1)
+    pairs = [i for i, x in enumerate(one["group"]) if isinstance(x, tuple)
+             and isinstance(x[1], CrossCache)]
+    layers = sum(tree_leaves(one["group"][i][1])[0].shape[0]
+                 * tree_leaves(one["group"][i][1])[0].shape[1] for i in pairs)
+    same = all(torch.equal(o, r) and torch.equal(o, b_)
+               for i in pairs for o, r, b_ in zip(tree_leaves(one["group"][i][1]),
+                                                  tree_leaves(raw["group"][i][1]),
+                                                  tree_leaves(back["group"][i][1])))
+    same = same and torch.equal(one["kv_src"], raw["kv_src"]) and torch.equal(
+        one["kv_src"], back["kv_src"])
+    moments = sorted({type(stored["group"][i][0].s2).__name__ for i in pairs})
+    print(f"{tag} int8 slot store: CrossCache of {layers} layers and kv_src "
+          f"{tuple(one['kv_src'].shape)} stored dense and byte-identical after write and "
+          f"read: {same}; self-moment S2 leaves {moments}; bytes per slot "
+          f"{store.slot_bytes(stored):,}")
+    if not (same and layers == cfg32.n_groups and moments == ["QuantizedLeaf"]):
+        fail(f"{tag} the int8 store changed a CrossCache or kv_src, or left a moment dense")
+    return store.slot_bytes(stored)
+
+
+def phase_cross(torch, K, infer):
+    """Phase 14: the cross-attention families at published widths, through
+    the torch paths (the kernels' envelope excludes cross models, as the
+    reference's Pallas envelope does).  (a) whisper-medium whole: its bf16
+    forward at b = 4 with audio frames [4, 1500, 1024], a float32
+    teacher-forced prefill + decode against ``lm_apply``, f32 serving of 4
+    requests each with its own frames (tokens against the argmax and its
+    own decode; bytes per slot against the reference's 837,012,480), an
+    int8 store and an int8 engine run, 6 training steps.  (b) whisper on
+    its softmax baseline: 2 requests through the KV cross state.  (c)
+    llama-3.2-vision-11b whole: the bf16 forward at b = 2 with images [2,
+    1600, 1280], f32 serving of 2 requests (3,298,166,272 B a slot), one
+    prompt under two images, a too-long image rejected with bad_extras.
+    (d) the VLM at VLM_TRAIN_GROUPS group: training steps.  (e) The
+    envelope: "auto" picks the torch paths on the card for both, a forced
+    "cuda" raises.  No Taylor kernel launches anywhere."""
+    import numpy as np
+
+    from repro_torch.backends import get_backend, resolve_backend
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, lm_state_bytes
+    from repro_torch.serve import Request, RequestRejected, ServeEngine, generate
+
+    out, launches = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the envelope
+    taylor, card = get_backend("taylor"), torch.device("cuda")
+    env = {arch: (taylor.resolve_impl(get_config(arch), card),
+                  raises(lambda a=arch: resolve_backend(get_config(arch, attn_impl="cuda")),
+                         ValueError, "cross"))
+           for arch in CROSS_ARCHS}
+    print(f"[14e] taylor resolve_impl under 'auto' on the card, and a forced 'cuda' refused "
+          f"naming cross: {env}")
+    if any(v != ("torch", True) for v in env.values()):
+        fail(f"[14e] the kernels' envelope does not exclude the cross models: {env}")
+    out["envelope"] = env
+    for arch in CROSS_ARCHS:
+        n = count_params(get_config(arch))
+        if n != CROSS_PARAMS[arch]:
+            fail(f"[14] {arch} has {n} params, the reference {CROSS_PARAMS[arch]}")
+
+    # (a) whisper-medium, the whole model
+    cfg = get_config("whisper-medium")
+    cfg32 = cfg.replace(dtype="float32")
+    params = zoo_params(torch, cfg)
+    tokens = torch.randint(0, cfg.vocab, (CROSS_FWD_B[cfg.name], TRAIN["n"]),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"tokens": tokens, **source_extras(torch, cfg, CROSS_FWD_B[cfg.name], 0)}
+    a = dict(params=CROSS_PARAMS[cfg.name], forward=cross_forward(torch, K, infer, params, cfg,
+                                                                  batch, "[14a]"))
+    del batch
+    a["teacher_forced_max_diff"] = teacher_forced(torch, infer, params, cfg32, "[14a]")
+    exs = request_extras(torch, cfg, len(WHISPER_LENS), 1)
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    a["serve"] = zoo_serve(torch, K, infer, params, cfg, WHISPER_LENS, 4, "[14a]", exs)
+    a["state_bytes"] = check_state_bytes(cfg, a["serve"], "[14a]")
+    kv_src = cfg.n_audio_ctx * cfg.d_model * 4
+    print(f"[14a] of which kv_src {kv_src:,} B (the encoder output, f32); the reference's "
+          f"lm_state_bytes {CROSS_SLOT_BYTES[cfg.name]:,}")
+    if a["state_bytes"] != CROSS_SLOT_BYTES[cfg.name]:
+        fail(f"[14a] bytes per slot {a['state_bytes']} != {CROSS_SLOT_BYTES[cfg.name]}")
+    a["int8_store_slot_bytes"] = cross_store_check(torch, params, cfg32, exs, "[14a]")
+    _, q_outs, q_st, _, q_cache = serve_requests(torch, ServeEngine, Request, params, cfg32,
+                                                 WHISPER_LENS, 4, exs, state_dtype="int8")
+    agree = sum(int(t == u) for o, w in zip(q_outs, a["serve"]["tokens"]) for t, u in zip(o, w))
+    print(f"[14a] int8 engine: {agree} of {len(q_outs) * MAX_NEW} tokens equal the dense "
+          f"engine's; decode {q_st['decode_tokens'] / q_st['decode_seconds']:.1f} tokens/s at "
+          f"{q_cache['slot_bytes']:,} B per slot")
+    a["int8"] = dict(agree=agree, slot_bytes=q_cache["slot_bytes"])
+
+    # (b) whisper-medium on its softmax baseline: the KV cross state
+    scfg = get_config("whisper-medium", backend="softmax")
+    b_ = zoo_serve(torch, K, infer, params, scfg, WHISPER_SOFTMAX_LENS, 2, "[14b]",
+                   exs[:len(WHISPER_SOFTMAX_LENS)])
+    launches["whisper_serving"] = taylor_counters(K)
+    print(f"[14a/b] launches (fwd, dq, dkv) over whisper's serving: {launches['whisper_serving']}")
+    if any(launches["whisper_serving"]):
+        fail(f"[14a] whisper's serving launched the Taylor kernels {launches['whisper_serving']}")
+    del params
+    a["train"] = zoo_train(torch, K, cfg, WHISPER_TRAIN_STEPS, "[14a]",
+                           extras=source_extras(torch, cfg, TRAIN["b"], 3))
+    if not a["train"]["losses"][-1] < a["train"]["losses"][0]:
+        fail(f"[14a] whisper-medium loss did not fall: {a['train']['losses']}")
+    out["whisper-medium"], out["whisper-medium-softmax"] = a, b_
+
+    # (c) llama-3.2-vision-11b, the whole model: forward and serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama-3.2-vision-11b")
+    cfg32 = cfg.replace(dtype="float32")
+    params = zoo_params(torch, cfg)
+    tokens = torch.randint(0, cfg.vocab, (CROSS_FWD_B[cfg.name], TRAIN["n"]),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    batch = {"tokens": tokens, **source_extras(torch, cfg, CROSS_FWD_B[cfg.name], 0)}
+    c = dict(params=CROSS_PARAMS[cfg.name], forward=cross_forward(torch, K, infer, params, cfg,
+                                                                  batch, "[14c]"))
+    del batch
+    exs = request_extras(torch, cfg, len(VLM_LENS), 1)
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    c["serve"] = zoo_serve(torch, K, infer, params, cfg, VLM_LENS, 2, "[14c]", exs)
+    c["state_bytes"] = check_state_bytes(cfg, c["serve"], "[14c]")
+    if c["state_bytes"] != CROSS_SLOT_BYTES[cfg.name]:
+        fail(f"[14c] bytes per slot {c['state_bytes']} != {CROSS_SLOT_BYTES[cfg.name]}")
+    prompt = torch.randint(0, cfg.vocab, (1, VLM_LENS[0]), generator=torch.Generator().manual_seed(4))
+    two = {"tokens": prompt.expand(2, -1).cuda(), **source_extras(torch, cfg, 2, 4)}
+    toks = generate(params, two, cfg32, steps=VLM_IMAGE_STEPS)
+    differ = not torch.equal(toks[0], toks[1])
+    print(f"[14c] one {VLM_LENS[0]}-token prompt under two images, {VLM_IMAGE_STEPS} tokens "
+          f"each: {toks[0].tolist()} vs {toks[1].tolist()}; differ: {differ}")
+    if not differ:
+        fail("[14c] two images gave the same tokens")
+    eng = ServeEngine(params, cfg32, max_slots=1, n_max=N_MAX)
+    long_img = {"image_embeds": np.zeros((1, cfg.n_image_tokens + 4, cfg.vision_dim),
+                                         np.float32)}
+    try:
+        eng.submit(Request(tokens=prompt[0].numpy(), max_new_tokens=4, extras=long_img))
+        reason = None
+    except RequestRejected as e:  # the rejection under test
+        reason = e.reason
+    print(f"[14c] a request whose image is 4 tokens too long: rejected with {reason!r}")
+    if reason != "bad_extras":
+        fail(f"[14c] a too-long image was not rejected with bad_extras: {reason}")
+    del eng, params, two
+    launches["vlm_serving"] = taylor_counters(K)
+    if any(launches["vlm_serving"]):
+        fail(f"[14c] the VLM's serving launched the Taylor kernels {launches['vlm_serving']}")
+
+    # (d) the VLM at VLM_TRAIN_GROUPS group(s): training
+    tcfg = get_config("llama-3.2-vision-11b", n_groups=VLM_TRAIN_GROUPS)
+    c["train_params"] = count_params(tcfg)
+    c["train"] = zoo_train(torch, K, tcfg, VLM_TRAIN["steps"], "[14d]",
+                           extras=source_extras(torch, tcfg, VLM_TRAIN["b"], 3),
+                           b=VLM_TRAIN["b"])
+    if not math.isfinite(c["train"]["losses"][-1]):
+        fail(f"[14d] the VLM's loss is not finite: {c['train']['losses']}")
+    out["llama-3.2-vision-11b"] = c
+    out["launches"] = launches
+    return out
+
+
+def cross_launches(cross, name):
+    """Phase 14's launches of kernel ``name`` by path, for the kernels line
+    (all 0: the kernels' envelope excludes cross models)."""
+    i = ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv").index(name)
+    w, v = cross["whisper-medium"], cross["llama-3.2-vision-11b"]
+    out = {f"whisper-medium_train_{WHISPER_TRAIN_STEPS}_steps": w["train"]["launches"][name],
+           "whisper-medium_serving": cross["launches"]["whisper_serving"][i],
+           "llama-3.2-vision-11b_serving": cross["launches"]["vlm_serving"][i],
+           f"llama-3.2-vision-11b_x{VLM_TRAIN_GROUPS}_train_{VLM_TRAIN['steps']}_steps":
+               v["train"]["launches"][name]}
+    if name == "taylor_fwd":
+        out.update({f"{arch}_lm_apply": cross[arch]["forward"]["launches"]
+                    for arch in CROSS_ARCHS})
+    return out
+
+
 def zoo_launches(zoo, name):
     """Phase 12's launches of kernel ``name`` by path, for the kernels line."""
     out = {f"{arch}_train_{ZOO_TRAIN_STEPS[arch]}_steps": zoo[arch]["train"]["launches"][name]
@@ -2427,7 +2744,26 @@ def main() -> int:
           f"groups train {z['train']['step_ms']:.1f} ms/step, peak "
           f"{z['train']['peak_gib']:.2f} GiB")
 
-    # ---- 14. kernels line ----
+    # ---- 14. cross-attention: whisper-medium and llama-3.2-vision-11b ----
+    t0 = time.perf_counter()
+    cross = phase_cross(torch, K, infer)
+    w, wb, v = cross["whisper-medium"], cross["whisper-medium-softmax"], cross[
+        "llama-3.2-vision-11b"]
+    print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
+    print("[14] summary (full widths; forward n=1024 bf16, training b=4 n=1024 bf16 remat "
+          f"full, serving f32; no kernel launches): whisper-medium forward (b=4) "
+          f"{w['forward']['forward_ms']:.2f} ms, train {w['train']['step_ms']:.1f} ms/step "
+          f"({w['train']['tokens_per_s']:.0f} tokens/s, peak {w['train']['peak_gib']:.2f} GiB), "
+          f"decode {w['serve']['decode_tokens_per_s']:.1f} tokens/s at "
+          f"{w['serve']['slot_bytes']} bytes per slot (int8 {w['int8']['slot_bytes']}), softmax "
+          f"baseline decode {wb['decode_tokens_per_s']:.1f} tokens/s at {wb['slot_bytes']} bytes "
+          f"per slot; llama-3.2-vision-11b forward (b=2) {v['forward']['forward_ms']:.2f} ms, "
+          f"decode {v['serve']['decode_tokens_per_s']:.1f} tokens/s at "
+          f"{v['serve']['slot_bytes']} bytes per slot; x{VLM_TRAIN_GROUPS} group "
+          f"({v['train_params']} params) train {v['train']['step_ms']:.1f} ms/step, peak "
+          f"{v['train']['peak_gib']:.2f} GiB")
+
+    # ---- 15. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -2445,7 +2781,8 @@ def main() -> int:
             f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"]["taylor_fwd"],
             "phase11_serving": spec["launches"],
             **zoo_launches(zoo, "taylor_fwd"),
-            **ssm_launches(ssm, "taylor_fwd")},
+            **ssm_launches(ssm, "taylor_fwd"),
+            **cross_launches(cross, "taylor_fwd")},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -2472,7 +2809,8 @@ def main() -> int:
                 "hybrid_lm_apply": hybrid["lm_apply_launches"][name],
                 f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"][name],
                 **zoo_launches(zoo, name),
-                **ssm_launches(ssm, name)},
+                **ssm_launches(ssm, name),
+                **cross_launches(cross, name)},
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -2487,7 +2825,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 15. device line ----
+    # ---- 16. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

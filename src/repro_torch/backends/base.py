@@ -4,8 +4,10 @@ computed.
 A backend is a stateless singleton describing ONE attention algorithm: how
 to run it over a full sequence (``apply``), how to prefill a prompt into a
 decode state (``prefill``), how to advance that state by one token
-(``decode_step``) or by a chunk of prompt tokens (``prefill_chunk``) and
-how to check a state's health.  The model layer and
+(``decode_step``) or by a chunk of prompt tokens (``prefill_chunk``), how
+to check a state's health and, where ``supports_cross``, how to read a
+fixed source as cross-attention (``init_cross_cache``, ``cross_state``,
+``cross_read``).  The model layer and
 the serve engine resolve backends exclusively through
 ``repro_torch.backends.registry``.
 
@@ -36,6 +38,9 @@ class AttentionBackend:
     name: str = ""
     level: str = "qkv"  # "qkv" | "block"
     state_kind: str = "kv"  # "kv" | "moments" | "ssm"
+    # Can serve as the cross-attention of "cross" blocks (encoder-decoder and
+    # VLM models); ``validate`` refuses a model with cross blocks otherwise.
+    supports_cross: bool = False
     impls: Tuple[str, ...] = ("torch",)
     # Serve-layer slot-state representations: which compact encodings of
     # this backend's decode state the engine may hold between dispatches
@@ -60,6 +65,18 @@ class AttentionBackend:
                 f"attention backend {self.name!r} has impls {self.impls}; "
                 f"attn_impl={cfg.attn_impl!r} is not one of them"
             )
+        if self._uses_cross(cfg) and not self.supports_cross:
+            raise ValueError(
+                f"attention backend {self.name!r} does not support "
+                f"cross-attention (supports_cross=False) but the model has "
+                f"cross blocks: {cfg.pattern + cfg.tail}"
+            )
+
+    @staticmethod
+    def _uses_cross(cfg) -> bool:
+        """True for a model with cross blocks or an encdec/vlm family."""
+        kinds = cfg.pattern + cfg.tail + cfg.encoder_pattern
+        return "cross" in kinds or cfg.family in ("vlm", "encdec")
 
     def resolve_impl(self, cfg, device: torch.device) -> str:
         """Concrete impl for a run on ``device``: ``cfg.attn_impl`` unless
@@ -123,3 +140,20 @@ class AttentionBackend:
     def state_health(self, cache, cfg) -> Tensor:
         """``[b]`` bool: True where every floating leaf of the row is finite."""
         return tree_slot_health(cache)
+
+    def init_cross_cache(self, cfg, batch: int, n_src: int, device, dtype: torch.dtype):
+        """Zero cross-attention state for a source of ``n_src`` tokens."""
+        raise NotImplementedError(
+            f"attention backend {self.name!r} does not support cross-attention")
+
+    def cross_state(self, k: Tensor, v: Tensor, cfg):
+        """The cross-attention read state of projected source k/v
+        ``[b, hk, n_src, ·]``."""
+        raise NotImplementedError(
+            f"attention backend {self.name!r} does not support cross-attention")
+
+    def cross_read(self, state, q: Tensor, cfg) -> Tensor:
+        """One decode step's cross-attention: q ``[b, h, d]`` against the
+        fixed state.  Returns ``[b, h, dv]``."""
+        raise NotImplementedError(
+            f"attention backend {self.name!r} does not support cross-attention")

@@ -3,7 +3,8 @@
 The baseline the paper approximates.  One "torch" impl with an internal
 dense/flash split: short sequences use the dense path, long chunk-multiple
 sequences the online-softmax loop over key chunks (same numerics, bounded
-memory).  Decode state is a fixed-capacity per-row KV cache.
+memory).  Decode state is a fixed-capacity per-row KV cache; a cross
+block's source state is its projected K/V, read whole by every token.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ class SoftmaxBackend(AttentionBackend):
 
     name = "softmax"
     state_kind = "kv"
+    supports_cross = True
     impls = ("torch",)
     supports_paged_kv = True
 
@@ -103,3 +105,14 @@ class SoftmaxBackend(AttentionBackend):
         """
         n_max = cache.k.shape[2]
         return tree_slot_health(cache) & (cache.length >= 0) & (cache.length <= n_max)
+
+    def init_cross_cache(self, cfg, batch, n_src, device, dtype):
+        cache = _zero_kv(cfg, batch, n_src, device, dtype)
+        return cache._replace(length=cache.length.fill_(n_src))
+
+    def cross_state(self, k, v, cfg):
+        length = torch.full((k.shape[0],), k.shape[2], dtype=torch.int32, device=k.device)
+        return KVCache(k=k, v=v, length=length)
+
+    def cross_read(self, state, q, cfg):
+        return softmax_decode_step(q, state.k, state.v, state.length)

@@ -1,7 +1,8 @@
 """Decode-state containers shared by the attention backends.
 
 ``TaylorState`` (the moment state) lives in ``core/taylor.py``; the KV
-backends (softmax, linear_elu, softmax_window) keep a ``KVCache``.  The
+backends (softmax, linear_elu, softmax_window) keep a ``KVCache``; a cross
+block adds the fixed ``CrossCache`` of its source.  The
 serve layer's compact storage forms (``serve/state_repr.py``) build on
 ``QuantizedLeaf`` (int8/fp8 payload and power-of-two scale) and the paged
 ``PagedKVCache`` / ``PagedMeta``, with their primitives here.
@@ -9,7 +10,7 @@ serve layer's compact storage forms (``serve/state_repr.py``) build on
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -51,6 +52,15 @@ class KVCache(NamedTuple):
     k: Tensor  # [b, hk, n_max, hd]
     v: Tensor  # [b, hk, n_max, hd]
     length: Tensor  # [b] int32 — valid tokens written per row/slot
+
+
+class CrossCache(NamedTuple):
+    """The fixed cross-attention read state of one source (encoder output
+    or projected image tokens): its K/V (a ``KVCache`` whose length is the
+    source length, KV-kind backends) or its moments (a ``TaylorState``).
+    A cross block's decode cache is the pair ``(self cache, CrossCache)``."""
+
+    kv: Any
 
 
 class QuantizedLeaf(NamedTuple):

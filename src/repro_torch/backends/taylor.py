@@ -10,13 +10,17 @@ Two impls, selected by ``ModelConfig.attn_impl``:
     gradient (``apply``, through ``taylor_attention_kernel_trainable``: the
     backward kernel pair inside its envelope, d_v ≤ 128, and the torch
     recompute outside it).  Causal self-attention only, head dim ≤ 128,
-    full second moment, no decay, standard (+1) expansion; a forced "cuda"
-    outside this envelope is rejected by ``validate``.
+    full second moment, no decay, standard (+1) expansion, and no model
+    with cross blocks (the JAX package keeps its Pallas kernels off the
+    encoder-decoder and VLM families too); a forced "cuda" outside this
+    envelope is rejected by ``validate``.
 
 ``"auto"`` picks the kernel on a CUDA device inside the envelope and the
 PyTorch paths otherwise.  Prefill, chunked prefill and decode always run
 the moment-state paths of ``core/taylor.py`` (prefill needs the chunk
 scan's state handoff; decode is state-bound), as in the JAX package.
+A cross block's source state is the moment state of its whole source
+(``cross_state``), read by each decoder token (``cross_read``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from repro_torch.core import (
     taylor_attention_noncausal,
     taylor_decode_step,
     taylor_prefill_state,
+    taylor_state_read,
 )
 from repro_torch.kernels.taylor_attention.kernel import MAX_HEAD_DIM
 from repro_torch.kernels.taylor_attention.ops import taylor_attention_kernel_trainable
@@ -46,6 +51,7 @@ def _kernel_fits(cfg) -> bool:
         and not t.sym_state
         and t.decay == 1.0
         and cfg.resolved_head_dim <= MAX_HEAD_DIM
+        and not AttentionBackend._uses_cross(cfg)
     )
 
 
@@ -54,6 +60,7 @@ class TaylorBackend(AttentionBackend):
 
     name = "taylor"
     state_kind = "moments"
+    supports_cross = True
     impls = ("torch", "cuda")
     # The O(1) moment state may be held int8/fp8-quantised between serve
     # dispatches, with per-head power-of-two scales; absorbs and reads run
@@ -63,6 +70,12 @@ class TaylorBackend(AttentionBackend):
     def validate(self, cfg):
         super().validate(cfg)
         t = cfg.taylor
+        if t.decay != 1.0 and self._uses_cross(cfg):
+            raise ValueError(
+                "taylor decay is causal-self-attention only, but the model has "
+                "cross/encoder blocks (a position-decayed global source state "
+                "is ill-defined)"
+            )
         if cfg.attn_impl != "cuda":
             return
         if t.decay != 1.0:
@@ -86,6 +99,11 @@ class TaylorBackend(AttentionBackend):
                 f"attn_impl='cuda': head_dim {cfg.resolved_head_dim} > "
                 f"{MAX_HEAD_DIM} exceeds the kernel's shared-memory envelope "
                 "(use attn_impl='torch')"
+            )
+        if self._uses_cross(cfg):
+            raise ValueError(
+                "attn_impl='cuda': the kernel is causal-self-attention only, "
+                "but the model has cross blocks — use attn_impl='auto' or 'torch'"
             )
 
     def resolve_impl(self, cfg, device: torch.device) -> str:
@@ -156,3 +174,15 @@ class TaylorBackend(AttentionBackend):
         """Finite moments AND a non-negative token count ``n0`` per row
         (full or ``sym_state``-packed second moments alike)."""
         return super().state_health(cache, cfg) & (cache.n0 >= 0).all(dim=-1)
+
+    # -- cross-attention -----------------------------------------------------
+
+    def init_cross_cache(self, cfg, batch, n_src, device, dtype):
+        hd = cfg.resolved_head_dim
+        return init_taylor_state(batch, cfg.n_kv_heads, hd, hd, cfg.taylor, device=device)
+
+    def cross_state(self, k, v, cfg):
+        return taylor_prefill_state(k, v, cfg.taylor)
+
+    def cross_read(self, state, q, cfg):
+        return taylor_state_read(state, q, cfg.taylor)

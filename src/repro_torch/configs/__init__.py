@@ -2,9 +2,9 @@
 
 Each ``configs/<arch>.py`` exports ``CONFIG`` (the published config) and
 ``reduced()`` (a tiny same-family config for CPU tests), with the JAX
-package's values.  Only the architectures in ``ARCHS`` are ported (the
-dense, MoE and Mamba2 decoders, in the JAX package's order); the others —
-whisper-medium and llama-3.2-vision-11b — raise.
+package's values.  ``ARCHS`` lists all ten architectures of the JAX
+package's registry, in its order: the dense, MoE and Mamba2 decoders, the
+encoder-decoder whisper-medium and the VLM llama-3.2-vision-11b.
 """
 
 from __future__ import annotations
@@ -22,13 +22,15 @@ ARCHS = (
     "smollm-135m",
     "kimi-k2-1t-a32b",
     "qwen2-moe-a2.7b",
+    "whisper-medium",
     "mamba2-780m",
+    "llama-3.2-vision-11b",
 )
 
 
 def _module(arch: str):
     if arch not in ARCHS:
-        raise ValueError(f"architecture {arch!r} is not yet ported (have {ARCHS})")
+        raise ValueError(f"unknown architecture {arch!r} (have {ARCHS})")
     return importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}"
     )

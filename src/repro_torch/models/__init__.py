@@ -1,5 +1,5 @@
 """Model layer of the port: config, layers, attention, MoE, Mamba2 (SSD),
-blocks, decoder LM."""
+blocks, and the decoder-only, encoder-decoder and VLM assembly."""
 
 from repro_torch.models.config import (
     ModelConfig,

@@ -6,8 +6,9 @@
 ``qkv_bias`` a ``b`` of ``[h, hd]`` / ``[hk, hd]`` each, added before RoPE)
 and RoPE, and
 hands projected heads to the backend's ``apply`` / ``prefill`` /
-``prefill_chunk`` / ``decode_step``.  Activations are ``[b, n, d]``;
-heads ``[b, h, n, hd]``.
+``prefill_chunk`` / ``decode_step``, and for cross-attention (q from the
+decoder, k and v from a fixed source without RoPE) to its ``cross_state``
+/ ``cross_read``.  Activations are ``[b, n, d]``; heads ``[b, h, n, hd]``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.backends import resolve_backend
+from repro_torch.backends.state import CrossCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init
 
@@ -63,15 +65,29 @@ def _out_proj(params, o: Tensor, x_dtype) -> Tensor:
 
 
 def attention_apply(
-    params, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor] = None
+    params,
+    x: Tensor,
+    cfg: ModelConfig,
+    positions: Optional[Tensor] = None,
+    causal: bool = True,
+    kv_src: Optional[Tensor] = None,
 ) -> Tensor:
-    """Causal self-attention over the full sequence."""
+    """Self-attention over the full sequence (``kv_src=None``; causal unless
+    ``causal=False``, as in the encoder), or cross-attention: q from ``x``,
+    k and v from ``kv_src`` ``[b, m, d]`` without RoPE, every query reading
+    the whole source."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     backend = resolve_backend(cfg)
-    q = _project_q(params, x, cfg, positions)
-    k, v = _project_kv(params, x, cfg, positions)
-    o = backend.apply(q, k, v, cfg, causal=True)
+    cross = kv_src is not None
+    if cross and not backend.supports_cross:
+        raise ValueError(
+            f"attention backend {backend.name!r} does not support "
+            "cross-attention (supports_cross=False)"
+        )
+    q = _project_q(params, x, cfg, None if cross else positions)
+    k, v = _project_kv(params, kv_src if cross else x, cfg, None if cross else positions)
+    o = backend.apply(q, k, v, cfg, causal=causal and not cross)
     return _out_proj(params, o, x.dtype)
 
 
@@ -154,3 +170,20 @@ def attention_decode(params, x_t: Tensor, cache, cfg: ModelConfig, pos) -> Tuple
     o, cache = backend.decode_step(cache, q, k, v, cfg, pos_b)
     y = torch.einsum("bhk,hkd->bd", o.to(dtype), params["wo"]["w"].to(dtype))
     return y, cache
+
+
+def cross_prefill(params, kv_src: Tensor, cfg: ModelConfig) -> CrossCache:
+    """The cross-attention read state of a source sequence ``[b, m, d]``,
+    computed once per request (its k and v carry no RoPE)."""
+    k, v = _project_kv(params, kv_src, cfg, None)
+    return CrossCache(kv=resolve_backend(cfg).cross_state(k, v, cfg))
+
+
+def cross_decode(params, x_t: Tensor, cache: CrossCache, cfg: ModelConfig) -> Tensor:
+    """One token's cross-attention ``[b, d_model]`` against the fixed state."""
+    dtype = x_t.dtype
+    q = torch.einsum("bd,dhk->bhk", x_t, params["wq"]["w"].to(dtype))
+    if "b" in params["wq"]:
+        q = q + params["wq"]["b"].to(dtype)
+    o = resolve_backend(cfg).cross_read(cache.kv, q, cfg)
+    return torch.einsum("bhk,hkd->bd", o.to(dtype), params["wo"]["w"].to(dtype))

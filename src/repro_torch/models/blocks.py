@@ -1,13 +1,15 @@
 """Block-kind dispatcher: init / full-sequence apply / prefill / chunked
 prefill / decode.
 
-Ported kinds: ``"attn"`` and ``"shared_attn"`` (pre-norm self-attention +
-MLP; the shared block's one set of weights is passed in by ``models/lm.py``
-at each occurrence), ``"moe"`` (pre-norm self-attention +
-mixture-of-experts FFN) and ``"mamba"`` (pre-norm Mamba2 / SSD, through the
-block-level ``"ssm"`` backend of the registry).  Only ``block_apply``
-returns the MoE load-balance loss; the serving paths drop it, as in the
-JAX package.
+Kinds: ``"attn"`` and ``"shared_attn"`` (pre-norm self-attention + MLP;
+the shared block's one set of weights is passed in by ``models/lm.py`` at
+each occurrence), ``"moe"`` (pre-norm self-attention + mixture-of-experts
+FFN), ``"mamba"`` (pre-norm Mamba2 / SSD, through the block-level ``"ssm"``
+backend of the registry) and ``"cross"`` (pre-norm self-attention, then
+pre-norm cross-attention to the source ``kv_src``, then the MLP; its decode
+cache is the pair ``(self cache, CrossCache)``, the second fixed at
+prefill).  Only ``block_apply`` returns the MoE load-balance loss; the
+serving paths drop it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,19 +30,18 @@ Tensor = torch.Tensor
 
 def _check_kind(kind: str) -> None:
     if kind not in BLOCK_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not yet ported to torch")
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype=torch.float32):
     _check_kind(kind)
+    norm = lambda: norm_init(cfg.d_model, cfg.norm, dtype, device=gen.device)
     if kind == "mamba":
-        return {"norm1": norm_init(cfg.d_model, dtype, device=gen.device),
-                "mamba": ssm.mamba_init(gen, cfg, dtype)}
-    params = {
-        "norm1": norm_init(cfg.d_model, dtype, device=gen.device),
-        "attn": attn.attention_init(gen, cfg, dtype),
-        "norm2": norm_init(cfg.d_model, dtype, device=gen.device),
-    }
+        return {"norm1": norm(), "mamba": ssm.mamba_init(gen, cfg, dtype)}
+    params = {"norm1": norm(), "attn": attn.attention_init(gen, cfg, dtype)}
+    if kind == "cross":
+        params.update(norm_c=norm(), cross=attn.attention_init(gen, cfg, dtype))
+    params["norm2"] = norm()
     if kind == "moe":
         params["moe"] = moe_mod.moe_init(gen, cfg, dtype)
     else:
@@ -56,16 +57,21 @@ def _ffn(params, kind: str, h: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Option
 
 
 def block_apply(
-    params, kind: str, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor] = None
+    params, kind: str, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor] = None,
+    kv_src: Optional[Tensor] = None, causal: bool = True,
 ) -> Tuple[Tensor, Tensor]:
-    """Full-sequence forward.  Returns (x, aux_loss)."""
+    """Full-sequence forward (``causal=False`` for the encoder's blocks;
+    ``kv_src`` is a cross block's source).  Returns (x, aux_loss)."""
     _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(params["norm1"], x, cfg.norm, eps)
     if kind == "mamba":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + get_backend("ssm").apply(params["mamba"], h, cfg), aux
-    x = x + attn.attention_apply(params["attn"], h, cfg, positions)
+    x = x + attn.attention_apply(params["attn"], h, cfg, positions, causal=causal)
+    if kind == "cross":
+        h = norm_apply(params["norm_c"], x, cfg.norm, eps)
+        x = x + attn.attention_apply(params["cross"], h, cfg, kv_src=kv_src)
     h = norm_apply(params["norm2"], x, cfg.norm, eps)
     y, aux = _ffn(params, kind, h, cfg)
     if aux is None:
@@ -75,10 +81,11 @@ def block_apply(
 
 def block_prefill(
     params, kind: str, x: Tensor, cfg: ModelConfig, n_max: int,
-    positions: Optional[Tensor] = None,
+    positions: Optional[Tensor] = None, kv_src: Optional[Tensor] = None,
 ):
-    """Returns (x, cache): a ``MambaCache`` for a mamba block, the attention
-    backend's state otherwise."""
+    """Returns (x, cache): a ``MambaCache`` for a mamba block, the pair
+    ``(self cache, CrossCache)`` for a cross block, the attention backend's
+    state otherwise."""
     _check_kind(kind)
     eps = cfg.norm_eps
     h = norm_apply(params["norm1"], x, cfg.norm, eps)
@@ -87,6 +94,10 @@ def block_prefill(
         return x + y, cache
     y, cache = attn.attention_prefill(params["attn"], h, cfg, n_max, positions)
     x = x + y
+    if kind == "cross":
+        hc = norm_apply(params["norm_c"], x, cfg.norm, eps)
+        x = x + attn.attention_apply(params["cross"], hc, cfg, kv_src=kv_src)
+        cache = (cache, attn.cross_prefill(params["cross"], kv_src, cfg))
     h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
     return x + _ffn(params, kind, h2, cfg)[0], cache
 
@@ -99,8 +110,14 @@ def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
     if kind == "mamba":
         y, cache = get_backend("ssm").decode_step(params["mamba"], h, cache, cfg, pos)
         return x_t + y, cache
+    if kind == "cross":
+        cache, ccache = cache
     y, cache = attn.attention_decode(params["attn"], h, cache, cfg, pos)
     x_t = x_t + y
+    if kind == "cross":
+        hc = norm_apply(params["norm_c"], x_t, cfg.norm, eps)
+        x_t = x_t + attn.cross_decode(params["cross"], hc, ccache, cfg)
+        cache = (cache, ccache)
     h2 = norm_apply(params["norm2"], x_t, cfg.norm, eps)
     # the FFN sees the token as a length-1 sequence [b, 1, d]
     return x_t + _ffn(params, kind, h2[:, None, :], cfg)[0][:, 0, :], cache
@@ -111,7 +128,8 @@ def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
     """Advance one block's decode cache by a chunk of prompt tokens: the
     residual structure of ``block_decode`` over ``c`` tokens at once.  A
     mamba block runs its token recurrence (``decode_step``) over the chunk,
-    as the JAX package does, not the chunked SSD.
+    as the JAX package does, not the chunked SSD; a cross block's chunk
+    tokens each read its fixed source state.
 
     Args:
       params: block params.
@@ -133,7 +151,14 @@ def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
             y_t, cache = ssm_backend.decode_step(params["mamba"], h[:, i], cache, cfg, None)
             ys.append(y_t)
         return x + torch.stack(ys, dim=1), cache
+    if kind == "cross":
+        cache, ccache = cache
     y, cache = attn.attention_prefill_chunk(params["attn"], h, cache, cfg, positions)
     x = x + y
+    if kind == "cross":
+        hc = norm_apply(params["norm_c"], x, cfg.norm, eps)
+        x = x + torch.stack([attn.cross_decode(params["cross"], hc[:, i], ccache, cfg)
+                             for i in range(hc.shape[1])], dim=1)
+        cache = (cache, ccache)
     h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
     return x + _ffn(params, kind, h2, cfg)[0], cache

@@ -2,14 +2,18 @@
 ``repro.models.config.ModelConfig`` that the port runs).
 
 A model is a repeating ``pattern`` of blocks applied ``n_groups`` times plus
-an optional ``tail``.  The port runs decoder-only models of ``"attn"``
+an optional ``tail``, for every block kind of the JAX package: ``"attn"``
 (attention + MLP), ``"moe"`` (attention + mixture-of-experts FFN),
-``"mamba"`` (Mamba2 / SSD) and ``"shared_attn"`` (attention + MLP whose
-weights every occurrence shares) blocks.  The attention blocks run on the
+``"mamba"`` (Mamba2 / SSD), ``"shared_attn"`` (attention + MLP whose
+weights every occurrence shares) and ``"cross"`` (self-attention +
+cross-attention + MLP: the decoder layers of the encoder-decoder family and
+the image layers of the VLM family).  The attention blocks run on the
 ``taylor``, ``softmax``, ``softmax_window`` and ``linear_elu`` backends,
 uniform or per pattern position (``attention_schedule``: hybrid models such
-as the Based-style taylor + ``softmax_window`` interleave).  The
-encoder-decoder and VLM fields are not yet ported.
+as the Based-style taylor + ``softmax_window`` interleave).  Families:
+``"lm"`` (decoder-only), ``"encdec"`` (an ``encoder_pattern`` stack over
+stubbed audio frames, whisper-style) and ``"vlm"`` (a projector over stubbed
+vision-tower embeddings).
 """
 
 from __future__ import annotations
@@ -19,8 +23,11 @@ from typing import Optional, Tuple
 
 from repro_torch.core.feature_map import TaylorConfig
 
-BLOCK_KINDS = ("attn", "moe", "mamba", "shared_attn")
+BLOCK_KINDS = ("attn", "moe", "mamba", "shared_attn", "cross")
+FAMILIES = ("lm", "encdec", "vlm")
 ACTS = ("silu", "gelu", "geglu")
+NORMS = ("rmsnorm", "layernorm")
+POSITIONS = ("rope", "learned", "sinusoidal", "none")
 ATTN_IMPLS = ("auto", "torch", "cuda")
 REMATS = ("none", "full", "dots_saveable")
 
@@ -56,7 +63,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "lm" (the only family ported)
+    family: str                    # "lm" | "encdec" | "vlm"
     d_model: int
     n_heads: int
     n_kv_heads: int
@@ -69,11 +76,11 @@ class ModelConfig:
 
     head_dim: int = 0              # 0 → d_model // n_heads
     act: str = "silu"              # "silu" | "geglu" | "gelu" (tanh GELU)
-    norm: str = "rmsnorm"          # "rmsnorm"
+    norm: str = "rmsnorm"          # "rmsnorm" | "layernorm"
     norm_eps: float = 1e-6
     qkv_bias: bool = False
     tie_embeddings: bool = False
-    pos: str = "rope"              # "rope" | "none"
+    pos: str = "rope"              # "rope" | "learned" | "sinusoidal" | "none"
     rope_theta: float = 10000.0
     embed_scale: bool = False      # gemma-style sqrt(d_model) embedding scale
     logit_softcap: float = 0.0
@@ -93,7 +100,7 @@ class ModelConfig:
     # Maps pattern positions (indices into ``pattern``; the pattern repeats
     # in every group, so a position addresses the same layer of all
     # n_groups) to registered backend names.  Positions absent from it, and
-    # the tail, use ``attention``.  A dict is accepted at construction and
+    # the tail and the encoder, use ``attention``.  A dict is accepted at construction and
     # normalised to a sorted tuple of (position, name) pairs without the
     # entries that name the default, so two spellings of one schedule
     # compare equal and configs stay hashable.
@@ -104,6 +111,15 @@ class ModelConfig:
 
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+
+    # --- encoder-decoder (whisper) ---
+    n_encoder_groups: int = 0
+    encoder_pattern: Tuple[str, ...] = ()
+    n_audio_ctx: int = 0           # stubbed conv-frontend output length
+
+    # --- vlm ---
+    n_image_tokens: int = 0
+    vision_dim: int = 0
 
     # --- numerics / training ---
     dtype: str = "bfloat16"        # activation dtype
@@ -116,11 +132,15 @@ class ModelConfig:
 
     def __post_init__(self):
         self._normalise_schedule()
-        for kind in self.pattern + self.tail:
+        for kind in self.pattern + self.tail + self.encoder_pattern:
             if kind not in BLOCK_KINDS:
-                raise ValueError(
-                    f"block kind {kind!r} is not yet ported (have {BLOCK_KINDS})"
-                )
+                raise ValueError(f"unknown block kind {kind!r}")
+        if self.family not in FAMILIES:
+            raise ValueError(f"family must be one of {FAMILIES}, got {self.family!r}")
+        if self.norm not in NORMS:
+            raise ValueError(f"norm must be one of {NORMS}, got {self.norm!r}")
+        if self.pos not in POSITIONS:
+            raise ValueError(f"pos must be one of {POSITIONS}, got {self.pos!r}")
         if "moe" in self.pattern + self.tail and self.moe is None:
             raise ValueError("a 'moe' block needs ModelConfig.moe")
         if "mamba" in self.pattern + self.tail and self.ssm is None:
@@ -172,6 +192,11 @@ class ModelConfig:
                         f"attention_schedule position {pos}: backend {name!r} "
                         f"is {backend.level}-level, not a qkv attention backend"
                     )
+                if self.pattern[pos] == "cross" and not backend.supports_cross:
+                    raise ValueError(
+                        f"attention_schedule position {pos} is a 'cross' "
+                        f"block but backend {name!r} has supports_cross=False"
+                    )
         object.__setattr__(
             self,
             "attention_schedule",
@@ -185,6 +210,16 @@ class ModelConfig:
     @property
     def n_layers(self) -> int:
         return self.n_groups * len(self.pattern) + len(self.tail)
+
+    @property
+    def n_encoder_layers(self) -> int:
+        return self.n_encoder_groups * len(self.encoder_pattern)
+
+    @property
+    def n_source_tokens(self) -> int:
+        """Length of the cross-attention source: the image tokens (vlm), the
+        audio frames (encdec), 0 for a decoder-only model."""
+        return {"vlm": self.n_image_tokens, "encdec": self.n_audio_ctx}.get(self.family, 0)
 
     @property
     def is_attention_free(self) -> bool:
@@ -210,10 +245,10 @@ class ModelConfig:
     @property
     def attention_backend_names(self) -> Tuple[str, ...]:
         """Sorted unique backend names of the attention layers: the
-        pattern's positions that are not mamba blocks and, with a tail that
-        holds an attention block, the default."""
+        pattern's positions that are not mamba blocks and, with a tail or an
+        encoder that holds an attention block, the default."""
         names = {b for b, kind in zip(self.pattern_backends, self.pattern) if kind != "mamba"}
-        if any(kind != "mamba" for kind in self.tail):
+        if any(kind != "mamba" for kind in self.tail + self.encoder_pattern):
             names.add(self.attention)
         return tuple(sorted(names))
 
@@ -272,12 +307,27 @@ def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
     return 3 * d * d_ff
 
 
+def _norm_params(cfg: ModelConfig) -> int:
+    """Params of one norm: a scale, and a bias for layernorm."""
+    return cfg.d_model * (2 if cfg.norm == "layernorm" else 1)
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    """Params of one attention's projections (wq, wk, wv, wo and the qkv
+    biases)."""
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    n = d * h * hd + 2 * d * hk * hd + h * hd * d
+    if cfg.qkv_bias:
+        n += h * hd + 2 * hk * hd
+    return n
+
+
 def _mamba_params(cfg: ModelConfig) -> int:
     """Params of one mamba block: norm1 and ``ssm.mamba_init``'s leaves."""
     s, d = cfg.ssm, cfg.d_model
     di, nh = s.d_inner(d), s.n_ssm_heads(d)
     conv_ch = di + 2 * s.n_groups * s.d_state        # x, B, C
-    n = d                                            # norm1
+    n = _norm_params(cfg)                            # norm1
     n += d * (di + conv_ch + nh)                     # in_proj: z, x, B, C, dt
     n += s.conv_width * conv_ch + conv_ch            # conv_w, conv_b
     n += 3 * nh                                      # A_log, D, dt_bias
@@ -287,13 +337,12 @@ def _mamba_params(cfg: ModelConfig) -> int:
 def _block_params(cfg: ModelConfig, kind: str) -> int:
     if kind == "mamba":
         return _mamba_params(cfg)
-    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    n = 2 * d                                        # norm1, norm2
-    n += d * h * hd + 2 * d * hk * hd + h * hd * d   # wq, wk, wv, wo
-    if cfg.qkv_bias:
-        n += h * hd + 2 * hk * hd
+    d = cfg.d_model
+    n = 2 * _norm_params(cfg) + _attn_params(cfg)    # norm1, norm2, attn
     if kind in ("attn", "shared_attn"):
         return n + _mlp_params(cfg, cfg.d_ff)
+    if kind == "cross":                              # norm_c, cross
+        return n + _norm_params(cfg) + _attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)
     m = cfg.moe                                      # "moe"
     n += d * m.n_experts + m.n_experts * _mlp_params(cfg, m.d_ff_expert)
     if m.n_shared_experts:
@@ -304,11 +353,23 @@ def _block_params(cfg: ModelConfig, kind: str) -> int:
 def count_params(cfg: ModelConfig) -> int:
     """Exact parameter count of ``lm_init(cfg)``, from the shapes alone (the
     JAX package's ``count_params``, which traces its ``lm_init``).  The
-    shared block's weights are counted once, however often it occurs."""
+    shared block's weights are counted once, however often it occurs; the
+    encoder (encdec), the vision projector (vlm) and learned position tables
+    are counted with the rest."""
+    d = cfg.d_model
     own = lambda kinds: sum(_block_params(cfg, k) for k in kinds if k != "shared_attn")
     shared = _block_params(cfg, "shared_attn") if "shared_attn" in cfg.pattern + cfg.tail else 0
-    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    return embed + cfg.d_model + cfg.n_groups * own(cfg.pattern) + own(cfg.tail) + shared
+    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    n = embed + _norm_params(cfg) + cfg.n_groups * own(cfg.pattern) + own(cfg.tail) + shared
+    if cfg.pos == "learned":
+        n += cfg.max_seq * d
+    if cfg.family == "vlm":
+        n += cfg.vision_dim * d
+    if cfg.family == "encdec":
+        n += cfg.n_encoder_groups * own(cfg.encoder_pattern) + _norm_params(cfg)
+        if cfg.pos == "learned":
+            n += cfg.n_audio_ctx * d
+    return n
 
 
 def count_active_params(cfg: ModelConfig) -> int:

@@ -7,7 +7,12 @@ equal block kind and attention backend: ``schedule_runs``) and
 ``blocks/shared``: its runs have no ``r{j}`` (the other runs keep their
 run index ``j``) and its tail positions no ``t{i}``.  The port keeps one
 dict per layer, in layer order (``None`` at the shared block's
-occurrences), and the shared block under ``"shared"``.  The caller converts the JAX arrays with
+occurrences), and the shared block under ``"shared"``.  An encdec model's
+encoder is stacked the same way in the JAX tree (``encoder/group/r{j}``
+over ``[n_encoder_groups, run_len]``, one run per stretch of equal kind)
+and is a layer list in the port (``encoder/blocks``); ``vision_proj``,
+``pos_embed`` and the encoder's ``final_norm``/``pos_embed`` carry over as
+they are.  The caller converts the JAX arrays with
 ``np.asarray`` (this module imports no JAX)::
 
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
@@ -18,7 +23,7 @@ and ``params_to_numpy`` goes back (numpy arrays in the JAX tree layout).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -41,13 +46,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
     """
     device = resolve_device(device)
     to_t = lambda x: torch.from_numpy(np.array(x, copy=True)).to(device)
-    group = tree["blocks"]["group"]
-    blocks = []
-    for gi in range(cfg.n_groups):
-        for j, (kind, _, run_len) in enumerate(schedule_runs(cfg)):
-            for r in range(run_len):
-                blocks.append(None if kind == "shared_attn"
-                              else tree_map(lambda x: to_t(x[gi, r]), group[f"r{j}"]))
+    blocks = _unstack(tree["blocks"]["group"], _decoder_runs(cfg), cfg.n_groups, to_t)
     for i, kind in enumerate(cfg.tail):
         blocks.append(None if kind == "shared_attn"
                       else tree_map(to_t, tree["blocks"]["tail"][f"t{i}"]))
@@ -58,8 +57,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
     }
     if "shared" in tree["blocks"]:
         params["shared"] = tree_map(to_t, tree["blocks"]["shared"])
-    if "unembed" in tree:
-        params["unembed"] = tree_map(to_t, tree["unembed"])
+    for key in ("unembed", "pos_embed", "vision_proj"):
+        if key in tree:
+            params[key] = tree_map(to_t, tree[key])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {k: tree_map(to_t, v) for k, v in enc.items() if k != "group"}
+        params["encoder"]["blocks"] = _unstack(enc["group"], _encoder_runs(cfg),
+                                               cfg.n_encoder_groups, to_t)
     return params
 
 
@@ -68,30 +73,65 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     the JAX ``lm_init`` tree layout (block leaves stacked over
     ``[n_groups, run_len, ...]``)."""
     to_np = lambda t: t.detach().cpu().numpy()
-    per_group = len(cfg.pattern)
     blocks = params["blocks"]
-    group = {}
-    offset = 0
-    for j, (kind, _, run_len) in enumerate(schedule_runs(cfg)):
-        if kind != "shared_attn":
-            rows = [[blocks[gi * per_group + offset + r] for r in range(run_len)]
-                    for gi in range(cfg.n_groups)]
-            group[f"r{j}"] = _stack(rows)
-        offset += run_len
-    n_group = cfg.n_groups * per_group
+    n_group = cfg.n_groups * len(cfg.pattern)
     tree = {
         "embed": tree_map(to_np, params["embed"]),
         "final_norm": tree_map(to_np, params["final_norm"]),
-        "blocks": {"group": group},
+        "blocks": {"group": _restack(blocks, _decoder_runs(cfg), cfg.n_groups)},
     }
     if cfg.tail:  # as in the JAX tree, which has no "tail" entry without one
         tree["blocks"]["tail"] = {f"t{i}": tree_map(to_np, blocks[n_group + i])
                                   for i, kind in enumerate(cfg.tail) if kind != "shared_attn"}
     if "shared" in params:
         tree["blocks"]["shared"] = tree_map(to_np, params["shared"])
-    if "unembed" in params:
-        tree["unembed"] = tree_map(to_np, params["unembed"])
+    for key in ("unembed", "pos_embed", "vision_proj"):
+        if key in params:
+            tree[key] = tree_map(to_np, params[key])
+    if "encoder" in params:
+        enc = params["encoder"]
+        tree["encoder"] = {k: tree_map(to_np, v) for k, v in enc.items() if k != "blocks"}
+        tree["encoder"]["group"] = _restack(enc["blocks"], _encoder_runs(cfg),
+                                            cfg.n_encoder_groups)
     return tree
+
+
+def _decoder_runs(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """``(kind, run_len)`` of the decoder pattern's runs (``schedule_runs``)."""
+    return [(kind, rl) for kind, _, rl in schedule_runs(cfg)]
+
+
+def _encoder_runs(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """``(kind, run_len)`` of the encoder pattern's runs of equal kind."""
+    out: List[Tuple[str, int]] = []
+    for kind in cfg.encoder_pattern:
+        if out and out[-1][0] == kind:
+            out[-1] = (kind, out[-1][1] + 1)
+        else:
+            out.append((kind, 1))
+    return out
+
+
+def _unstack(group, runs, n_groups: int, to_t) -> List[Any]:
+    """A JAX stacked ``group`` tree (``r{j}`` leaves ``[n_groups, run_len,
+    ...]``) -> one dict per layer, in layer order (``None`` at shared
+    blocks)."""
+    return [None if kind == "shared_attn" else tree_map(lambda x: to_t(x[gi, r]), group[f"r{j}"])
+            for gi in range(n_groups)
+            for j, (kind, run_len) in enumerate(runs)
+            for r in range(run_len)]
+
+
+def _restack(blocks: List[Any], runs, n_groups: int) -> Dict[str, Any]:
+    """Inverse of ``_unstack``: the layers' dicts -> ``{"r{j}": stacked}``."""
+    per_group = sum(rl for _, rl in runs)
+    group, offset = {}, 0
+    for j, (kind, run_len) in enumerate(runs):
+        if kind != "shared_attn":
+            group[f"r{j}"] = _stack([[blocks[gi * per_group + offset + r] for r in range(run_len)]
+                                     for gi in range(n_groups)])
+        offset += run_len
+    return group
 
 
 def _stack(rows):

@@ -33,19 +33,30 @@ def dense_init(gen: torch.Generator, shape, bias: bool = False, in_axes: int = 1
     return params
 
 
-def norm_init(d: int, dtype=torch.float32, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def norm_init(d: int, kind: str = "rmsnorm", dtype=torch.float32, device=None):
+    """A norm's params: a unit ``scale``, and for layernorm a zero ``bias``."""
+    params = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        params["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    elif kind != "rmsnorm":
+        raise ValueError(kind)
+    return params
 
 
 def norm_apply(params, x: Tensor, kind: str = "rmsnorm", eps: float = 1e-6) -> Tensor:
-    """RMSNorm in float32, cast back to x's dtype."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not yet ported to torch")
+    """RMSNorm or LayerNorm over the last axis in float32, cast back to x's
+    dtype."""
     dtype = x.dtype
     x = x.float()
-    ms = x.square().mean(dim=-1, keepdim=True)
-    y = x * torch.rsqrt(ms + eps) * params["scale"].float()
-    return y.to(dtype)
+    if kind == "rmsnorm":
+        y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+        return (y * params["scale"].float()).to(dtype)
+    if kind == "layernorm":
+        mu = x.mean(dim=-1, keepdim=True)
+        var = (x - mu).square().mean(dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + eps)
+        return (y * params["scale"].float() + params["bias"].float()).to(dtype)
+    raise ValueError(kind)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32):
@@ -59,6 +70,16 @@ def embed_apply(params, ids: Tensor, dtype=torch.bfloat16) -> Tensor:
 def unembed_apply(params, x: Tensor) -> Tensor:
     """Logits, always float32: the hidden state meets the float32 table."""
     return torch.einsum("...d,vd->...v", x.float(), params["w"].float())
+
+
+def sinusoidal_pos(positions: Tensor, d: int) -> Tensor:
+    """Transformer sinusoidal position encoding: [n] -> [n, d] float32
+    (sines of the ``d // 2`` frequencies, then their cosines)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> Tensor:

@@ -1,5 +1,6 @@
-"""Decoder-only LM: init, full-sequence (training) forward, prefill, chunked
-prefill and decode.
+"""Model assembly: the decoder-only LM, the encoder-decoder (whisper-style)
+and the VLM (cross-attention) families: init, full-sequence (training)
+forward, prefill, chunked prefill and decode.
 
 Params (the JAX package's names, one dict per layer instead of stacked
 leaves)::
@@ -7,7 +8,11 @@ leaves)::
     {"embed": {"w": [vocab, d]}, "final_norm": {"scale": [d]},
      "blocks": [layer params, ...]}          # n_layers, group-major, then tail
 
-(plus ``"unembed"`` when embeddings are untied, and ``"shared"`` when the
+(plus ``"unembed"`` when embeddings are untied, ``"pos_embed"`` [max_seq,
+d] under ``pos="learned"``, ``"vision_proj"`` {"w": [vision_dim, d]} for a
+vlm, ``"encoder"`` {"blocks": [...], "final_norm": ..., and under
+``pos="learned"`` "pos_embed" [n_audio_ctx, d]} for an encdec model, and
+``"shared"`` when the
 pattern holds ``"shared_attn"`` blocks: that block's one set of weights,
 used by every occurrence, whose ``"blocks"`` entries are ``None``.  So
 every tree walk, the optimizer and ``count_params`` see each shared leaf
@@ -19,23 +24,31 @@ package's layout so the serve layer's slot operations and the parity tests
 address them alike: one stacked state per run of ``schedule_runs``::
 
     {"group": (state with leaves [n_groups, run_len, b, ...] per run,),
-     "tail": (state [b, ...] per tail block,), "kv_src": None}
+     "tail": (state [b, ...] per tail block,), "kv_src": source or None}
 
 where a state is the run's backend's NamedTuple (``TaylorState``,
-``KVCache``, or a mamba block's ``MambaCache``); a hybrid schedule or a
-Mamba2 hybrid gives a tuple of several.
+``KVCache``, or a mamba block's ``MambaCache``), and for a cross block the
+pair ``(self state, CrossCache)``; a hybrid schedule or a Mamba2 hybrid
+gives a tuple of several.  ``kv_src`` is the cross-attention source ``[b,
+m, d]`` of the vlm and encdec families (projected image tokens, encoder
+output), carried for the slot operations.
 
-Inputs are a dict ``{"tokens": [b, n] int64/int32}``.
+Inputs are a dict ``{"tokens": [b, n] int64/int32}`` plus, for a vlm,
+``"image_embeds"`` [b, n_image_tokens, vision_dim] (a stubbed vision
+tower's output) and, for an encdec model, ``"audio_frames"`` [b,
+n_audio_ctx, d_model] (a stubbed conv front end's output); training adds
+``"labels"``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.backends import state_backend
+from repro_torch.backends.state import CrossCache
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (
     block_apply,
@@ -46,10 +59,13 @@ from repro_torch.models.blocks import (
 )
 from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.layers import (
+    dense_init,
     embed_apply,
     embed_init,
     norm_apply,
     norm_init,
+    sinusoidal_pos,
+    trunc_normal,
     unembed_apply,
 )
 from repro_torch.tree import tree_leaves, tree_map
@@ -85,6 +101,13 @@ def _layers(params, cfg: ModelConfig):
             for (kind, lcfg), p in zip(_layer_cfgs(cfg), params["blocks"])]
 
 
+def _encoder_kinds(cfg: ModelConfig) -> List[str]:
+    """The encoder's block kinds, in layer order (its pattern repeated
+    ``n_encoder_groups`` times; every encoder layer runs the default
+    backend)."""
+    return list(cfg.encoder_pattern) * cfg.n_encoder_groups
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -111,19 +134,30 @@ def lm_init(
       The param dict (see the module docstring) on ``device``.
     """
     device = resolve_device(device)
-    if cfg.family != "lm":
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported to torch")
     dtype = dtype or torch_dtype(cfg.param_dtype)
+    d = cfg.d_model
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
-        "final_norm": norm_init(cfg.d_model, dtype),
+        "embed": embed_init(gen, cfg.vocab, d, dtype),
+        "final_norm": norm_init(d, cfg.norm, dtype),
         "blocks": [None if kind == "shared_attn" else block_init(gen, kind, lcfg, dtype)
                    for kind, lcfg in _layer_cfgs(cfg)],
     }
     if "shared_attn" in cfg.pattern + cfg.tail:
         params["shared"] = block_init(gen, "shared_attn", cfg, dtype)
     if not cfg.tie_embeddings:
-        params["unembed"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
+        params["unembed"] = embed_init(gen, cfg.vocab, d, dtype)
+    if cfg.pos == "learned":
+        params["pos_embed"] = trunc_normal(gen, (cfg.max_seq, d), 0.01, dtype)
+    if cfg.family == "vlm":
+        params["vision_proj"] = dense_init(gen, (cfg.vision_dim, d), dtype=dtype)
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "blocks": [block_init(gen, kind, cfg, dtype) for kind in _encoder_kinds(cfg)],
+            "final_norm": norm_init(d, cfg.norm, dtype),
+        }
+        if cfg.pos == "learned":
+            params["encoder"]["pos_embed"] = trunc_normal(gen, (cfg.n_audio_ctx, d), 0.01,
+                                                          dtype)
     return tree_to(params, device)
 
 
@@ -137,14 +171,50 @@ def tree_to(params, device):
 # ---------------------------------------------------------------------------
 
 
-def _embed_tokens(params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+def _embed_tokens(params, tokens: Tensor, cfg: ModelConfig,
+                  positions: Optional[Tensor]) -> Tensor:
+    """Token embeddings plus, under ``pos="learned"`` or ``"sinusoidal"``,
+    the position embeddings of ``positions`` (any shape: ``[n]`` for a
+    sequence, ``[b]`` or ``[1]`` for a decode step, ``[b, c]`` for a
+    chunk; unread under RoPE, which attention applies)."""
     dtype = torch_dtype(cfg.dtype)
     x = embed_apply(params["embed"], tokens, dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dtype)
-    if cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(f"pos {cfg.pos!r} is not yet ported to torch")
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][positions.long()].to(dtype)
+    elif cfg.pos == "sinusoidal":
+        pe = sinusoidal_pos(positions.reshape(-1), cfg.d_model)
+        x = x + pe.reshape(positions.shape + (cfg.d_model,)).to(dtype)
     return x
+
+
+def _encode(params, frames: Tensor, cfg: ModelConfig) -> Tensor:
+    """Whisper-style encoder over (stubbed) conv front-end frames: position
+    embeddings, the non-causal encoder blocks, the encoder's final norm."""
+    dtype = torch_dtype(cfg.dtype)
+    enc = params["encoder"]
+    m = frames.shape[1]
+    if cfg.pos == "learned":
+        pe = enc["pos_embed"][:m]
+    else:
+        pe = sinusoidal_pos(torch.arange(m, device=frames.device), cfg.d_model)
+    x = frames.to(dtype) + pe.to(dtype)[None]
+    block = _remat(block_apply, cfg)
+    for kind, p in zip(_encoder_kinds(cfg), enc["blocks"]):
+        x, _ = block(p, kind, x, cfg, None, None, False)
+    return norm_apply(enc["final_norm"], x, cfg.norm, cfg.norm_eps)
+
+
+def _kv_source(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Optional[Tensor]:
+    """The cross blocks' source ``[b, m, d]``: the projected image tokens
+    (vlm), the encoder's output (encdec), ``None`` for a decoder-only model."""
+    if cfg.family == "vlm":
+        img = batch["image_embeds"].to(torch_dtype(cfg.dtype))
+        return img @ params["vision_proj"]["w"].to(img.dtype)
+    if cfg.family == "encdec":
+        return _encode(params, batch["audio_frames"], cfg)
+    return None
 
 
 def _logits(params, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -172,12 +242,13 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
     Differentiable w.r.t. the params; run it under ``torch.no_grad()`` for
     inference."""
     tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_tokens(params, tokens, cfg, positions)
+    kv_src = _kv_source(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     block = _remat(block_apply, cfg)
     for kind, lcfg, p in _layers(params, cfg):
-        x, a = block(p, kind, x, lcfg, positions)
+        x, a = block(p, kind, x, lcfg, positions, kv_src)
         aux = aux + a
     return _logits(params, x, cfg), aux
 
@@ -187,13 +258,11 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
 # ---------------------------------------------------------------------------
 
 
-def _stack_states(states: List[NamedTuple], n_groups: int, per_group: int) -> NamedTuple:
-    """Per-layer states (group-major) -> leaves [n_groups, per_group, ...]."""
-    return type(states[0])(*(
-        None if leaves[0] is None
-        else torch.stack(leaves).reshape((n_groups, per_group) + leaves[0].shape)
-        for leaves in zip(*states)
-    ))
+def _stack_states(states: List[Any], n_groups: int, per_group: int):
+    """Per-layer states (group-major) -> leaves [n_groups, per_group, ...]
+    (a cross block's pair stacked half by half)."""
+    return tree_map(lambda *xs: torch.stack(xs).reshape((n_groups, per_group) + xs[0].shape),
+                    *states)
 
 
 def _run_offsets(cfg: ModelConfig) -> List[Tuple[int, int]]:
@@ -205,20 +274,20 @@ def _run_offsets(cfg: ModelConfig) -> List[Tuple[int, int]]:
     return out
 
 
-def _split_caches(caches, cfg: ModelConfig) -> List[NamedTuple]:
+def _split_caches(caches, cfg: ModelConfig) -> List[Any]:
     """Inverse of ``_pack_caches``: one state per layer, in layer order."""
     out = []
     for gi in range(cfg.n_groups):
         for stacked, (_, rl) in zip(caches["group"], _run_offsets(cfg)):
             for r in range(rl):
-                out.append(type(stacked)(*(None if x is None else x[gi, r]
-                                           for x in stacked)))
+                out.append(tree_map(lambda x: x[gi, r], stacked))
     out.extend(caches["tail"])
     return out
 
 
-def _pack_caches(states: List[NamedTuple], cfg: ModelConfig):
-    """Per-layer states (layer order) -> one stacked state per run."""
+def _pack_caches(states: List[Any], cfg: ModelConfig, kv_src: Optional[Tensor] = None):
+    """Per-layer states (layer order) -> one stacked state per run, and the
+    cross source ``kv_src``."""
     per_group = len(cfg.pattern)
     group = tuple(
         _stack_states([states[gi * per_group + offset + r]
@@ -227,21 +296,23 @@ def _pack_caches(states: List[NamedTuple], cfg: ModelConfig):
         for offset, rl in _run_offsets(cfg)
     ) if cfg.n_groups else ()
     n_group_layers = cfg.n_groups * per_group
-    return {"group": group, "tail": tuple(states[n_group_layers:]), "kv_src": None}
+    return {"group": group, "tail": tuple(states[n_group_layers:]), "kv_src": kv_src}
 
 
 @torch.no_grad()
 def lm_prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int):
-    """Prompt pass.  Returns (logits of the last position [b, vocab], caches)."""
+    """Prompt pass (``batch`` carries the family's source extras).  Returns
+    (logits of the last position [b, vocab], caches)."""
     tokens = batch["tokens"]
-    x = _embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed_tokens(params, tokens, cfg, positions)
+    kv_src = _kv_source(params, batch, cfg)
     states = []
     for kind, lcfg, p in _layers(params, cfg):
-        x, c = block_prefill(p, kind, x, lcfg, n_max, positions)
+        x, c = block_prefill(p, kind, x, lcfg, n_max, positions, kv_src)
         states.append(c)
     logits = _logits(params, x[:, -1:, :], cfg)[:, 0, :]
-    return logits, _pack_caches(states, cfg)
+    return logits, _pack_caches(states, cfg, kv_src)
 
 
 @torch.no_grad()
@@ -259,13 +330,16 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
     Returns:
       ``(logits [b, vocab] f32, new caches)``; ``caches`` is not modified.
     """
-    x_t = _embed_tokens(params, token_t, cfg)
+    pos_t = None
+    if cfg.pos in ("learned", "sinusoidal"):  # [b] or [1]
+        pos_t = torch.as_tensor(pos, device=token_t.device).reshape(-1)
+    x_t = _embed_tokens(params, token_t, cfg, pos_t)
     new_states = []
     for (kind, lcfg, p), c in zip(_layers(params, cfg), _split_caches(caches, cfg)):
         x_t, c = block_decode(p, kind, x_t, c, lcfg, pos)
         new_states.append(c)
     logits = _logits(params, x_t, cfg)
-    return logits, _pack_caches(new_states, cfg)
+    return logits, _pack_caches(new_states, cfg, caches.get("kv_src"))
 
 
 @torch.no_grad()
@@ -326,25 +400,32 @@ def _chunk_hidden(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
         torch.as_tensor(pos0, dtype=torch.int32, device=tokens.device).expand(b)[:, None]
         + torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
     )  # [b, c]
-    x = _embed_tokens(params, tokens, cfg)
+    x = _embed_tokens(params, tokens, cfg, positions)
     new_states = []
     for (kind, lcfg, p), cch in zip(_layers(params, cfg), _split_caches(caches, cfg)):
         x, cch = block_prefill_chunk(p, kind, x, cch, lcfg, positions)
         new_states.append(cch)
-    return x, _pack_caches(new_states, cfg)
+    return x, _pack_caches(new_states, cfg, caches.get("kv_src"))
 
 
 def lm_init_caches(cfg: ModelConfig, batch: int, n_max: int, device=None):
     """Zero decode caches with the exact structure ``lm_prefill`` produces
-    (KV leaves and a mamba block's conv window in ``cfg.dtype``, the
-    activations' dtype).  Each run's state comes from its own backend (a
+    (KV leaves, a mamba block's conv window and ``kv_src`` in ``cfg.dtype``,
+    the activations' dtype).  Each run's state comes from its own backend (a
     mamba run's from the block-level "ssm" one), so a hybrid schedule or a
-    Mamba2 hybrid gives a tuple of different state types."""
+    Mamba2 hybrid gives a tuple of different state types; a cross block's
+    is the pair of its self state and a zero ``CrossCache`` of the source
+    length."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
+    n_src = cfg.n_source_tokens
 
     def one(kind, rcfg):
-        return state_backend(kind, rcfg).init_cache(rcfg, batch, n_max, device, dtype)
+        backend = state_backend(kind, rcfg)
+        state = backend.init_cache(rcfg, batch, n_max, device, dtype)
+        if kind != "cross":
+            return state
+        return state, CrossCache(kv=backend.init_cross_cache(rcfg, batch, n_src, device, dtype))
 
     def stack(state, rl):
         return tree_map(lambda x: x.expand((cfg.n_groups, rl) + x.shape).clone(), state)
@@ -352,15 +433,19 @@ def lm_init_caches(cfg: ModelConfig, batch: int, n_max: int, device=None):
     group = tuple(stack(one(kind, rcfg), rl) for kind, rcfg, rl in _cfg_runs(cfg)) \
         if cfg.n_groups else ()
     tail_cfg = cfg.layer_cfg(cfg.attention)
+    kv_src = None
+    if cfg.family != "lm":
+        kv_src = torch.zeros((batch, n_src, cfg.d_model), dtype=dtype, device=device)
     return {"group": group, "tail": tuple(one(kind, tail_cfg) for kind in cfg.tail),
-            "kv_src": None}
+            "kv_src": kv_src}
 
 
 def lm_state_bytes(cfg: ModelConfig, batch: int, n_max: int) -> int:
     """Decode-state bytes of the whole cache, summed per layer, each run
     with its own backend's state (taylor moments and SSM states O(1), a
-    softmax KV cache O(n_max), a softmax_window ring O(window)); KV leaves
-    and conv windows in ``cfg.dtype``.
+    softmax KV cache O(n_max), a softmax_window ring O(window)), with the
+    cross blocks' source states and ``kv_src``; KV leaves, conv windows and
+    ``kv_src`` in ``cfg.dtype``.
 
     Shapes only: the cache is built on the ``meta`` device, so nothing is
     allocated on the card."""

@@ -50,7 +50,7 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
         "D": torch.ones((nh,), dtype=f32, device=dev),
         "dt_bias": torch.log(torch.expm1(torch.full((nh,), 0.01, dtype=f32, device=dev))),
         "out_proj": dense_init(gen, (di, d), dtype=dtype),
-        "gate_norm": norm_init(di, dtype, device=dev),
+        "gate_norm": norm_init(di, "rmsnorm", dtype, device=dev),
     }
 
 

@@ -11,7 +11,10 @@ idle share of the wall time, and one JSON line with those numbers.
   PYTHONPATH=src python -m repro_torch.profile_train [--arch qwen2-1.5b] [--n-groups 2]
 
 ``--n-groups`` cuts the depth (zamba2-7b's 5.9 B params with their AdamW
-state do not fit one card; 2 of its 11 groups do).
+state do not fit one card; 2 of its 11 groups do).  The encdec and vlm
+families get their source beside the tokens (``audio_frames`` /
+``image_embeds`` from a seed: every entry N(0, 1), half of its variance
+shared by the row's tokens, as chip_smoke.py draws them).
 
 It needs a CUDA device, and exits 1 if the profiler recorded no device
 time.
@@ -63,6 +66,13 @@ def main(argv=()) -> int:
         cfg = cfg.replace(n_groups=args.n_groups)
     task = make_task("bigram", cfg.vocab, SEQ, BATCH, seed=0)
     batch = {k: torch.from_numpy(v).to(device) for k, v in task.batch_at(0).items()}
+    if cfg.family != "lm":
+        name, width = (("audio_frames", cfg.d_model) if cfg.family == "encdec"
+                       else ("image_embeds", cfg.vision_dim))
+        gen = torch.Generator(device=device).manual_seed(0)
+        shared = torch.randn((BATCH, 1, width), generator=gen, device=device)
+        own = torch.randn((BATCH, cfg.n_source_tokens, width), generator=gen, device=device)
+        batch[name] = (shared + own) * 0.5**0.5
     opt = adamw(cosine_warmup(2e-3, 2, WARMUP + STEPS))
     state = train_state_init(torch.Generator(device=device).manual_seed(0), cfg, opt,
                              device=device)

@@ -204,12 +204,14 @@ def generate(
 ) -> Tensor:
     """Greedy/sampled generation through the serve engine.
 
-    Each batch row becomes one request; equal prompt lengths are admitted
-    together and decode as one continuously batched group.
+    Each batch row becomes one request, with its row of every extra input
+    as ``Request.extras``; equal prompt lengths are admitted together and
+    decode as one continuously batched group.
 
     Args:
       params: model params.
-      batch: ``{"tokens": [b, n]}``.
+      batch: ``{"tokens": [b, n]}`` plus the family's extras
+        (``image_embeds`` / ``audio_frames`` with a leading ``[b]`` axis).
       cfg: model config.
       steps: number of new tokens.
       n_max: context capacity (default ``prompt_len + steps``).
@@ -235,7 +237,9 @@ def generate(
     temperature = 0.0 if (greedy or generator is None) else 1.0
     rids = [
         eng.submit(Request(tokens=prompt[i].numpy(), max_new_tokens=steps,
-                           temperature=temperature))
+                           temperature=temperature,
+                           extras={k: v[i:i + 1].cpu().numpy()
+                                   for k, v in batch.items() if k != "tokens"}))
         for i in range(b)
     ]
     results = eng.run(return_results=True)
@@ -262,10 +266,10 @@ def generate_loop(
     Same contract as ``generate``."""
     device = resolve_device(device)
     params = tree_to(params, device)
-    tokens = batch["tokens"].to(device)
-    prompt_len = tokens.shape[1]
+    batch = {k: v.to(device) for k, v in batch.items()}
+    prompt_len = batch["tokens"].shape[1]
     n_max = n_max or (prompt_len + steps)
-    logits, caches = lm_prefill(params, {"tokens": tokens}, cfg, n_max)
+    logits, caches = lm_prefill(params, batch, cfg, n_max)
     outs = []
     token = logits.argmax(dim=-1)
     for i in range(steps):

@@ -38,9 +38,12 @@ self-draft ``"order1"``) and verify them in one chunk pass before the
 decode block.  State representations (``serve/state_repr.py``):
 ``state_dtype="int8"|"fp8"`` holds the Taylor moments quantised and
 ``kv_page_size=`` holds a softmax-family KV cache in pages; one
-``SlotStateStore`` owns the slot cache whatever its representation.  Not
-yet ported from the JAX package's engine (ROADMAP queue 1): meshes
-(``mesh=``/``rules=``) and the vlm/encdec ``Request.extras``; they raise.
+``SlotStateStore`` owns the slot cache whatever its representation.  The
+vlm and encdec families take their source through ``Request.extras``
+(``image_embeds`` / ``audio_frames``, validated against the config's source
+shape at submit) and are always admitted by whole-prompt prefill.  Not yet
+ported from the JAX package's engine (ROADMAP queue 1 item 6): meshes
+(``mesh=``/``rules=``); they raise.
 """
 
 from __future__ import annotations
@@ -126,7 +129,8 @@ class RequestRejected(ValueError):
     Attributes:
       reason: machine-readable code (``empty_prompt``, ``bad_budget``,
         ``prompt_too_long``, ``over_capacity``, ``queue_full``,
-        ``bad_speculative_k``, ``unknown_draft``, ``draft_unavailable``).
+        ``bad_extras``, ``bad_speculative_k``, ``unknown_draft``,
+        ``draft_unavailable``).
       rid: request id under which the engine recorded the ``REJECTED``
         ``RequestResult``.
     """
@@ -242,8 +246,11 @@ class Request:
       top_k: > 0 restricts sampling to the k highest-logit tokens.
       eos_id: stop token — generation ends once it is emitted (the eos token
         itself is included in the output).  None = never stop early.
-      extras: extra model inputs of the vlm/encdec families (not yet ported;
-        must be empty).
+      extras: extra model inputs with a leading batch-1 axis:
+        ``image_embeds`` [1, n_image_tokens, vision_dim] for a vlm,
+        ``audio_frames`` [1, n_audio_ctx, d_model] for an encdec model
+        (required, at exactly the config's source shape: the slot cache is
+        preallocated from it).
       deadline: seconds (engine ``clock`` units) from submit to completion,
         enforced at decode-block boundaries; None = no deadline.
       queue_ttl: seconds the request may wait queued (or awaiting retry)
@@ -474,12 +481,8 @@ class ServeEngine:
         a full bounded queue sheds with ``QueueOverflow``.  Either way the
         engine records a terminal ``REJECTED`` result under ``exc.rid``.
         Under overload (``degrade_queue_depth``) the request is admitted
-        DEGRADED: budget clamped and chunked prefill forced.  ``extras`` (the
-        vlm/encdec families) is not yet ported and raises
-        ``NotImplementedError``.
+        DEGRADED: budget clamped and chunked prefill forced.
         """
-        if request.extras:
-            raise _not_ported("Request.extras (the vlm/encdec families)", 4)
         rid = next(self._rid)
         self._stats["submitted"] += 1
         try:
@@ -549,6 +552,22 @@ class ServeEngine:
                 f"({request.max_new_tokens}) exceeds n_max ({self.n_max})",
                 reason="over_capacity",
             )
+        # The slot cache preallocates the kv_src and cross-state leaves at the
+        # config's source length, so every request's extras must match it.
+        expected = {}
+        if self.cfg.family == "vlm":
+            expected["image_embeds"] = (1, self.cfg.n_image_tokens, self.cfg.vision_dim)
+        elif self.cfg.family == "encdec":
+            expected["audio_frames"] = (1, self.cfg.n_audio_ctx, self.cfg.d_model)
+        for name, shape in expected.items():
+            got = tuple(np.asarray(request.extras.get(name, ())).shape)
+            if got != shape:
+                raise RequestRejected(
+                    f"request extra {name!r} must have shape {shape} (the slot cache "
+                    f"is preallocated from the config), got {got or 'missing'} — "
+                    f"pad/resize the input to the configured source length",
+                    reason="bad_extras",
+                )
         # An explicit per-request depth must be usable, and a draft name
         # must resolve in the proposer registry for THIS engine's backend.
         if request.speculative_k is not None:
@@ -727,8 +746,10 @@ class ServeEngine:
         return chunk * min(self.sched.fat_chunk_max, _next_pow2(1 + depth // depth_at))
 
     def _needs_chunked_prefill(self, tr: _Tracked) -> bool:
+        """Chunked admission is for decoder-only prompts: a request with a
+        source (extras) is prefilled whole, which builds its cross state."""
         chunk = self._chunk_for(tr)
-        return (chunk is not None and self.cfg.family == "lm"
+        return (chunk is not None and self.cfg.family == "lm" and not tr.req.extras
                 and tr.effective_tokens().shape[-1] > chunk)
 
     def _advance_partial(self) -> None:
@@ -891,10 +912,15 @@ class ServeEngine:
             for g in group:
                 self._queue.remove(g)
             trs = [self._requests[g] for g in group]
-            tokens = torch.as_tensor(np.stack([t.effective_tokens() for t in trs]),
-                                     device=self.device)
+            batch = {"tokens": torch.as_tensor(np.stack([t.effective_tokens() for t in trs]),
+                                               device=self.device)}
+            # extras shapes are uniform per config (checked at submit)
+            for k in trs[0].req.extras:
+                batch[k] = torch.as_tensor(
+                    np.concatenate([np.asarray(t.req.extras[k]) for t in trs]),
+                    device=self.device)
             t0 = time.perf_counter()
-            logits, pref_caches = prefill(self.params, {"tokens": tokens}, self.cfg, self.n_max)
+            logits, pref_caches = prefill(self.params, batch, self.cfg, self.n_max)
             firsts = self._first_tokens(logits, trs)
             self._stats["prefill_seconds"] += time.perf_counter() - t0
             self._stats["dispatches"] += 1

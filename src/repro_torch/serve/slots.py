@@ -9,11 +9,14 @@ Layout (the structure ``lm_prefill`` returns):
 
   caches["group"]  leaves  [n_groups, run_len, slots, ...]   (slot axis 2)
   caches["tail"]   leaves  [slots, ...]                      (slot axis 0)
+  caches["kv_src"] [slots, m, d] or None                     (slot axis 0)
 
 ``caches["group"]`` holds one state per run of ``schedule_runs``, each of
 its own backend's type (a hybrid schedule mixes ``TaylorState`` and
-``KVCache``, a Mamba2 hybrid adds ``MambaCache``); every slot operation
-walks each run's state alike.
+``KVCache``, a Mamba2 hybrid adds ``MambaCache``, a cross block holds the
+pair of its self state and its ``CrossCache``); every slot operation walks
+each run's state alike, and the cross source ``kv_src`` of the vlm and
+encdec families with them.
 
 ``write_slot`` and ``clear_slot`` update the cache IN PLACE (the JAX
 package donates the buffer for the same effect) and return it;
@@ -32,10 +35,10 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.backends import get_backend, resolve_backend, state_backend
+from repro_torch.backends import get_backend, resolve_backend, state_backend, tree_slot_health
 from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.lm import lm_init_caches
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
@@ -46,16 +49,17 @@ _FP8 = (torch.float8_e4m3fn,)
 
 def _map(fn: Callable, caches, *others) -> Dict[str, Any]:
     """Apply ``fn(leaf, *other_leaves, axis)`` to every state leaf, the
-    int ``KVCache.length`` included; each state keeps its own NamedTuple
-    type.  Nested NamedTuples (the ``QuantizedLeaf`` payload/scale pairs of
-    a stored tree) are walked too: their leaves keep the dense leaf's slot
-    axis."""
+    int ``KVCache.length`` and ``kv_src`` included; each state keeps its own
+    type.  Nested tuples (a cross block's pair, the ``QuantizedLeaf``
+    payload/scale pairs of a stored tree) are walked too: their leaves keep
+    the dense leaf's slot axis."""
 
     def node(axis, *parts):
         if parts[0] is None:
             return None
         if isinstance(parts[0], tuple):
-            return type(parts[0])(*(node(axis, *xs) for xs in zip(*parts)))
+            kids = (node(axis, *xs) for xs in zip(*parts))
+            return type(parts[0])(*kids) if hasattr(parts[0], "_fields") else tuple(kids)
         return fn(*parts, axis)
 
     def one(key, axis):
@@ -65,7 +69,8 @@ def _map(fn: Callable, caches, *others) -> Dict[str, Any]:
     return {
         "group": one("group", GROUP_SLOT_AXIS),
         "tail": one("tail", TAIL_SLOT_AXIS),
-        "kv_src": None,
+        "kv_src": node(TAIL_SLOT_AXIS, caches.get("kv_src"),
+                       *(o.get("kv_src") for o in others)),
     }
 
 
@@ -146,9 +151,10 @@ def slot_health(caches, cfg: ModelConfig) -> Tensor:
 
     Applies each run's backend ``state_health`` (finite moments / KV /
     SSD state plus the backend's invariants, e.g. KV ``length`` bounds; a
-    mamba run's from the "ssm" backend) with the group
-    runs' stacking axes folded into the batch axis, then AND-reduces every
-    layer of a slot.
+    mamba run's from the "ssm" backend; a cross block's to its self state
+    AND its source state) with the group runs' stacking axes folded into
+    the batch axis, then AND-reduces every layer of a slot and the
+    finiteness of ``kv_src``.
 
     Args:
       caches: the slotted cache (``init_slot_caches`` / ``lm_prefill``
@@ -160,21 +166,26 @@ def slot_health(caches, cfg: ModelConfig) -> Tensor:
       healthy; a False slot must be quarantined before its next token is
       trusted.
     """
+    def health(kind, rcfg, state):
+        backend = state_backend(kind, rcfg)
+        if kind == "cross":
+            self_state, cc = state
+            return backend.state_health(self_state, rcfg) & backend.state_health(cc.kv, rcfg)
+        return backend.state_health(state, rcfg)
+
     parts = []
     for (kind, bk, _), state in zip(schedule_runs(cfg), caches["group"]):
-        rcfg = cfg.layer_cfg(bk)
-        g, r, n_slots = next(x for x in state if x is not None).shape[:3]
+        g, r, n_slots = tree_leaves(state)[0].shape[:3]
         # [n_groups, run_len, slots, ...] -> [slots * n_groups * run_len, ...]
-        flat = type(state)(*(
-            None if x is None else x.movedim(GROUP_SLOT_AXIS, 0).reshape(
-                (n_slots * g * r,) + x.shape[3:])
-            for x in state
-        ))
-        h = state_backend(kind, rcfg).state_health(flat, rcfg)
+        flat = tree_map(lambda x: x.movedim(GROUP_SLOT_AXIS, 0).reshape(
+            (n_slots * g * r,) + x.shape[3:]), state)
+        h = health(kind, cfg.layer_cfg(bk), flat)
         parts.append(h.reshape(n_slots, g * r).all(dim=1))
     tail_cfg = cfg.layer_cfg(cfg.attention)
     for kind, state in zip(cfg.tail, caches["tail"]):
-        parts.append(state_backend(kind, tail_cfg).state_health(state, tail_cfg))
+        parts.append(health(kind, tail_cfg, state))
+    if caches.get("kv_src") is not None:
+        parts.append(tree_slot_health(caches["kv_src"]))
     ok = parts[0]
     for p in parts[1:]:
         ok = ok & p

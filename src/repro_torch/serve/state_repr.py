@@ -72,8 +72,10 @@ def _map_state_nodes(cfg: ModelConfig, fn, *trees, with_backend: bool = False) -
     congruent cache trees, run by run as ``lm_init_caches`` built them, so
     a hybrid schedule's per-run states stay congruent.  A mamba block's
     O(1) ``MambaCache`` is never re-encoded: it stays dense under every
-    codec.  Other top-level keys of ``trees[0]`` (``kv_src``, ``paged``)
-    pass through untouched.
+    codec.  A cross block's pair has ``fn`` applied to its self state only:
+    the ``CrossCache`` of its source is written once at admission and only
+    read after, so it stays dense too.  Other top-level keys of ``trees[0]``
+    (``kv_src``, ``paged``) pass through untouched.
 
     Args:
       cfg: model config (pattern, tail and schedule decide the runs).
@@ -93,6 +95,8 @@ def _map_state_nodes(cfg: ModelConfig, fn, *trees, with_backend: bool = False) -
     def call(kind, bk, *nodes):
         if kind == "mamba":
             return nodes[0]
+        if kind == "cross":
+            return (call("attn", bk, *(n[0] for n in nodes)),) + tuple(nodes[0][1:])
         return fn(bk, *nodes) if with_backend else fn(*nodes)
 
     out["group"] = tuple(

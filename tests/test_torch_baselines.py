@@ -54,6 +54,18 @@ from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.serve import Request, ServeEngine, slots
 from repro_torch.train import TrainState, make_train_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CORE_TOL = 1e-5
 MODEL_TOL = 1e-4
 BACKENDS = ("softmax", "softmax_window", "linear_elu")

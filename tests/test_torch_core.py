@@ -17,6 +17,18 @@ from repro.core import taylor as jt
 from repro_torch.core import feature_map as tfm
 from repro_torch.core import taylor as tt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 2e-5
 # (order, h, hk): GQA at both orders, and MQA.
 CASES = [(1, 4, 2), (2, 4, 2), (2, 4, 1)]

@@ -33,6 +33,18 @@ from repro_torch.models.config import schedule_runs
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.serve import Request, ServeEngine, generate_loop, slots
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODEL_TOL = 1e-4
 WINDOW = 8
 SCHEDULE = {1: "softmax_window"}

@@ -23,6 +23,18 @@ from repro_torch.configs import get_reduced
 from repro_torch.models import moe
 from repro_torch.models.config import MoEConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 
 

@@ -31,6 +31,18 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import prefill, prefill_chunked
 from repro_torch.serve import slots as tslots
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JAX_TOL = 1e-5
 SELF_TOL = 2e-3
 PROMPT, CHUNK, N_MAX = 37, 16, 48

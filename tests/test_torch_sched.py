@@ -24,6 +24,7 @@ import itertools
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.serve as J
 import repro_torch.serve as T
@@ -53,6 +54,18 @@ from repro_torch.serve import (
     slot_health,
     standard_trace,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SLO_KW = dict(priority_admission=True, decode_per_prefill=2, fat_chunk_depth=3,
               preemption=True)
@@ -224,11 +237,13 @@ def test_submit_typed_rejections(served):
         "request_speculative_k", "draft", "extras"])
 def test_unported_features_raise(served, where, kw):
     """Features of later slices raise, naming ROADMAP queue 1; none is
-    silently ignored.  The state representations and speculative decoding
-    are ported now (tests/test_torch_state_repr.py, tests/test_torch_spec.py):
-    their knobs build an engine that serves the request."""
+    silently ignored.  The state representations, speculative decoding and
+    request extras are ported now (tests/test_torch_state_repr.py,
+    tests/test_torch_spec.py, tests/test_torch_cross.py): their knobs build
+    an engine that serves the request (a decoder-only model's prefill reads
+    no extras, as the JAX engine's does not)."""
     _, _, _, _, prompts, _ = served
-    if "mesh" in kw or "rules" in kw or "extras" in kw:
+    if "mesh" in kw or "rules" in kw:
         with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP queue 1"):
             if where == "engine":
                 _engine(served, **kw)

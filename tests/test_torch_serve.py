@@ -24,6 +24,17 @@ from repro_torch.serve import Request, ServeEngine, generate, generate_loop
 from repro_torch.serve import scheduler, slots
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def weights():
     jcfg = j_get_reduced("smollm-135m")

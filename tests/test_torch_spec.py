@@ -60,6 +60,18 @@ from repro_torch.serve import slots as tslots
 from repro_torch.serve.speculative import _ngram_continuation
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops on one thread in this module: the suite runs several
+    workers side by side, and each worker's default intra-op pool (one
+    thread per core) oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JAX_TOL = 1e-5
 DRAFTS = ("ngram", "order1")
 ENGINE_KW = dict(max_slots=2, n_max=64, decode_block=4)

@@ -50,7 +50,7 @@ from repro_torch.tree import tree_leaves
 TOL = 1e-5
 LR = 1e-3
 ZOO = ("qwen2-1.5b", "granite-20b", "gemma-7b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b")
-UNPORTED = ("whisper-medium", "llama-3.2-vision-11b")
+CROSS = ("whisper-medium", "llama-3.2-vision-11b")  # tests/test_torch_cross.py
 SSM = ("zamba2-7b", "mamba2-780m")  # tests/test_torch_ssm_zoo.py
 
 
@@ -153,15 +153,20 @@ def test_configs_equal_the_jax_package_field_by_field(arch):
 
 
 def test_archs_in_the_jax_order_and_the_rest_unported():
+    """Every architecture of the JAX registry is ported, in its order (the
+    cross-attention families too, since they were the last); a name outside
+    the registry raises."""
     from repro.configs import ARCHS as J_ARCHS
 
-    assert ARCHS == tuple(a for a in J_ARCHS if a not in UNPORTED)
-    assert set(ZOO) | set(SSM) | {"smollm-135m"} == set(ARCHS)
-    for arch in UNPORTED:
-        with pytest.raises(ValueError, match="not yet ported"):
-            get_config(arch)
-        with pytest.raises(ValueError, match="not yet ported"):
-            get_reduced(arch)
+    assert ARCHS == J_ARCHS
+    assert set(ZOO) | set(SSM) | set(CROSS) | {"smollm-135m"} == set(ARCHS)
+    for arch in CROSS:
+        assert get_config(arch).family in ("encdec", "vlm")
+        assert get_reduced(arch).d_model == 64
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("llama-3.2-vision-90b")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_reduced("llama-3.2-vision-90b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
