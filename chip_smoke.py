@@ -21,8 +21,12 @@ the forward and serving, zamba2-7b's training at cut depth), then the
 cross-attention families (phase 14: whisper-medium whole with its audio
 frames, on Taylor and softmax attention; llama-3.2-vision-11b whole for the
 forward and serving with its images, its training at cut depth; neither
-reaches a kernel, as in the reference), and prints one JSON line
-describing every ported kernel followed by the device line.
+reaches a kernel, as in the reference), then training breadth (phase 15:
+the launcher with AdamW, Adafactor and SGD-momentum, bf16 AdamW moments,
+the three remat modes, qwen2-1.5b whole with checkpoints and a resume,
+zamba2-7b whole with bf16 params and Adafactor, a restore of a state in the
+JAX trainer's layout), and prints one JSON line describing every ported
+kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -209,6 +213,39 @@ VLM_LENS = PROMPT_LENS[:2]  # the VLM's requests: 2 slots of 3.3 GB of state eac
 VLM_IMAGE_STEPS = 8  # tokens of one prompt under two images
 VLM_TRAIN_GROUPS = 1
 VLM_TRAIN = dict(steps=2, b=4)
+# Phase 15: training breadth.  (a) smollm-135m through the launcher with each
+# optimizer (lr and warmup of phase 7, a fresh bigram batch each step), and
+# AdamW with bf16 moments and Adafactor without momentum through the library;
+# (b) one step under each remat mode; (c) qwen2-1.5b whole through the
+# launcher with Adafactor and checkpoints: an uninterrupted run, a control run
+# and a run stopped after its first step (--max-wall-seconds) and re-invoked;
+# (d) zamba2-7b whole with bf16 params and Adafactor without momentum;
+# (e) smollm's AdamW state written in the JAX trainer's layout with numpy,
+# restored through the loader.
+BREADTH_STEPS = 4  # (a)'s runs
+BREADTH_ARGS = ["--batch", str(TRAIN["b"]), "--seq", str(TRAIN["n"]), "--lr", str(TRAIN["lr"]),
+                "--warmup", str(TRAIN["warmup"]), "--log-every", "1"]
+# SGD's lr: at (a)'s 2e-3, with the gradient's norm clipped to 1, a step
+# moves the loss by ~1e-3; 5e-2 is SGD's usual scale
+SGD_LR = 5e-2
+REMATS = ("none", "full", "dots_saveable")
+REMAT_TIMED = 5  # (b)'s timed forward + backward passes per mode
+ZAMBA_WHOLE_STEPS = 3
+# (d)'s lr: the JAX package's training preset for bf16 params under Adafactor
+# without momentum (launch/dryrun.py::training_preset).  Without momentum its
+# updates are ~lr per element, and at 2e-3 on weights of std ~0.017 the third
+# step's loss jumped above the first's on the H100
+ZAMBA_WHOLE_LR = 3e-4
+QWEN_STEPS = 3  # (c)'s runs; the stopped one takes 1, the resumed one the rest
+# (c)'s gate: the backward kernels add with f32 atomics, so two runs on the
+# card differ, and Adafactor turns a sign flip of a tiny gradient into an
+# update near ±lr; so the resumed run's divergence from the uninterrupted
+# one (relative RMS over all params) is held to RESUME_RATIO times that of a
+# second uninterrupted run, plus RESUME_FLOOR; a resume that lost its step,
+# schedule, data position or moments moves every param by ~lr (~1e-1 of
+# their RMS).
+RESUME_RATIO = 4.0
+RESUME_FLOOR = 1e-5
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -618,9 +655,11 @@ def kernel_layers(torch, cfg):
 
 def kernel_launches_per_step(torch, cfg):
     """(fwd, dq, dkv) launches of one training step: one forward per kernel
-    layer, two under remat "full"; one dq and one dkv."""
+    layer, two under remat "full" and "dots_saveable" (the backward reruns
+    the block, and a kernel launch is no product to save); one dq and one
+    dkv."""
     n = kernel_layers(torch, cfg)
-    return (2 if cfg.remat == "full" else 1) * n, n, n
+    return (1 if cfg.remat == "none" else 2) * n, n, n
 
 
 def train_steps(torch, K, cfg, init_state, step, batch, steps, tag):
@@ -1809,16 +1848,16 @@ def zoo_forward(torch, K, infer, params, cfg, tokens, tag, moe=None):
                 torch_forward_ms=torch_ms, **({"top_k_flips": flips["flips"]} if moe else {}))
 
 
-def zoo_train(torch, K, cfg, steps, tag, extras=None, b=None):
+def zoo_train(torch, K, cfg, steps, tag, extras=None, b=None, opt=None):
     """``steps`` training steps at phase 7's batch and schedule (its first
     ``b`` rows, all by default), from a state drawn on the card's generator
-    (seed 0), with ``extras`` (tensors on the card) beside the tokens.
-    Returns the summary."""
+    (seed 0), with ``extras`` (tensors on the card) beside the tokens, under
+    ``opt`` (default AdamW).  Returns the summary."""
     from repro_torch.data import make_task
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.train import make_train_step, train_state_init
 
-    opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], steps))
+    opt = opt or adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], steps))
     batch = {k_: x[:b] for k_, x in bigram_batch(torch, make_task, cfg).items()}
     batch.update(extras or {})
     # the functional AdamW holds ~9 copies of the params at its peak (params,
@@ -2482,6 +2521,356 @@ def phase_cross(torch, K, infer):
     return out
 
 
+@contextlib.contextmanager
+def launcher_steps(torch, K):
+    """Times and counts each step the training launcher takes: wraps the
+    ``make_train_step`` it calls; yields the list of (seconds, loss, (fwd,
+    dq, dkv) launches) it appends to, one entry per step."""
+    from repro_torch.launch import train as launch
+
+    make, steps = launch.make_train_step, []
+
+    def wrapped(cfg, opt, *args, **kwargs):
+        step = make(cfg, opt, *args, **kwargs)
+
+        def timed(state, batch):
+            c0 = taylor_counters(K)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            got = tuple(a - b for a, b in zip(taylor_counters(K), c0))
+            steps.append((time.perf_counter() - t0, loss, got))
+            return state, metrics
+
+        return timed
+
+    launch.make_train_step = wrapped
+    try:
+        yield steps
+    finally:
+        launch.make_train_step = make
+
+
+def run_launcher(torch, K, argv, cfg, tag, check_fall=False):
+    """``repro_torch.launch.train.main(argv)`` on the card with the kernels'
+    counts set to 0 just before; fails unless every step launches
+    ``kernel_launches_per_step(cfg)`` and has a finite loss.  With
+    ``check_fall``, the final params' loss on the first step's batch must
+    lie below the first step's loss there (the launcher draws a fresh batch
+    each step, so its own losses over a few steps are noise around ln V).
+    Returns (the final state, the summary)."""
+    from repro_torch.data import make_task
+    from repro_torch.launch import train as launch
+    from repro_torch.train import make_loss_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with launcher_steps(torch, K) as steps:
+        state = launch.main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    expect = kernel_launches_per_step(torch, cfg)
+    for i, (_, loss, got) in enumerate(steps):
+        if got != expect:
+            fail(f"{tag} launcher step {i + 1} launched (fwd, dq, dkv) = {got}, expected "
+                 f"{expect}")
+        if not math.isfinite(loss):
+            fail(f"{tag} launcher loss is not finite at step {i + 1}")
+    times = [t for t, _, _ in steps]
+    steady = times[1:] or times
+    out = dict(losses=[l_ for _, l_, _ in steps], first_step_ms=times[0] * 1e3,
+               step_ms=sum(steady) / len(steady) * 1e3, peak_gib=peak / 2**30, wall_s=wall,
+               launches=dict(zip(("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"),
+                                 taylor_counters(K))))
+    print(f"{tag} launcher {' '.join(argv)}: {len(steps)} steps, loss "
+          f"{' -> '.join(f'{l_:.4f}' for l_ in out['losses'])}; first step "
+          f"{out['first_step_ms']:.1f} ms, then {out['step_ms']:.1f} ms/step; peak memory "
+          f"{out['peak_gib']:.2f} GiB; wall {wall:.1f} s; launches {out['launches']}")
+    if check_fall:
+        task = make_task("bigram", cfg.vocab, TRAIN["n"], TRAIN["b"], seed=0)
+        first = {k_: torch.from_numpy(x).cuda() for k_, x in task.batch_at(0).items()}
+        with torch.no_grad():
+            out["final_loss_batch0"] = float(make_loss_fn(cfg)(state.params, first)[1]["loss"])
+        print(f"{tag} the first step's batch: loss {out['losses'][0]:.4f} before the run, "
+              f"{out['final_loss_batch0']:.4f} after it")
+        if not out["final_loss_batch0"] < out["losses"][0]:
+            fail(f"{tag} the loss on the first batch did not fall")
+    return state, out
+
+
+def stack_copy_bytes(torch, params, cfg) -> int:
+    """Bytes of gradients that Adafactor copies with ``torch.stack`` each
+    step (``optim.adafactor``): its stacked block leaves of fewer than 2
+    dims per layer (the rest run layer by layer)."""
+    import numpy as np
+
+    from repro_torch.models.convert import to_jax_layout
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    leaves = tree_leaves(params)
+    idx = tree_unflatten(params, [np.array(i) for i in range(len(leaves))])
+    total = 0
+    for ix in tree_leaves(to_jax_layout(idx, cfg, np.array)):
+        t = leaves[int(ix.flat[0])]
+        if ix.ndim and t.dim() < 2:
+            total += ix.size * t.numel() * t.element_size()
+    return total
+
+
+def param_divergence(torch, a, b):
+    """(max |a - b|, RMS(a - b) / RMS(b)) over every param leaf, float64 sums."""
+    from repro_torch.tree import tree_leaves
+
+    mx, sq, ref = 0.0, 0.0, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = x.double() - y.double()
+        mx = max(mx, float(d.abs().max()))
+        sq += float(d.square().sum())
+        ref += float(y.double().square().sum())
+    return mx, math.sqrt(sq / ref)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Every leaf of two trees equal bit for bit (dtype and shape too)."""
+    from repro_torch.tree import tree_items
+
+    ia, ib = list(tree_items(a)), list(tree_items(b))
+    return [k for k, _ in ia] == [k for k, _ in ib] and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for (_, x), (_, y) in zip(ia, ib))
+
+
+def write_jax_layout(torch, directory, step, state, cfg):
+    """``state`` (the port's AdamW TrainState) written as the JAX trainer
+    writes one, with numpy: the params and both moments in the JAX layout
+    (``params_to_numpy``), keyed by ``keystr`` paths, COMMIT last."""
+    import numpy as np
+
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.tree import tree_items
+
+    flat = {".step": np.asarray(int(state.step), np.int32),
+            ".opt_state.step": np.asarray(int(state.opt_state.step), np.int32)}
+    for prefix, tree in ((".params", state.params), (".opt_state.m", state.opt_state.m),
+                         (".opt_state.v", state.opt_state.v)):
+        flat.update({prefix + key: x for key, x in tree_items(params_to_numpy(tree, cfg))})
+    flat["__dtype_manifest__"] = np.frombuffer(b"{}", dtype=np.uint8)
+    final = os.path.join(directory, f"step_{step:010d}")
+    os.makedirs(final)
+    np.savez(os.path.join(final, "host_0.npz"), **flat)
+    with open(os.path.join(final, "COMMIT"), "w") as f:
+        json.dump({"step": step}, f)
+    return len(flat) - 1
+
+
+def phase_breadth(torch, K, qwen_adamw_peak_gib):
+    """Phase 15: training breadth at published widths (module constants)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint, restore_jax_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_task
+    from repro_torch.optim import adafactor, adamw, cosine_warmup
+    from repro_torch.train import loss_and_grads, make_loss_fn, make_train_step
+    from repro_torch.train import train_state_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = {}
+
+    def launcher(arch, *extra, steps=BREADTH_STEPS):
+        return ["--arch", arch, "--steps", str(steps), *BREADTH_ARGS, *extra]
+
+    # (a) smollm-135m through the launcher with each optimizer, and the two
+    # library-only variants
+    cfg = get_config("smollm-135m")
+    a = {}
+    for name in ("adamw", "adafactor", "sgdm"):
+        extra = ["--lr", str(SGD_LR)] if name == "sgdm" else []  # the last --lr holds
+        state, a[name] = run_launcher(
+            torch, K, launcher("smollm-135m", "--optimizer", name, *extra), cfg,
+            f"[15a] {name}:", check_fall=True)
+        if name == "adamw":  # kept for (e) in host memory: off the later peaks
+            adamw_state = tree_map(lambda t: t.cpu(), state)
+        del state
+    a["stack_copy_bytes"] = stack_copy_bytes(torch, adamw_state.params, cfg)
+    sched = cosine_warmup(TRAIN["lr"], TRAIN["warmup"], BREADTH_STEPS)
+    for name, opt in (("adamw_bf16_moments", adamw(sched, state_dtype=torch.bfloat16)),
+                      ("adafactor_no_momentum", adafactor(sched, momentum=None, cfg=cfg))):
+        a[name] = zoo_train(torch, K, cfg, BREADTH_STEPS, f"[15a] {name}:", opt=opt)
+        if not a[name]["losses"][-1] < a[name]["losses"][0]:
+            fail(f"[15a] smollm-135m {name}: loss did not fall: {a[name]['losses']}")
+    out["a"] = a
+
+    # (b) the remat modes: one step each from the same weights and batch
+    batch = bigram_batch(torch, make_task, cfg)
+    params = zoo_params(torch, cfg)
+    b, grads = {}, {}
+    for remat in REMATS:
+        rcfg = cfg.replace(remat=remat)
+        loss_fn = make_loss_fn(rcfg)
+        loss_and_grads(loss_fn, params, batch)  # warm
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        c0 = taylor_counters(K)
+        t0 = time.perf_counter()
+        _, _, g = loss_and_grads(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
+        got = tuple(x - y for x, y in zip(taylor_counters(K), c0))
+        del g
+        for _ in range(REMAT_TIMED - 1):  # the step is host-bound: take a median
+            t0 = time.perf_counter()
+            loss_and_grads(loss_fn, params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = sorted(times)[len(times) // 2] * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        cfg32 = rcfg.replace(dtype="float32")
+        grads[remat] = loss_and_grads(make_loss_fn(cfg32), params, batch)[2]
+        b[remat] = dict(step_ms=ms, peak_gib=peak, launches=got)
+        each = ", ".join(f"{t * 1e3:.1f}" for t in times)
+        print(f"[15b] remat={remat}: forward + backward {ms:.1f} ms (median of {each}), peak "
+              f"above the params {peak:.2f} GiB, launches (fwd, dq, dkv) = {got}")
+        if got != kernel_launches_per_step(torch, rcfg):
+            fail(f"[15b] remat={remat} launched {got}")
+    errs = [rel_err(torch, x, y) for x, y in zip(tree_leaves(grads["dots_saveable"]),
+                                                tree_leaves(grads["none"]))]
+    b["grad_rel_err"] = max(errs)
+    order = b["none"]["peak_gib"] >= b["dots_saveable"]["peak_gib"] >= b["full"]["peak_gib"]
+    print(f"[15b] float32 gradients, dots_saveable vs none over {len(errs)} leaves: max "
+          f"rel_err {max(errs):.3e} (tol {SHARED_GRAD_TOL}); peaks none >= dots_saveable >= "
+          f"full: {order}")
+    if not max(errs) < SHARED_GRAD_TOL:
+        fail(f"[15b] dots_saveable gradients disagree with none's: {max(errs)}")
+    out["b"] = b
+    del params, grads, batch
+
+    # (c) qwen2-1.5b whole through the launcher: Adafactor, checkpoints, resume
+    qcfg = get_config("qwen2-1.5b")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        c = {}
+        args = launcher("qwen2-1.5b", "--optimizer", "adafactor", steps=QWEN_STEPS)
+        ref, c["uninterrupted"] = run_launcher(
+            torch, K, args + ["--ckpt-dir", os.path.join(tmp, "a"), "--ckpt-every", "1000"],
+            qcfg, "[15c] uninterrupted:", check_fall=True)
+        shutil.rmtree(os.path.join(tmp, "a"))
+        ref = ref.params
+        c["stack_copy_bytes"] = stack_copy_bytes(torch, ref, qcfg)
+        control, c["control"] = run_launcher(torch, K, args, qcfg, "[15c] control:")
+        c["control_div"] = param_divergence(torch, control.params, ref)
+        del control
+        ckpt = os.path.join(tmp, "b")
+        part, c["stopped"] = run_launcher(
+            torch, K, args + ["--ckpt-dir", ckpt, "--max-wall-seconds", "1e-9"], qcfg,
+            "[15c] stopped:")
+        saved = restore_checkpoint(ckpt, part)
+        c["restore_exact"] = same_bits(torch, saved, part)
+        del saved, part
+        resumed, c["resumed"] = run_launcher(torch, K, args + ["--ckpt-dir", ckpt], qcfg,
+                                             "[15c] resumed:")
+        c["resume_div"] = param_divergence(torch, resumed.params, ref)
+        del resumed, ref
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (cmax, crms), (rmax, rrms) = c["control_div"], c["resume_div"]
+    gate = RESUME_RATIO * crms + RESUME_FLOOR
+    print(f"[15c] restored state equals the saved one bit for bit: {c['restore_exact']}; "
+          f"final params vs the uninterrupted run: control max|d| {cmax:.3e} rel RMS "
+          f"{crms:.3e}, resumed max|d| {rmax:.3e} rel RMS {rrms:.3e} (ratio "
+          f"{rrms / crms if crms else float('inf'):.2f}; gate rel RMS <= {RESUME_RATIO} x "
+          f"control + {RESUME_FLOOR} = {gate:.3e})")
+    if not c["restore_exact"]:
+        fail("[15c] the restored state differs from the saved one")
+    if len(c["stopped"]["losses"]) != 1 or len(c["resumed"]["losses"]) != QWEN_STEPS - 1:
+        fail(f"[15c] the stop and resume took {len(c['stopped']['losses'])} and "
+             f"{len(c['resumed']['losses'])} steps")
+    if not rrms <= gate:
+        fail(f"[15c] the resumed run diverges beyond the card's own noise: {rrms} > {gate}")
+    c["adamw_bf16"] = zoo_train(
+        torch, K, qcfg, 2, "[15c] adamw bf16 moments:",
+        opt=adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], 2), state_dtype=torch.bfloat16))
+    print(f"[15c] qwen2-1.5b peak with AdamW moments in bf16 "
+          f"{c['adamw_bf16']['peak_gib']:.2f} GiB vs float32 (phase 12) "
+          f"{qwen_adamw_peak_gib:.2f} GiB; with Adafactor {c['uninterrupted']['peak_gib']:.2f} "
+          f"GiB")
+    out["c"] = c
+
+    # (d) zamba2-7b whole: bf16 params, Adafactor without momentum
+    zcfg = get_config("zamba2-7b", param_dtype="bfloat16")
+    opt = adafactor(cosine_warmup(ZAMBA_WHOLE_LR, TRAIN["warmup"], ZAMBA_WHOLE_STEPS),
+                    momentum=None, cfg=zcfg)
+    d = zoo_train(torch, K, zcfg, ZAMBA_WHOLE_STEPS, "[15d] zamba2-7b whole:", opt=opt)
+    if not d["losses"][-1] < d["losses"][0]:
+        fail(f"[15d] zamba2-7b loss did not fall: {d['losses']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = zoo_params(torch, zcfg)
+    d["stack_copy_bytes"] = stack_copy_bytes(torch, params, zcfg)
+    d["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    del params
+    print(f"[15] Adafactor's torch.stack copy of gradients per step: smollm-135m "
+          f"{a['stack_copy_bytes']:,} B, qwen2-1.5b {c['stack_copy_bytes']:,} B, zamba2-7b "
+          f"{d['stack_copy_bytes']:,} B (of {d['param_bytes']:,} B of bf16 params)")
+    out["d"] = d
+
+    # (e) smollm's AdamW state in the JAX trainer's layout, through the loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jax_")
+    try:
+        n_keys = write_jax_layout(torch, tmp, BREADTH_STEPS, adamw_state, cfg)
+        opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], BREADTH_STEPS + 1))
+        template = train_state_init(torch.Generator(device="cuda").manual_seed(1), cfg, opt)
+        restored = restore_jax_checkpoint(tmp, template, cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    exact = same_bits(torch, restored, tree_map(lambda t: t.cuda(), adamw_state))
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    task = make_task("bigram", cfg.vocab, TRAIN["n"], TRAIN["b"], seed=0)
+    nxt = {k_: torch.from_numpy(x).cuda() for k_, x in task.batch_at(BREADTH_STEPS).items()}
+    _, m = make_train_step(cfg, opt)(restored, nxt)
+    loss = float(m["loss"])
+    got = taylor_counters(K)
+    print(f"[15e] smollm-135m AdamW state written in the JAX layout ({n_keys} keys), restored "
+          f"on the card: bit for bit {exact}; one more step: loss {loss:.4f}, launches "
+          f"(fwd, dq, dkv) = {got}")
+    if not exact:
+        fail("[15e] the JAX-layout restore differs from the state written")
+    if got != kernel_launches_per_step(torch, cfg) or not math.isfinite(loss):
+        fail(f"[15e] the step after the restore launched {got}, loss {loss}")
+    out["e"] = dict(exact=exact, loss=loss, launches=got)
+    del restored, adamw_state, template
+    return out
+
+
+def breadth_launches(br, name):
+    """Phase 15's launches of kernel ``name`` by path, for the kernels line."""
+    i = ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv").index(name)
+    a, c = br["a"], br["c"]
+    out = {f"smollm-135m_launcher_{opt}_{BREADTH_STEPS}_steps": a[opt]["launches"][name]
+           for opt in ("adamw", "adafactor", "sgdm")}
+    out.update({f"smollm-135m_{opt}_{BREADTH_STEPS}_steps": a[opt]["launches"][name]
+                for opt in ("adamw_bf16_moments", "adafactor_no_momentum")})
+    out.update({f"smollm-135m_remat_{r}_step": br["b"][r]["launches"][i] for r in REMATS})
+    out.update({f"qwen2-1.5b_launcher_adafactor_{run}": c[run]["launches"][name]
+                for run in ("uninterrupted", "control", "stopped", "resumed")})
+    out["qwen2-1.5b_adamw_bf16_2_steps"] = c["adamw_bf16"]["launches"][name]
+    out[f"zamba2-7b_whole_train_{ZAMBA_WHOLE_STEPS}_steps"] = br["d"]["launches"][name]
+    out["smollm-135m_step_after_jax_restore"] = br["e"]["launches"][i]
+    return out
+
+
 def cross_launches(cross, name):
     """Phase 14's launches of kernel ``name`` by path, for the kernels line
     (all 0: the kernels' envelope excludes cross models)."""
@@ -2763,7 +3152,26 @@ def main() -> int:
           f"({v['train_params']} params) train {v['train']['step_ms']:.1f} ms/step, peak "
           f"{v['train']['peak_gib']:.2f} GiB")
 
-    # ---- 15. kernels line ----
+    # ---- 15. training breadth: optimizers, remat, the launcher, checkpoints ----
+    t0 = time.perf_counter()
+    breadth = phase_breadth(torch, K, q["train"]["peak_gib"])
+    a, c, d = breadth["a"], breadth["c"], breadth["d"]
+    print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
+    print("[15] summary (full widths; b=4 n=1024 bf16 activations, remat full): smollm-135m "
+          "ms/step (peak GiB) through the launcher: " + ", ".join(
+              f"{k} {a[k]['step_ms']:.1f} ({a[k]['peak_gib']:.2f})"
+              for k in ("adamw", "adafactor", "sgdm", "adamw_bf16_moments",
+                        "adafactor_no_momentum")) +
+          "; one step (forward + backward) per remat mode: " + ", ".join(
+              f"{r} {breadth['b'][r]['step_ms']:.1f} ms ({breadth['b'][r]['peak_gib']:.2f} GiB)"
+              for r in REMATS) +
+          f"; qwen2-1.5b Adafactor {c['uninterrupted']['step_ms']:.1f} ms/step, peak "
+          f"{c['uninterrupted']['peak_gib']:.2f} GiB, AdamW bf16 moments peak "
+          f"{c['adamw_bf16']['peak_gib']:.2f} GiB (f32 {q['train']['peak_gib']:.2f}); zamba2-7b "
+          f"whole (bf16 params, Adafactor without momentum) {d['step_ms']:.1f} ms/step, peak "
+          f"{d['peak_gib']:.2f} GiB")
+
+    # ---- 16. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -2782,7 +3190,8 @@ def main() -> int:
             "phase11_serving": spec["launches"],
             **zoo_launches(zoo, "taylor_fwd"),
             **ssm_launches(ssm, "taylor_fwd"),
-            **cross_launches(cross, "taylor_fwd")},
+            **cross_launches(cross, "taylor_fwd"),
+            **breadth_launches(breadth, "taylor_fwd")},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -2810,7 +3219,8 @@ def main() -> int:
                 f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"][name],
                 **zoo_launches(zoo, name),
                 **ssm_launches(ssm, name),
-                **cross_launches(cross, name)},
+                **cross_launches(cross, name),
+                **breadth_launches(breadth, name)},
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -2825,7 +3235,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 16. device line ----
+    # ---- 17. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -126,7 +126,8 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore_checkpoint(directory: str, template: Any, step: Optional[int] = None) -> Any:
     """Load into the structure of ``template``; each leaf takes its template
-    leaf's dtype and device.  ``step`` defaults to the newest committed one."""
+    leaf's dtype and device.  ``step`` defaults to the newest committed one.
+    Raises when the file's keys or shapes differ from the template's."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -136,9 +137,16 @@ def restore_checkpoint(directory: str, template: Any, step: Optional[int] = None
         manifest = {}
         if _MANIFEST in data:
             manifest = json.loads(bytes(data[_MANIFEST]).decode())
+        items = list(tree_items(template))
+        extra = set(data.files) - {_MANIFEST} - {key for key, _ in items}
+        if extra:
+            raise ValueError(f"{path} holds keys the template lacks: {sorted(extra)[:5]}")
         leaves = []
-        for key, tmpl in tree_items(template):
+        for key, tmpl in items:
             t = _decode(data[key], manifest.get(key))
             tmpl = torch.as_tensor(tmpl)
+            if t.shape != tmpl.shape:
+                raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)}, template "
+                                 f"{tuple(tmpl.shape)}")
             leaves.append(t.to(device=tmpl.device, dtype=tmpl.dtype))
     return tree_unflatten(template, leaves)

@@ -19,11 +19,13 @@ they are.  The caller converts the JAX arrays with
     params = params_from_jax(tree, cfg, device="cpu")
 
 and ``params_to_numpy`` goes back (numpy arrays in the JAX tree layout).
+``to_jax_layout`` is that restacking for any leaf type: the optimizers and
+the JAX checkpoint loader take the stacking from it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +39,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
     """Convert a numpy copy of the JAX ``lm_init`` tree to the port's params.
 
     Args:
-      tree: nested dict of numpy arrays with the JAX ``lm_init`` structure.
+      tree: nested dict of numpy arrays (or tensors) with the JAX
+        ``lm_init`` structure; any tree of that structure, e.g. AdamW's
+        moments.
       cfg: the port's model config (same geometry as the JAX config).
       device: ``None`` (the CUDA card; raises without one) or e.g. "cpu".
 
@@ -45,7 +49,12 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict
       The port's param dict (``repro_torch.models.lm`` layout).
     """
     device = resolve_device(device)
-    to_t = lambda x: torch.from_numpy(np.array(x, copy=True)).to(device)
+
+    def to_t(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device, copy=True)
+        return torch.from_numpy(np.array(x, copy=True)).to(device)
+
     blocks = _unstack(tree["blocks"]["group"], _decoder_runs(cfg), cfg.n_groups, to_t)
     for i, kind in enumerate(cfg.tail):
         blocks.append(None if kind == "shared_attn"
@@ -73,27 +82,39 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     the JAX ``lm_init`` tree layout (block leaves stacked over
     ``[n_groups, run_len, ...]``)."""
     to_np = lambda t: t.detach().cpu().numpy()
-    blocks = params["blocks"]
+    stack = lambda rows: np.stack([np.stack(row) for row in rows])
+    return to_jax_layout(tree_map(to_np, params), cfg, stack)
+
+
+def to_jax_layout(tree: Dict[str, Any], cfg: ModelConfig,
+                  stack: Callable[[List[List[Any]]], Any]) -> Dict[str, Any]:
+    """A tree in the port's param layout -> the JAX ``lm_init`` layout.
+
+    Leaves outside the blocks carry over as they are; ``stack(rows)`` makes
+    one stacked leaf of a run's leaves at one path, ``rows[group][r]`` for
+    ``n_groups`` groups of ``run_len`` layers (``np.stack`` for numpy,
+    ``np.array`` of indices for the optimizers' stacking)."""
+    blocks = tree["blocks"]
     n_group = cfg.n_groups * len(cfg.pattern)
-    tree = {
-        "embed": tree_map(to_np, params["embed"]),
-        "final_norm": tree_map(to_np, params["final_norm"]),
-        "blocks": {"group": _restack(blocks, _decoder_runs(cfg), cfg.n_groups)},
+    out = {
+        "embed": tree["embed"],
+        "final_norm": tree["final_norm"],
+        "blocks": {"group": _restack(blocks, _decoder_runs(cfg), cfg.n_groups, stack)},
     }
     if cfg.tail:  # as in the JAX tree, which has no "tail" entry without one
-        tree["blocks"]["tail"] = {f"t{i}": tree_map(to_np, blocks[n_group + i])
-                                  for i, kind in enumerate(cfg.tail) if kind != "shared_attn"}
-    if "shared" in params:
-        tree["blocks"]["shared"] = tree_map(to_np, params["shared"])
+        out["blocks"]["tail"] = {f"t{i}": blocks[n_group + i]
+                                 for i, kind in enumerate(cfg.tail) if kind != "shared_attn"}
+    if "shared" in tree:
+        out["blocks"]["shared"] = tree["shared"]
     for key in ("unembed", "pos_embed", "vision_proj"):
-        if key in params:
-            tree[key] = tree_map(to_np, params[key])
-    if "encoder" in params:
-        enc = params["encoder"]
-        tree["encoder"] = {k: tree_map(to_np, v) for k, v in enc.items() if k != "blocks"}
-        tree["encoder"]["group"] = _restack(enc["blocks"], _encoder_runs(cfg),
-                                            cfg.n_encoder_groups)
-    return tree
+        if key in tree:
+            out[key] = tree[key]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {k: v for k, v in enc.items() if k != "blocks"}
+        out["encoder"]["group"] = _restack(enc["blocks"], _encoder_runs(cfg),
+                                           cfg.n_encoder_groups, stack)
+    return out
 
 
 def _decoder_runs(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -122,21 +143,21 @@ def _unstack(group, runs, n_groups: int, to_t) -> List[Any]:
             for r in range(run_len)]
 
 
-def _restack(blocks: List[Any], runs, n_groups: int) -> Dict[str, Any]:
+def _restack(blocks: List[Any], runs, n_groups: int, stack) -> Dict[str, Any]:
     """Inverse of ``_unstack``: the layers' dicts -> ``{"r{j}": stacked}``."""
     per_group = sum(rl for _, rl in runs)
     group, offset = {}, 0
     for j, (kind, run_len) in enumerate(runs):
         if kind != "shared_attn":
             group[f"r{j}"] = _stack([[blocks[gi * per_group + offset + r] for r in range(run_len)]
-                                     for gi in range(n_groups)])
+                                     for gi in range(n_groups)], stack)
         offset += run_len
     return group
 
 
-def _stack(rows):
-    """[[layer dict] * run_len] * n_groups -> one dict of [n_groups, run_len, ...]."""
+def _stack(rows, stack):
+    """[[layer dict] * run_len] * n_groups -> one dict of ``stack(rows)`` leaves."""
     first = rows[0][0]
     if isinstance(first, dict):
-        return {k: _stack([[layer[k] for layer in row] for row in rows]) for k in first}
-    return np.stack([np.stack([t.detach().cpu().numpy() for t in row]) for row in rows])
+        return {k: _stack([[layer[k] for layer in row] for row in rows], stack) for k in first}
+    return stack(rows)

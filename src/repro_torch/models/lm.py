@@ -45,7 +45,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.backends import state_backend
 from repro_torch.backends.state import CrossCache
@@ -226,14 +226,30 @@ def _logits(params, x: Tensor, cfg: ModelConfig) -> Tensor:
     return logits
 
 
+def _dots_saveable():
+    """``jax.checkpoint_policies.dots_saveable`` for torch's selective
+    checkpoint: the outputs of matrix products are saved, every other op of
+    the block is recomputed in the backward.  The products are the aten ops
+    that ``torch.matmul``, ``F.linear`` and ``torch.einsum`` lower to: mm,
+    bmm, addmm, baddbmm.  A Taylor kernel launch is no product: it reruns,
+    as a ``pallas_call`` does under the reference's policy."""
+    aten = torch.ops.aten
+    ops = [aten.mm.default, aten.bmm.default, aten.addmm.default, aten.baddbmm.default]
+    return create_selective_checkpoint_contexts(ops)
+
+
 def _remat(fn, cfg: ModelConfig):
     """Per-block rematerialisation: under ``remat="full"`` a block keeps only
-    its input for the backward and reruns itself there."""
+    its input for the backward and reruns itself there; under
+    ``"dots_saveable"`` it keeps its matrix products' outputs too."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    raise NotImplementedError(f"remat={cfg.remat!r} is not yet ported to torch")
+    if cfg.remat == "dots_saveable":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=_dots_saveable)
+    raise ValueError(cfg.remat)
 
 
 def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, Tensor]:

@@ -56,7 +56,8 @@ def test_training_modules_stand_alone():
             "repro_torch.configs.kimi_k2_1t_a32b", "repro_torch.models.ssm",
             "repro_torch.backends.ssm", "repro_torch.configs.mamba2_780m",
             "repro_torch.configs.zamba2_7b", "repro_torch.configs.whisper_medium",
-            "repro_torch.configs.llama_3_2_vision_11b"} <= mods
+            "repro_torch.configs.llama_3_2_vision_11b", "repro_torch.launch.train",
+            "repro_torch.checkpoint.from_jax"} <= mods
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
