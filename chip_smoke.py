@@ -25,8 +25,13 @@ reaches a kernel, as in the reference), then training breadth (phase 15:
 the launcher with AdamW, Adafactor and SGD-momentum, bf16 AdamW moments,
 the three remat modes, qwen2-1.5b whole with checkpoints and a resume,
 zamba2-7b whole with bf16 params and Adafactor, a restore of a state in the
-JAX trainer's layout), and prints one JSON line describing every ported
-kernel followed by the device line.
+JAX trainer's layout), then distributed training (phase 16: 2 ranks that
+share the one card over gloo, or one card a rank over nccl; qwen2-1.5b
+whole trained tensor-parallel on 1×2 and dp × fsdp on 2×1 through the
+kernels against an unsharded run, Taylor and SSD context parallelism on
+1×2 against unsharded forwards, the elastic restore of a sharded state),
+and prints one JSON line describing every ported kernel followed by the
+device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -246,6 +251,33 @@ QWEN_STEPS = 3  # (c)'s runs; the stopped one takes 1, the resumed one the rest
 # their RMS).
 RESUME_RATIO = 4.0
 RESUME_FLOOR = 1e-5
+
+
+# Phase 16: distributed training on a mesh of 2 ranks (ranks share the one
+# card over gloo, or one card a rank over nccl): qwen2-1.5b whole in float32
+# through the kernels under tp (1×2) and dp × fsdp (2×1) against an unsharded
+# run of the same seed and batch, Taylor and SSD context parallelism (1×2),
+# and the elastic restore of (a)'s state.
+DIST = dict(
+    world=2,
+    device="cuda",
+    arch="qwen2-1.5b",          # (a), (b), (c) at published widths
+    ssm_arch="mamba2-780m",     # (d)
+    b=TRAIN["b"], n=TRAIN["n"], steps=2,
+    cp_fwd=(1, 16384),          # (c)'s forward: (b, n)
+    ssd_fwd=(1, 8192),          # (d)'s forward: (b, n)
+    stride=16,                  # the forward checks compare every 16th position's logits
+    reduced=False,
+)
+DIST_LOSS_TOL = 2e-3  # sharded vs unsharded losses (tests/test_distributed.py:127)
+CP_LOSS_TOL = 5e-3  # cp vs tp losses (tests/test_distributed.py:204)
+DIST_FWD_TOL = 1e-3  # f32 logits, rel (max|Δ|/max|ref|): phase 4's float32 tolerance
+# params after the steps: per leaf, RMS(sharded - unsharded) / RMS(the
+# unsharded update).  AdamW moves an element by ~lr whatever its gradient's
+# size, so rounding noise flips the few elements whose gradient is near
+# eps (max|Δ| up to ~lr); a wrongly reduced gradient changes the update's
+# direction, ~1 on this scale.
+DIST_PARAM_TOL = 0.1
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -2854,6 +2886,401 @@ def phase_breadth(torch, K, qwen_adamw_peak_gib):
     return out
 
 
+def dist_cfg(torch, spec, key):
+    """The phase's config ``spec[key]`` in float32 (the reduced one in a
+    rehearsal)."""
+    from repro_torch.configs import get_config, get_reduced
+
+    cfg = (get_reduced if spec["reduced"] else get_config)(spec[key])
+    return cfg.replace(dtype="float32")
+
+
+def dist_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_peak(torch, dev, reset=False) -> float:
+    """Peak GiB allocated on this rank's card since the last reset."""
+    if dev.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def dist_batch(torch, spec, cfg, dev):
+    from repro_torch.data import make_task
+
+    task = make_task("bigram", cfg.vocab, spec["n"], spec["b"], seed=0)
+    return {k_: torch.from_numpy(x).to(dev) for k_, x in task.batch_at(0).items()}
+
+
+def dist_tokens(torch, vocab, b, n):
+    return torch.randint(0, vocab, (b, n), generator=torch.Generator().manual_seed(0))
+
+
+def dist_state(torch, spec, cfg, mesh, dev):
+    """``make_sharded_state_and_step`` at the phase's batch and AdamW from
+    seed 0: (state, step, placements, whole batch)."""
+    from repro_torch.distributed import api as dist_api
+    from repro_torch.launch.train import make_sharded_state_and_step
+    from repro_torch.optim import adamw, cosine_warmup
+
+    batch = dist_batch(torch, spec, cfg, dev)
+    opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], spec["steps"]))
+    shapes = {k_: torch.empty_like(x, device="meta") for k_, x in batch.items()}
+    state, step, pl, _ = make_sharded_state_and_step(cfg, opt, mesh,
+                                                     dist_api.rules_for_mesh(mesh), shapes,
+                                                     seed=0, device=dev)
+    return state, step, pl, batch
+
+
+def dist_train(torch, K, spec, cfg, mesh, dev):
+    """``spec["steps"]`` sharded AdamW steps from ``dist_state``, the
+    kernels' counts set to 0 just before.  Returns the state, placements
+    and a summary (losses, ms and launches per step, peak GiB)."""
+    dist_peak(torch, dev, reset=True)
+    state, step, pl, batch = dist_state(torch, spec, cfg, mesh, dev)
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    losses, times, per_step = [], [], []
+    for _ in range(spec["steps"]):
+        c0 = taylor_counters(K)
+        dist_sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        dist_sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        per_step.append(tuple(a - b for a, b in zip(taylor_counters(K), c0)))
+    out = dict(losses=losses, step_ms=[t * 1e3 for t in times], launches=per_step,
+               peak_gib=dist_peak(torch, dev))
+    return state, pl, out
+
+
+def dist_param_err(torch, state, pl, ref_dir, cfg, dev):
+    """This rank's param blocks against the unsharded run's (a checkpoint
+    cut to the same blocks): (max |Δ|, the largest over leaves of RMS(Δ) /
+    RMS(the unsharded run's update from the seed-0 weights)), the sums over
+    each leaf's blocks."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import Placements, distribute_tree
+    from repro_torch.models import lm_init
+    from repro_torch.tree import tree_leaves
+
+    pp = Placements(pl.mesh, pl.specs.params)
+    ref = restore_checkpoint(ref_dir, state.params, placements=pp)
+    init = distribute_tree(lm_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev),
+                           pp)
+    mx, worst = 0.0, 0.0
+    for p_, r_, i_, spec in zip(tree_leaves(state.params), tree_leaves(ref), tree_leaves(init),
+                                tree_leaves(pl.specs.params)):
+        d, u = p_.double() - r_.double(), r_.double() - i_.double()
+        sums = torch.stack([d.square().sum(), u.square().sum(), d.abs().max()])
+        for entry in spec:
+            if entry:
+                sums[:2] = col.all_reduce_values(sums[:2].clone(), pl.mesh, entry)
+        mx = max(mx, float(sums[2]))
+        worst = max(worst, math.sqrt(float(sums[0]) / max(float(sums[1]), 1e-300)))
+    return mx, worst
+
+
+def dist_forward(torch, spec, cfg, mesh, tokens, dev):
+    """The model's forward (``lm_apply`` inside ``spmd.region``) of whole
+    ``tokens`` from the seed-0 weights on ``mesh``: this rank's logits at
+    every ``stride``-th position of its sequence block, the block's start,
+    ms and peak GiB."""
+    from repro_torch.distributed import api as dist_api
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import Placements, distribute_tree, param_specs
+    from repro_torch.models import lm_apply, lm_init
+
+    rules = dist_api.rules_for_mesh(mesh)
+    params = lm_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    specs = param_specs(params, mesh, rules)
+    params = distribute_tree(params, Placements(mesh, specs))
+    dist_peak(torch, dev, reset=True)
+    b, n = tokens.shape
+    lay = spmd.layout_for(mesh, rules, b, n, cfg.d_model)
+    with torch.no_grad(), spmd.region(lay, params, specs):
+        dist_sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, _ = lm_apply(params, spmd.local_batch({"tokens": tokens.to(dev)}, lay), cfg)
+        dist_sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    start = col.axis_rank(mesh, lay.sp) * logits.shape[1] if lay.sp else 0
+    ok = bool(torch.isfinite(logits).all())
+    sample = logits[:, ::spec["stride"]].float().cpu().numpy()
+    return dict(sample=sample, start=start, n_local=logits.shape[1], ms=ms, finite=ok,
+                peak_gib=dist_peak(torch, dev))
+
+
+def dist_checksums(torch, tree, placements, dev):
+    """Per leaf, a checksum of its whole bits from this rank's blocks: Σ over
+    elements of (bits as int64) × a weight of the element's index in the
+    whole leaf, wrapping mod 2⁶⁴, summed over the ranks that split the
+    leaf.  Equal checksums mean equal leaves bit for bit (but for a
+    collision).  ``placements=None``: whole leaves."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import global_shape
+    from repro_torch.tree import tree_items
+
+    specs = ([s_ for _, s_ in tree_items(placements.specs)] if placements is not None
+             else None)
+    views = {torch.float32: torch.int32, torch.int32: torch.int32,
+             torch.bfloat16: torch.int16, torch.int64: torch.int64}
+    sums = []
+    for i, (_, x) in enumerate(tree_items(tree)):
+        x = x.to(dev)
+        spec = specs[i] if specs is not None else ()
+        entries = list(spec) + [None] * (x.dim() - len(spec))
+        mesh = placements.mesh if placements is not None else None
+        shape = global_shape(x.shape, spec, mesh) if specs is not None else tuple(x.shape)
+        idx = torch.zeros((), dtype=torch.int64, device=dev)
+        for d, entry in enumerate(entries):
+            off = col.axis_rank(mesh, entry) * x.shape[d] if entry else 0
+            r = torch.arange(off, off + x.shape[d], dtype=torch.int64, device=dev)
+            idx = idx[..., None] * shape[d] + r
+        weight = (idx * 2654435761 + 40503) % 2147483647
+        del idx
+        bits = x.contiguous().view(views[x.dtype]).to(torch.int64)
+        total = (bits * weight).sum().reshape(1)
+        del bits, weight
+        for entry in entries:
+            if entry:
+                total = col.all_reduce_values(total, mesh, entry)
+        sums.append(int(total))
+    return sums
+
+
+def dist_rank(rank, world, spec, ref_dir, work):
+    """One rank of phase 16 (a)-(e); returns its measurements (rank 0 prints
+    each part's wall time as it ends)."""
+    import torch
+
+    t_start = time.perf_counter()
+
+    def done(part):
+        if rank == 0:
+            print(f"[16] rank 0: {part} done at {time.perf_counter() - t_start:.1f} s",
+                  flush=True)
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed.sharding import whole_template
+    from repro_torch.kernels.taylor_attention import kernel as K
+    from repro_torch.launch.mesh import make_host_mesh, set_rank_device
+    from repro_torch.tree import tree_items
+
+    dev = set_rank_device(spec["device"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(total_gib=(torch.cuda.get_device_properties(dev).total_memory / 2**30
+                          if dev.type == "cuda" else 0.0))
+    cfg = dist_cfg(torch, spec, "arch")
+    tp, dp = make_host_mesh(1, world, device=dev), make_host_mesh(world, 1, device=dev)
+
+    # (a) tp 1×2, and its state saved for (e)
+    state, pl, out["a"] = dist_train(torch, K, spec, cfg, tp, dev)
+    out["a"]["param_err"] = dist_param_err(torch, state, pl, ref_dir, cfg, dev)
+    t0 = time.perf_counter()
+    save_checkpoint(f"{work}/e", spec["steps"], state, placements=pl)
+    out["e"] = dict(save_s=time.perf_counter() - t0)
+    done("(a) and its save")
+
+    # (b) dp × fsdp 2×1
+    sums_a = dist_checksums(torch, state, pl, dev)
+    whole_t = whole_template(state, pl)
+    del state
+    state, pl2, out["b"] = dist_train(torch, K, spec, cfg, dp, dev)
+    out["b"]["param_err"] = dist_param_err(torch, state, pl2, ref_dir, cfg, dev)
+    done("(b)")
+
+    # (e) (a)'s state restored on 2×1 (into (b)'s state as the template), and
+    # whole (as one process reads it): each leaf's bit checksum against (a)'s
+    t0 = time.perf_counter()
+    back = restore_checkpoint(f"{work}/e", state, placements=pl2)
+    out["e"]["restore_2x1_s"] = time.perf_counter() - t0
+    del state
+    sums_b = dist_checksums(torch, back, pl2, dev)
+    del back
+    t0 = time.perf_counter()
+    if rank == 0:
+        whole = restore_checkpoint(f"{work}/e", whole_t)
+        out["e"]["restore_whole_s"] = time.perf_counter() - t0
+        sums_w = dist_checksums(torch, whole, None, dev)
+        del whole
+    keys = [k_ for k_, _ in tree_items(pl.specs)]
+    bad = [f"2x1 {k_}" for k_, a, b in zip(keys, sums_a, sums_b) if a != b]
+    if rank == 0:
+        bad += [f"1x1 {k_}" for k_, a, b in zip(keys, sums_a, sums_w) if a != b]
+    out["e"].update(mismatches=bad, leaves=len(keys))
+    done("(e)")
+
+    # (c) Taylor context parallelism: the forward, then training under cp
+    cp = cfg.replace(attn_sharding="cp")
+    b, n = spec["cp_fwd"]
+    K.taylor_fwd.launches = 0
+    out["c_fwd"] = dist_forward(torch, spec, cp, tp, dist_tokens(torch, cfg.vocab, b, n), dev)
+    out["c_fwd"]["launches"] = K.taylor_fwd.launches
+    done("(c) forward")
+    state, _, out["c_train"] = dist_train(torch, K, spec, cp, tp, dev)
+    del state
+    done("(c) training")
+
+    # (d) SSD context parallelism
+    scfg = dist_cfg(torch, spec, "ssm_arch").replace(attn_sharding="cp")
+    b, n = spec["ssd_fwd"]
+    K.taylor_fwd.launches = 0
+    out["d"] = dist_forward(torch, spec, scfg, tp, dist_tokens(torch, scfg.vocab, b, n), dev)
+    out["d"]["launches"] = K.taylor_fwd.launches
+    done("(d)")
+    return out
+
+
+def phase_distributed(torch, K, spec=DIST):
+    """Phase 16: the unsharded references in this process (freed before the
+    ranks start), then ``spec["world"]`` ranks run (a)-(e) in one spawn.
+    Returns the summary; fails on any check."""
+    import tempfile
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.models import lm_apply, lm_init
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train import make_train_step, train_state_init
+
+    dev = torch.device(spec["device"])
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    world = spec["world"]
+    backend = "nccl" if cards >= world else "gloo"
+    print(f"[16] backend {backend} world_size {world} cards {cards}")
+    cfg = dist_cfg(torch, spec, "arch")
+    steps = spec["steps"]
+    expect = kernel_launches_per_step(torch, cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        # the unsharded run of (a) and (b): same seed, batch and schedule
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], steps))
+        init = lambda: train_state_init(torch.Generator(device=dev).manual_seed(0), cfg, opt,
+                                        device=dev)
+        state, losses, times, _, peak = train_steps(
+            torch, K, cfg, init, make_train_step(cfg, opt), dist_batch(torch, spec, cfg, dev),
+            steps, "[16 unsharded]")
+        out["ref"] = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                          peak_gib=peak / 2**30)
+        save_checkpoint(f"{work}/ref", steps, state.params)
+        del state
+        # the unsharded forwards of (c) and (d), torch attention in float32
+        fwd_ref = {}
+        for part, key, (b, n) in (("c", "arch", spec["cp_fwd"]), ("d", "ssm_arch",
+                                                                  spec["ssd_fwd"])):
+            c = dist_cfg(torch, spec, key)
+            params = lm_init(torch.Generator(device=dev).manual_seed(0), c, device=dev)
+            tokens = dist_tokens(torch, c.vocab, b, n).to(dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, _ = lm_apply(params, {"tokens": tokens}, c.replace(attn_impl="torch"))
+            torch.cuda.synchronize()
+            fwd_ref[part] = dict(sample=logits[:, ::spec["stride"]].float().cpu(),
+                                 ms=(time.perf_counter() - t0) * 1e3,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(dist_rank, world, backend=backend, init_file=f"{work}/store",
+                          args=(spec, f"{work}/ref", work))
+        out["ranks_s"] = time.perf_counter() - t0
+    total = ranks[0]["total_gib"]
+    ref = out["ref"]
+    print(f"[16] unsharded {cfg.name} f32 AdamW b={spec['b']} n={spec['n']} remat "
+          f"{cfg.remat}: losses {[round(x, 6) for x in ref['losses']]}, "
+          f"{[round(x, 1) for x in ref['step_ms']]} ms/step, peak {ref['peak_gib']:.2f} GiB")
+    for part, mesh_name in (("a", "1x2 tp"), ("b", "2x1 dp x fsdp")):
+        for r, rk in enumerate(ranks):
+            o = rk[part]
+            print(f"[16{part}] {mesh_name} rank {r}: losses {[round(x, 6) for x in o['losses']]} "
+                  f"(unsharded {[round(x, 6) for x in ref['losses']]}), params max|Δ| "
+                  f"{o['param_err'][0]:.3e}, per-leaf RMS(Δ)/RMS(update) max "
+                  f"{o['param_err'][1]:.3e} (tol {DIST_PARAM_TOL}), "
+                  f"{[round(x, 1) for x in o['step_ms']]} ms/step, launches fwd,dq,dkv per "
+                  f"step {o['launches']}, peak {o['peak_gib']:.2f} of {total:.1f} GiB "
+                  f"(unsharded {ref['peak_gib']:.2f})")
+            if any(abs(x - y) > DIST_LOSS_TOL for x, y in zip(o["losses"], ref["losses"])):
+                fail(f"[16{part}] rank {r}: losses {o['losses']} vs unsharded {ref['losses']}")
+            if not o["param_err"][1] <= DIST_PARAM_TOL:
+                fail(f"[16{part}] rank {r}: params differ from the unsharded run's: "
+                     f"{o['param_err']}")
+            if any(tuple(x) != expect for x in o["launches"]):
+                fail(f"[16{part}] rank {r}: launches per step {o['launches']}, expected {expect}")
+    for part, key in (("c_fwd", "c"), ("d", "d")):
+        sample = torch.cat([torch.from_numpy(rk[part]["sample"]) for rk in ranks], dim=1)
+        err = rel_err(torch, sample, fwd_ref[key]["sample"])
+        peaks = [round(rk[part]["peak_gib"], 2) for rk in ranks]
+        b, n = spec["cp_fwd"] if key == "c" else spec["ssd_fwd"]
+        name = cfg.name if key == "c" else spec["ssm_arch"]
+        print(f"[16{key}] {name} cp 1x2 f32 forward b={b} n={n}: logits at every "
+              f"{spec['stride']}th position vs unsharded attn_impl='torch': rel_err "
+              f"{err:.3e} (tol {DIST_FWD_TOL}); ms per rank "
+              f"{[round(rk[part]['ms'], 1) for rk in ranks]} (unsharded "
+              f"{fwd_ref[key]['ms']:.1f}); peak per rank {peaks} of {total:.1f} GiB "
+              f"(unsharded {fwd_ref[key]['peak_gib']:.2f}); taylor_fwd launches per rank "
+              f"{[rk[part]['launches'] for rk in ranks]}")
+        if not (err < DIST_FWD_TOL and all(rk[part]["finite"] for rk in ranks)):
+            fail(f"[16{key}] the cp forward disagrees with the unsharded one: {err}")
+        if any(rk[part]["launches"] for rk in ranks):
+            fail(f"[16{key}] the cp forward launched a kernel")
+        out[key] = dict(rel_err=err, ms=[rk[part]["ms"] for rk in ranks],
+                        ref_ms=fwd_ref[key]["ms"], peak_gib=peaks,
+                        ref_peak_gib=fwd_ref[key]["peak_gib"],
+                        launches=[rk[part]["launches"] for rk in ranks])
+    for r, rk in enumerate(ranks):
+        o, tp_losses = rk["c_train"], rk["a"]["losses"]
+        print(f"[16c] cp 1x2 training rank {r}: losses {[round(x, 6) for x in o['losses']]} "
+              f"(tp {[round(x, 6) for x in tp_losses]}, tol {CP_LOSS_TOL}), "
+              f"{[round(x, 1) for x in o['step_ms']]} ms/step, launches {o['launches']}, "
+              f"peak {o['peak_gib']:.2f} of {total:.1f} GiB")
+        if any(abs(x - y) > CP_LOSS_TOL for x, y in zip(o["losses"], tp_losses)):
+            fail(f"[16c] rank {r}: cp losses {o['losses']} vs tp {tp_losses}")
+        if any(any(x) for x in o["launches"]):
+            fail(f"[16c] rank {r}: the cp training launched a kernel: {o['launches']}")
+    e = ranks[0]["e"]
+    print(f"[16e] (a)'s state ({e['leaves']} leaves) saved from 1x2 in {e['save_s']:.1f} s, "
+          f"restored on 2x1 in {e['restore_2x1_s']:.1f} s and whole in "
+          f"{e['restore_whole_s']:.1f} s: mismatches "
+          f"{[m for rk in ranks for m in rk['e']['mismatches']]}")
+    if any(rk["e"]["mismatches"] for rk in ranks):
+        fail("[16e] a restored leaf differs from the saved state")
+    out.update({part: [rk[part] for rk in ranks] for part in ("a", "b", "c_train")})
+    out["total_gib"] = total
+    return out
+
+
+def dist_launches(dist, name):
+    """Phase 16's launches of kernel ``name`` on each rank by path, for the
+    kernels line."""
+    i = ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv").index(name)
+    out = {}
+    for part, path in (("a", "tp_1x2"), ("b", "dp_fsdp_2x1"), ("c_train", "cp_1x2_train")):
+        for r, rk in enumerate(dist[part]):
+            out[f"qwen2-1.5b_{path}_rank{r}_{len(rk['launches'])}_steps"] = sum(
+                x[i] for x in rk["launches"])
+    if name == "taylor_fwd":
+        for key, arch in (("c", "qwen2-1.5b"), ("d", "mamba2-780m")):
+            for r, n in enumerate(dist[key]["launches"]):
+                out[f"{arch}_cp_1x2_lm_apply_rank{r}"] = n
+    return out
+
+
 def breadth_launches(br, name):
     """Phase 15's launches of kernel ``name`` by path, for the kernels line."""
     i = ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv").index(name)
@@ -3171,7 +3598,23 @@ def main() -> int:
           f"whole (bf16 params, Adafactor without momentum) {d['step_ms']:.1f} ms/step, peak "
           f"{d['peak_gib']:.2f} GiB")
 
-    # ---- 16. kernels line ----
+    # ---- 16. distributed training on a mesh ----
+    t0 = time.perf_counter()
+    dist = phase_distributed(torch, K)
+    a0, c0 = dist["a"][0], dist["c_train"][0]
+    print(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
+    print(f"[16] summary (qwen2-1.5b whole, f32, b={DIST['b']} n={DIST['n']} remat full, "
+          f"AdamW; {DIST['world']} ranks): tp 1x2 {sum(a0['step_ms'][1:]) / max(len(a0['step_ms']) - 1, 1):.1f} ms/step "
+          f"(rank 0), peak per rank {[round(x['peak_gib'], 2) for x in dist['a']]} GiB vs "
+          f"unsharded {dist['ref']['peak_gib']:.2f} GiB at "
+          f"{sum(dist['ref']['step_ms'][1:]) / max(len(dist['ref']['step_ms']) - 1, 1):.1f} ms/step; dp x fsdp 2x1 peak per rank "
+          f"{[round(x['peak_gib'], 2) for x in dist['b']]} GiB; cp 1x2 training "
+          f"{sum(c0['step_ms'][1:]) / max(len(c0['step_ms']) - 1, 1):.1f} ms/step; cp forward n={DIST['cp_fwd'][1]} "
+          f"peak per rank {dist['c']['peak_gib']} GiB vs unsharded "
+          f"{dist['c']['ref_peak_gib']:.2f}; mamba2-780m cp forward n={DIST['ssd_fwd'][1]} "
+          f"rel_err {dist['d']['rel_err']:.2e}")
+
+    # ---- 17. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -3191,7 +3634,8 @@ def main() -> int:
             **zoo_launches(zoo, "taylor_fwd"),
             **ssm_launches(ssm, "taylor_fwd"),
             **cross_launches(cross, "taylor_fwd"),
-            **breadth_launches(breadth, "taylor_fwd")},
+            **breadth_launches(breadth, "taylor_fwd"),
+            **dist_launches(dist, "taylor_fwd")},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -3220,7 +3664,8 @@ def main() -> int:
                 **zoo_launches(zoo, name),
                 **ssm_launches(ssm, name),
                 **cross_launches(cross, name),
-                **breadth_launches(breadth, name)},
+                **breadth_launches(breadth, name),
+                **dist_launches(dist, name)},
             "max_abs_err": b["max_abs_err"],
             "ms": b["ms"],
             "plain_ms": b["plain_ms"],
@@ -3235,7 +3680,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 17. device line ----
+    # ---- 18. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,9 @@ class AttentionBackend:
     # Can serve as the cross-attention of "cross" blocks (encoder-decoder and
     # VLM models); ``validate`` refuses a model with cross blocks otherwise.
     supports_cross: bool = False
+    # Has a mergeable state, so its full-sequence attention can shard the
+    # sequence over a mesh axis (``apply_cp``; ``attn_sharding="cp"``).
+    supports_cp: bool = False
     impls: Tuple[str, ...] = ("torch",)
     # Serve-layer slot-state representations: which compact encodings of
     # this backend's decode state the engine may hold between dispatches
@@ -70,6 +73,11 @@ class AttentionBackend:
                 f"attention backend {self.name!r} does not support "
                 f"cross-attention (supports_cross=False) but the model has "
                 f"cross blocks: {cfg.pattern + cfg.tail}"
+            )
+        if cfg.attn_sharding == "cp" and not self.supports_cp:
+            raise ValueError(
+                f"attention backend {self.name!r} does not support context "
+                "parallelism (supports_cp=False); use attn_sharding='tp'"
             )
 
     @staticmethod
@@ -136,6 +144,24 @@ class AttentionBackend:
                                         pos[:, i])
             outs.append(o)
         return torch.stack(outs, dim=2), cache
+
+    def merge_state(self, a, b):
+        """Merge the states of two CONSECUTIVE sequence shards (context
+        parallelism).  Only meaningful when ``supports_cp``."""
+        raise NotImplementedError(
+            f"attention backend {self.name!r} has no mergeable state "
+            "(supports_cp=False)"
+        )
+
+    def apply_cp(self, q: Tensor, k: Tensor, v: Tensor, cfg, mesh, axis: str,
+                 dp_axis=None) -> Tensor:
+        """Context-parallel full-sequence attention over whole tensors: the
+        sequence sharded over mesh ``axis``, O(1) state exchanged.  Only when
+        ``supports_cp``."""
+        raise NotImplementedError(
+            f"attention backend {self.name!r} does not support context "
+            "parallelism"
+        )
 
     def state_health(self, cache, cfg) -> Tensor:
         """``[b]`` bool: True where every floating leaf of the row is finite."""

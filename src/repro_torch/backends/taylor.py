@@ -16,7 +16,11 @@ Two impls, selected by ``ModelConfig.attn_impl``:
     envelope is rejected by ``validate``.
 
 ``"auto"`` picks the kernel on a CUDA device inside the envelope and the
-PyTorch paths otherwise.  Prefill, chunked prefill and decode always run
+PyTorch paths otherwise.  Under ``attn_sharding="cp"`` inside a sharding
+context, ``apply`` runs the context-parallel chunk scan on the rank's
+sequence block (``core/context_parallel.py``) and no kernel: the kernel
+has no state handoff, and the envelope excludes cp as the reference's
+does.  Prefill, chunked prefill and decode always run
 the moment-state paths of ``core/taylor.py`` (prefill needs the chunk
 scan's state handoff; decode is state-bound), as in the JAX package.
 A cross block's source state is the moment state of its whole source
@@ -32,6 +36,7 @@ import torch
 from repro_torch.backends.base import AttentionBackend
 from repro_torch.core import (
     init_taylor_state,
+    merge_states,
     taylor_attention,
     taylor_attention_chunked,
     taylor_attention_noncausal,
@@ -51,6 +56,7 @@ def _kernel_fits(cfg) -> bool:
         and not t.sym_state
         and t.decay == 1.0
         and cfg.resolved_head_dim <= MAX_HEAD_DIM
+        and cfg.attn_sharding != "cp"
         and not AttentionBackend._uses_cross(cfg)
     )
 
@@ -61,6 +67,7 @@ class TaylorBackend(AttentionBackend):
     name = "taylor"
     state_kind = "moments"
     supports_cross = True
+    supports_cp = True
     impls = ("torch", "cuda")
     # The O(1) moment state may be held int8/fp8-quantised between serve
     # dispatches, with per-head power-of-two scales; absorbs and reads run
@@ -70,6 +77,12 @@ class TaylorBackend(AttentionBackend):
     def validate(self, cfg):
         super().validate(cfg)
         t = cfg.taylor
+        if t.decay != 1.0 and cfg.attn_sharding == "cp":
+            raise ValueError(
+                "taylor decay is incompatible with context parallelism: "
+                "shard-state merge is addition, which a decayed state "
+                "violates (shard b must discount shard a by γ^len)"
+            )
         if t.decay != 1.0 and self._uses_cross(cfg):
             raise ValueError(
                 "taylor decay is causal-self-attention only, but the model has "
@@ -99,6 +112,12 @@ class TaylorBackend(AttentionBackend):
                 f"attn_impl='cuda': head_dim {cfg.resolved_head_dim} > "
                 f"{MAX_HEAD_DIM} exceeds the kernel's shared-memory envelope "
                 "(use attn_impl='torch')"
+            )
+        if cfg.attn_sharding == "cp":
+            raise ValueError(
+                "attn_impl='cuda': context parallelism runs the torch chunked "
+                "scan (the kernel has no state handoff); use attn_impl='auto' "
+                "or 'torch' with attn_sharding='cp'"
             )
         if self._uses_cross(cfg):
             raise ValueError(
@@ -145,6 +164,10 @@ class TaylorBackend(AttentionBackend):
             return taylor_attention_kernel_trainable(
                 q, k, v, cfg.taylor, chunk=cfg.attn_chunk, backward="auto"
             )
+        if cfg.attn_sharding == "cp":
+            o = self._maybe_cp(q, k, v, cfg)
+            if o is not None:
+                return o
         return taylor_attention(q, k, v, cfg.taylor, causal=True, chunk=cfg.attn_chunk)
 
     def prefill(self, q, k, v, cfg, n_max):
@@ -174,6 +197,36 @@ class TaylorBackend(AttentionBackend):
         """Finite moments AND a non-negative token count ``n0`` per row
         (full or ``sym_state``-packed second moments alike)."""
         return super().state_health(cache, cfg) & (cache.n0 >= 0).all(dim=-1)
+
+    def merge_state(self, a, b):
+        return merge_states(a, b)
+
+    def apply_cp(self, q, k, v, cfg, mesh, axis, dp_axis=None):
+        from repro_torch.core.context_parallel import (  # noqa: PLC0415 (cycle)
+            taylor_attention_context_parallel,
+        )
+
+        return taylor_attention_context_parallel(
+            q, k, v, cfg.taylor, mesh, axis, chunk=cfg.attn_chunk, dp_axis=dp_axis
+        )
+
+    def _maybe_cp(self, q, k, v, cfg):
+        """Context parallelism inside a sharding context, where ``q``/``k``/
+        ``v`` are this rank's sequence blocks (``distributed/spmd.py`` splits
+        the sequence over the "sp" axis only when each block divides into
+        chunks); ``None`` outside one, and the caller runs the unsharded
+        scan."""
+        from repro_torch.core.context_parallel import taylor_cp_local  # noqa: PLC0415
+        from repro_torch.distributed import api as dist  # noqa: PLC0415 (cycle)
+
+        ctx = dist.active()
+        if ctx is None:
+            return None
+        mesh, rules = ctx
+        seq_ax = rules.get("sp") or rules.get("tp")
+        if seq_ax is None or q.shape[2] % cfg.attn_chunk != 0:
+            return None
+        return taylor_cp_local(q, k, v, cfg.taylor, mesh, seq_ax, cfg.attn_chunk)
 
     # -- cross-attention -----------------------------------------------------
 

@@ -59,7 +59,7 @@ def _from_jax_layout_state(state, cfg: ModelConfig):
 
 
 def restore_jax_checkpoint(directory: str, template, cfg: ModelConfig,
-                           step: Optional[int] = None):
+                           step: Optional[int] = None, placements=None):
     """Read a checkpoint the JAX trainer wrote into the port's ``TrainState``.
 
     Args:
@@ -69,10 +69,27 @@ def restore_jax_checkpoint(directory: str, template, cfg: ModelConfig,
         dtype and device.
       cfg: the model's config (the stacking).
       step: the step to read (default: the newest committed one).
+      placements: a ``distributed.sharding.Placements`` of the state on a
+        mesh; ``template``'s leaves are then this rank's blocks, and so
+        are the leaves returned (the elastic reshard path of
+        ``store.restore_checkpoint``).
 
     Returns:
       The port's ``TrainState``.  Raises when a key or shape of the file
       differs from the template's.
     """
-    jtemplate = to_jax_layout_state(template, cfg)
-    return _from_jax_layout_state(restore_checkpoint(directory, jtemplate, step=step), cfg)
+    if placements is None:
+        jtemplate = to_jax_layout_state(template, cfg)
+        return _from_jax_layout_state(restore_checkpoint(directory, jtemplate, step=step), cfg)
+    from repro_torch.distributed.sharding import distribute_tree, whole_template  # noqa: PLC0415
+
+    whole = restore_jax_checkpoint(directory, whole_template(template, placements), cfg, step)
+    blocks = distribute_tree(whole, placements)
+    return _map_leaves(lambda b, t: b.to(t.device), blocks, template)
+
+
+def _map_leaves(fn, tree, template):
+    from repro_torch.tree import tree_leaves, tree_unflatten  # noqa: PLC0415
+
+    return tree_unflatten(template, [fn(a, b) for a, b in zip(tree_leaves(tree),
+                                                                tree_leaves(template))])

@@ -1,0 +1,275 @@
+"""The layout hooks of the model's one forward on a mesh.
+
+``models/lm.py``, ``models/blocks.py`` and ``train/step.py`` call the
+hooks below at the points where the JAX package constrains a layout.
+Outside a ``region`` every hook is the identity (or the plain call), so
+every unsharded path runs as it did.  Inside one, each rank holds its
+local block of each parameter (``param_specs``) and its rows of the batch
+(``local_batch``: batch over "dp"), and the hooks reach the layout that
+the reference names at each site with the differentiable collectives of
+``distributed/collectives.py``, where GSPMD would insert them:
+
+  * the residual stream ``x`` is ``("dp", "sp", None)``: batch over "data",
+    sequence over "model" where they divide (``models/lm.py:163, 217`` of
+    the reference): ``to_stream`` after the embedding;
+  * ``site(kind="attn")`` gathers the sequence, runs the block's
+    projections, the backend's ``apply`` (the CUDA kernels on a card) and
+    the output projection on its local heads — q over
+    ``("dp", "tp", None, None)`` (``attention.py:79``) — and
+    reduce-scatters the partial sums back to the sequence blocks
+    (``attention.py:96``).  Heads split only where both the query and the
+    kv head counts divide by the "tp" axis; otherwise every rank of the
+    axis runs all heads (the reference's divisibility fallback replicates
+    the kv heads; the port replicates the query heads with them, which
+    gives the same numbers);
+  * ``site(kind="mlp")`` splits ``d_ff`` over "tp" where it divides, the
+    same way (under cp too: gathering the sequence moves fewer bytes than
+    gathering its weights); its output bias is added by "tp" rank 0 only,
+    so that the reduction adds it once;
+  * under ``attn_sharding="cp"`` attention keeps its sequence block
+    (``attention.py:78``): the Taylor backend exchanges one moment state
+    (``core/context_parallel.py``) and a mamba block one SSD state
+    (``ssm.py:185-200``); no kernel runs there;
+  * ``site(kind="mamba")`` under "tp" runs the block whole on every rank of
+    the axis (its in_proj splits z|x|B|C|dt along one dim, which the port
+    does not cut);
+  * the logits are ``("dp", "sp", None)`` (``lm.py:249``: "sp" takes the
+    "model" axis before "tp" can), and ``mean_nll`` sums the loss over the
+    ranks.
+
+A parameter is gathered for compute by ``use_param``: whole along every
+axis of its spec except the ones a site keeps split ("tp" heads), and its
+gradient is summed over the axes on which that site's compute saw
+different data and sliced back to the block.  So gradients come out in
+the parameters' own layout and equal the single-device step's.  The
+region finds a leaf's spec by the leaf itself (the tensors the forward
+reads are those that the region was given).
+
+The scans inside the Taylor and SSD backends run on local blocks that are
+already batch-split, which is all the reference's constraints at
+``core/taylor.py:85, 366-368`` and ``core/taylor_vjp.py:123-125`` ask.
+Not ported on a mesh yet: MoE blocks (``ep_a2a``) and the cross-attention
+families.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.distributed import api as dist
+from repro_torch.distributed import collectives as col
+from repro_torch.tree import tree_leaves
+
+Tensor = torch.Tensor
+
+NOT_PORTED = "not yet ported to torch on a mesh (ROADMAP queue 1 item 6)"
+
+
+class Layout(NamedTuple):
+    """How one batch lies on the mesh."""
+
+    mesh: Any
+    rules: Any
+    dp: Any            # batch axis (or tuple), None when the batch does not divide
+    sp: Optional[str]  # residual-stream sequence axis, None when n does not divide
+    tp: Optional[str]  # the tensor-parallel axis ("model"), None when off
+    n: int             # whole sequence length
+    b: int             # whole batch
+
+    @property
+    def dp_names(self) -> Tuple[str, ...]:
+        return dist.entry_names(self.dp)
+
+    def size(self, axis) -> int:
+        return 1 if axis is None else dist.mesh_axis_size(self.mesh, axis)
+
+
+def layout_for(mesh, rules, b: int, n: int, d: int) -> Layout:
+    """The residual stream's layout, ``("dp", "sp", None)`` resolved for
+    ``[b, n, d]``."""
+    dp, sp, _ = dist.resolve_axes(("dp", "sp", None), (b, n, d), mesh, rules)
+    tp = rules.get("tp")
+    if tp is not None and dist.mesh_axis_size(mesh, tp) == 1:
+        tp = None
+    return Layout(mesh, rules, dp, sp, tp, n, b)
+
+
+def check_supported(cfg) -> None:
+    """Raise for the models whose sharded path is not ported yet."""
+    kinds = set(cfg.pattern + cfg.tail)
+    if "moe" in kinds:
+        raise NotImplementedError(f"MoE blocks (moe.impl 'ep_a2a') are {NOT_PORTED}")
+    if "cross" in kinds or cfg.family in ("vlm", "encdec"):
+        raise NotImplementedError(f"the cross-attention families are {NOT_PORTED}")
+
+
+class _Region(NamedTuple):
+    lay: Layout
+    specs: Dict[int, Any]  # id of a parameter leaf -> its spec
+    leaves: list           # the leaves themselves, kept alive with their ids
+
+
+_REGION: contextvars.ContextVar[Optional[_Region]] = contextvars.ContextVar(
+    "repro_torch_spmd_region", default=None
+)
+
+
+@contextlib.contextmanager
+def region(lay: Layout, params, specs):
+    """Within it, the model's forward runs on this rank's blocks:
+    ``params`` (this rank's blocks, the very tensors the forward reads)
+    have ``specs``, the batch lies as ``lay`` says.  It also enters the
+    rules (``api.sharding_rules``) that the backends read."""
+    leaves = tree_leaves(params)
+    ids = {id(x): s for x, s in zip(leaves, tree_leaves(specs))}
+    with dist.sharding_rules(lay.mesh, lay.rules):
+        token = _REGION.set(_Region(lay, ids, leaves))
+        try:
+            yield lay
+        finally:
+            _REGION.reset(token)
+
+
+def local_batch(batch: Dict[str, Tensor], lay: Layout) -> Dict[str, Tensor]:
+    """This rank's rows of a whole batch (the same on every rank)."""
+    return {k: col.slice_values(v, 0, lay.mesh, lay.dp) if lay.dp else v
+            for k, v in batch.items()}
+
+
+def use_param(p: Tensor, spec, lay: Layout, keep=(), split=()) -> Tensor:
+    """A parameter block made whole for compute along every axis of its
+    spec but those in ``keep``; its gradient is summed over the axes in
+    ``split`` (where this site's compute sees different data on each rank)
+    and sliced back to the block."""
+    own = set()
+    for dim, entry in enumerate(spec):
+        own.update(dist.entry_names(entry))
+        if entry is not None and entry not in keep:
+            p = col.all_gather(p, dim, lay.mesh, entry,
+                               grad="sum" if entry in split else "slice")
+    for name in split:
+        if name not in own:
+            p = col.sum_grad(p, lay.mesh, name)
+    return p
+
+
+def _use_tree(r: _Region, tree, keep=(), split=()):
+    if isinstance(tree, dict):
+        return {k: _use_tree(r, v, keep, split) for k, v in tree.items()}
+    if id(tree) not in r.specs:
+        raise KeyError("a parameter read inside spmd.region that is not one of its leaves")
+    return use_param(tree, r.specs[id(tree)], r.lay, keep, split)
+
+
+def _split_axes(lay: Layout, seq_split: bool) -> Tuple[str, ...]:
+    """Axes on which a site's compute sees different data: the batch axes,
+    and the sequence axis where the site runs on sequence blocks."""
+    return lay.dp_names + ((lay.sp,) if seq_split and lay.sp else ())
+
+
+def on_rows(tree):
+    """Parameters read by compute on this rank's batch rows and the whole
+    sequence (the embedding)."""
+    r = _REGION.get()
+    return tree if r is None else _use_tree(r, tree, split=r.lay.dp_names)
+
+
+def on_stream(tree):
+    """Parameters read by compute on the residual stream's blocks (norms,
+    the unembedding)."""
+    r = _REGION.get()
+    return tree if r is None else _use_tree(r, tree, split=_split_axes(r.lay, True))
+
+
+def to_stream(x: Tensor) -> Tensor:
+    """The embedding's output ``[b_loc, n, d]`` -> the residual stream's
+    blocks."""
+    r = _REGION.get()
+    if r is None or not r.lay.sp:
+        return x
+    return col.scatter(x, 1, r.lay.mesh, r.lay.sp)
+
+
+def stream_block(x: Tensor) -> Tensor:
+    """This rank's sequence block of a per-position tensor of its rows
+    (the labels), outside autograd."""
+    r = _REGION.get()
+    if r is None or not r.lay.sp:
+        return x
+    return col.slice_values(x, 1, r.lay.mesh, r.lay.sp)
+
+
+def mean_nll(nll: Tensor) -> Tensor:
+    """The mean over the whole batch of the per-token losses, from this
+    rank's block of them."""
+    r = _REGION.get()
+    if r is None:
+        return nll.mean()
+    total = nll.sum()
+    for name in _split_axes(r.lay, True):
+        total = col.all_reduce(total, r.lay.mesh, name)
+    return total / (r.lay.b * r.lay.n)
+
+
+def _enter(h: Tensor, lay: Layout, tp_split: bool) -> Tensor:
+    """Residual-stream blocks -> the whole sequence for a site's compute."""
+    if lay.sp:
+        return col.all_gather(h, 1, lay.mesh, lay.sp, grad="sum" if tp_split else "slice")
+    return col.sum_grad(h, lay.mesh, lay.tp) if tp_split else h
+
+
+def _exit(y: Tensor, lay: Layout, tp_split: bool) -> Tensor:
+    """A site's output (partial sums over "tp" where it split) -> the
+    residual stream's blocks."""
+    if tp_split:
+        if lay.sp:
+            return col.reduce_scatter(y, 1, lay.mesh, lay.sp)
+        return col.all_reduce(y, lay.mesh, lay.tp)
+    return col.scatter(y, 1, lay.mesh, lay.sp) if lay.sp else y
+
+
+def _tp_axis(kind: str, cfg, lay: Layout):
+    """The axis a site splits over "tp", or None where it runs whole."""
+    if lay.tp is None:
+        return None
+    size = lay.size(lay.tp)
+    if kind == "attn" and cfg.n_heads % size == 0 and cfg.n_kv_heads % size == 0:
+        return lay.tp
+    if kind == "mlp" and cfg.d_ff % size == 0:
+        return lay.tp
+    return None
+
+
+def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = None):
+    """``fn(params, h, cfg, positions)``: a block's ``"attn"``, ``"mlp"`` or
+    ``"mamba"`` compute on the normed residual ``h``.  In a region ``h`` is
+    the stream's blocks and so is the output; ``positions`` are the whole
+    sequence's."""
+    r = _REGION.get()
+    if r is None:
+        return fn(params, h, cfg, positions)
+    lay = r.lay
+    if (kind != "mlp" and cfg.attn_sharding == "cp" and lay.sp is not None
+            and (lay.n // lay.size(lay.sp)) % cfg.attn_chunk == 0):
+        # context parallel: the sequence blocks stay, one state is exchanged
+        w = _use_tree(r, params, split=_split_axes(lay, True))
+        if positions is not None:
+            positions = col.slice_values(positions, 0, lay.mesh, lay.sp)
+        return fn(w, h, cfg, positions)
+    if cfg.attn_sharding == "cp":
+        cfg = cfg.replace(attn_sharding="tp")
+    tp = _tp_axis(kind, cfg, lay)
+    hf = _enter(h, lay, tp is not None)
+    w = _use_tree(r, params, keep=(tp,) if tp else (), split=_split_axes(lay, False))
+    if tp and kind == "attn":
+        size = lay.size(tp)
+        cfg = cfg.replace(n_heads=cfg.n_heads // size, n_kv_heads=cfg.n_kv_heads // size,
+                          head_dim=cfg.resolved_head_dim)
+    if tp and "b_down" in w:  # added by one rank, so that the reduction adds it once
+        first = float(col.axis_rank(lay.mesh, tp) == 0)
+        w = dict(w, b_down=col.sum_grad(w["b_down"], lay.mesh, tp) * first)
+    return _exit(fn(w, hf, cfg, positions), lay, tp is not None)

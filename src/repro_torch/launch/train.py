@@ -1,6 +1,6 @@
 """Training launcher: the port of the JAX package's ``repro.launch.train``.
 
-Runs training on one device with the full substrate: the fault-tolerant
+Runs training with the full substrate: sharded state, the fault-tolerant
 loop, checkpoints and deterministic data.  It runs on the CUDA card unless
 ``--device cpu`` is given (``--reduced`` configs are CPU-sized).
 
@@ -9,29 +9,102 @@ loop, checkpoints and deterministic data.  It runs on the CUDA card unless
 
 Re-invoking the same command after an interruption resumes from the newest
 committed checkpoint (exactly: the data pipeline is stateless in step).
-The mesh flags (``--mesh-data``/``--mesh-model`` > 1, ``--production-mesh``,
-``--multi-pod``) raise: sharded training is not ported yet.
+
+On a mesh every rank runs this command: a ``torchrun``-style launch
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` in the
+environment; ``--dist-backend``: ``nccl`` for one card a rank, ``gloo`` for
+ranks that share a card or the CPU) or a process group the caller set up.
+``--mesh-data``/``--mesh-model`` make a host mesh over the ranks
+(``launch.mesh.make_host_mesh``: one process shrinks to 1×1 and trains on
+one device); ``--production-mesh`` (``--multi-pod``) asks for 256 (512)
+ranks and raises with fewer.  MoE models, the cross-attention families and
+Adafactor raise on a mesh of more than one rank (not ported yet).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.data import make_task
 from repro_torch.device import resolve_device
+from repro_torch.distributed import api as dist_api
+from repro_torch.distributed.api import P
+from repro_torch.distributed.sharding import (
+    Placements,
+    batch_specs,
+    distribute_tree,
+    opt_state_specs,
+    param_specs,
+)
+from repro_torch.launch.mesh import (
+    SingleMesh,
+    make_host_mesh,
+    make_production_mesh,
+    mesh_shape,
+    set_rank_device,
+)
+from repro_torch.models import lm_init
 from repro_torch.models.config import ModelConfig, count_params
 from repro_torch.optim import cosine_warmup, make_optimizer
 from repro_torch.train import TrainLoopConfig, make_train_step, run_training, train_state_init
+from repro_torch.train.step import TrainState, check_mesh_ready, make_sharded_train_step
+from repro_torch.tree import tree_map
 
 
 def build_optimizer(name: str, lr: float, warmup: int, total: int, cfg: ModelConfig):
     """The optimizer ``name`` at its defaults over ``cosine_warmup(lr, warmup,
     total)``; ``cfg`` gives Adafactor the model's stacking."""
     return make_optimizer(name, cosine_warmup(lr, warmup, total), cfg=cfg)
+
+
+def make_sharded_state_and_step(cfg: ModelConfig, optimizer, mesh, rules, batch_shapes,
+                                seed: int = 0, device=None):
+    """The train state on ``mesh``, its step, and where both live.
+
+    Every rank draws the same whole params from ``seed`` on ``device`` (a
+    CUDA generator on a card), so a sharded run starts from the weights of
+    an unsharded run of the same seed; each rank keeps its blocks
+    (``param_specs``) and inits the optimizer state on them
+    (``opt_state_specs``).
+
+    Returns:
+      ``(state, step_fn, state_placements, batch_placements)``:
+      ``step_fn(state, batch)`` takes the whole batch (the same on every
+      rank) and returns ``(state, metrics)``; the placements are
+      ``distributed.sharding.Placements`` of the ``TrainState`` and of
+      ``batch_shapes``.
+    """
+    check_mesh_ready(cfg, optimizer)
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm_init(gen, cfg, device=device)
+    pspecs = param_specs(params, mesh, rules)
+    oshapes = optimizer.init(tree_map(lambda p: torch.empty_like(p, device="meta"), params))
+    ospecs = opt_state_specs(oshapes, pspecs, params, mesh, rules)
+    local = distribute_tree(params, Placements(mesh, pspecs))
+    del params
+    state = TrainState(step=torch.zeros((), dtype=torch.int32, device=device), params=local,
+                       opt_state=optimizer.init(local))
+    placements = Placements(mesh, TrainState(step=P(), params=pspecs, opt_state=ospecs))
+    batch_placements = Placements(mesh, batch_specs(batch_shapes, mesh, rules))
+    return (state, make_sharded_train_step(cfg, optimizer, placements, rules), placements,
+            batch_placements)
+
+
+def _init_process_group(backend) -> None:
+    """Join a ``torchrun``-style launch (``WORLD_SIZE`` > 1 in the
+    environment) unless the caller set a process group up."""
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return
+    dist.init_process_group(backend, init_method="env://")
 
 
 def main(argv=None):
@@ -60,27 +133,32 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--max-wall-seconds", type=float, default=None)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
+    ap.add_argument("--dist-backend", default=None, choices=("gloo", "nccl"),
+                    help="a multi-process launch's backend (default: nccl on CUDA, "
+                         "gloo on the CPU)")
     args = ap.parse_args(argv)
 
-    if args.mesh_data > 1 or args.mesh_model > 1 or args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--mesh-data/--mesh-model > 1, --production-mesh and --multi-pod are not yet "
-            "ported to torch (ROADMAP queue 1 item 6)")
     device = resolve_device(args.device)
+    _init_process_group(args.dist_backend or ("nccl" if device.type == "cuda" else "gloo"))
+    device = set_rank_device(device)
+    if args.production_mesh:
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device=device)
+    else:
+        mesh = make_host_mesh(args.mesh_data, args.mesh_model, device=device)
+    sharded = not isinstance(mesh, SingleMesh)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.backend and not cfg.is_attention_free:
         cfg = cfg.replace(attention=args.backend)
     if args.seq % cfg.attn_chunk != 0:
         cfg = cfg.replace(attn_chunk=min(args.seq, cfg.attn_chunk))
 
-    print(f"[train] {cfg.name} ({count_params(cfg):,} params) on mesh "
-          f"{{'data': 1, 'model': 1}} ({device}) backend={cfg.attention}")
+    if rank0:
+        print(f"[train] {cfg.name} ({count_params(cfg):,} params) on mesh "
+              f"{mesh_shape(mesh)} ({device}) backend={cfg.attention}")
 
     task = make_task(args.data, cfg.vocab, args.seq, args.batch, seed=args.seed)
     optimizer = build_optimizer(args.optimizer, args.lr, args.warmup, args.steps, cfg)
-    # weights drawn on the device (a CUDA generator draws billions in seconds)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-
     def batch_at(step: int):
         b = dict(task.batch_at(step))
         b.update(task.extras_at(step, cfg))
@@ -93,13 +171,26 @@ def main(argv=None):
         log_every=args.log_every,
         max_wall_seconds=args.max_wall_seconds,
     )
+    log = print if rank0 else (lambda msg: None)
     t0 = time.monotonic()
-    # the initial state is not bound here: the loop frees it after the first
-    # step (or the restore), as the reference's jitted step donates it
-    state = run_training(make_train_step(cfg, optimizer),
-                         train_state_init(gen, cfg, optimizer, device=device), batch_at, loop)
+    if sharded:
+        shapes = {k: torch.empty_like(v, device="meta") for k, v in batch_at(0).items()}
+        state, step_fn, placements, _ = make_sharded_state_and_step(
+            cfg, optimizer, mesh, dist_api.rules_for_mesh(mesh), shapes, seed=args.seed,
+            device=device)
+        state = run_training(step_fn, state, batch_at, loop, log=log,
+                             state_placements=placements)
+    else:
+        # weights drawn on the device (a CUDA generator draws billions in
+        # seconds); the initial state is not bound here: the loop frees it
+        # after the first step (or the restore), as the reference's jitted
+        # step donates it
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        state = run_training(make_train_step(cfg, optimizer),
+                             train_state_init(gen, cfg, optimizer, device=device), batch_at,
+                             loop, log=log)
     dt = time.monotonic() - t0
-    print(f"[train] done: step={int(state.step)} wall={dt:.1f}s")
+    log(f"[train] done: step={int(state.step)} wall={dt:.1f}s")
     return state
 
 

@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.backends import get_backend
+from repro_torch.distributed import spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -53,7 +54,15 @@ def _ffn(params, kind: str, h: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Option
     """The block's FFN on ``h`` [b, n, d]: (y, the MoE aux loss or None)."""
     if kind == "moe":
         return moe_mod.moe_apply(params["moe"], h, cfg)
-    return mlp_apply(params["mlp"], h, cfg.act), None
+    return spmd.site("mlp", _mlp, params["mlp"], h, cfg), None
+
+
+def _mlp(p, h: Tensor, cfg: ModelConfig, positions) -> Tensor:
+    return mlp_apply(p, h, cfg.act)
+
+
+def _mamba(p, h: Tensor, cfg: ModelConfig, positions) -> Tensor:
+    return get_backend("ssm").apply(p, h, cfg)
 
 
 def block_apply(
@@ -61,18 +70,21 @@ def block_apply(
     kv_src: Optional[Tensor] = None, causal: bool = True,
 ) -> Tuple[Tensor, Tensor]:
     """Full-sequence forward (``causal=False`` for the encoder's blocks;
-    ``kv_src`` is a cross block's source).  Returns (x, aux_loss)."""
+    ``kv_src`` is a cross block's source).  Returns (x, aux_loss).  Inside
+    a mesh's ``distributed.spmd.region`` ``x`` is the residual stream's
+    blocks, and each mixer and MLP runs through ``spmd.site``."""
     _check_kind(kind)
     eps = cfg.norm_eps
-    h = norm_apply(params["norm1"], x, cfg.norm, eps)
+    h = norm_apply(spmd.on_stream(params["norm1"]), x, cfg.norm, eps)
     if kind == "mamba":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + get_backend("ssm").apply(params["mamba"], h, cfg), aux
-    x = x + attn.attention_apply(params["attn"], h, cfg, positions, causal=causal)
+        return x + spmd.site("mamba", _mamba, params["mamba"], h, cfg), aux
+    x = x + spmd.site("attn", lambda p, h, c, pos: attn.attention_apply(p, h, c, pos, causal),
+                      params["attn"], h, cfg, positions)
     if kind == "cross":
         h = norm_apply(params["norm_c"], x, cfg.norm, eps)
         x = x + attn.attention_apply(params["cross"], h, cfg, kv_src=kv_src)
-    h = norm_apply(params["norm2"], x, cfg.norm, eps)
+    h = norm_apply(spmd.on_stream(params["norm2"]), x, cfg.norm, eps)
     y, aux = _ffn(params, kind, h, cfg)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -29,6 +29,7 @@ ACTS = ("silu", "gelu", "geglu")
 NORMS = ("rmsnorm", "layernorm")
 POSITIONS = ("rope", "learned", "sinusoidal", "none")
 ATTN_IMPLS = ("auto", "torch", "cuda")
+ATTN_SHARDINGS = ("tp", "cp")
 REMATS = ("none", "full", "dots_saveable")
 
 
@@ -96,6 +97,11 @@ class ModelConfig:
     #   "torch" — force the plain PyTorch paths (the reference)
     #   "cuda"  — force the CUDA kernel; configs outside its envelope raise
     attn_impl: str = "auto"
+    # "tp": shard heads over the model axis (megatron-style).
+    # "cp": context parallelism — shard the SEQUENCE over the model axis and
+    #       exchange only the O(d²·d_v) moment state (taylor backend only;
+    #       the state-sum property is unique to linear attention).
+    attn_sharding: str = "tp"
     # --- per-layer attention schedule (hybrid models) ---
     # Maps pattern positions (indices into ``pattern``; the pattern repeats
     # in every group, so a position addresses the same layer of all
@@ -150,6 +156,10 @@ class ModelConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl must be auto|torch|cuda, got {self.attn_impl!r}"
+            )
+        if self.attn_sharding not in ATTN_SHARDINGS:
+            raise ValueError(
+                f"attn_sharding must be tp|cp, got {self.attn_sharding!r}"
             )
         if self.attn_window < 1:
             raise ValueError(f"attn_window must be >= 1, got {self.attn_window}")

@@ -42,6 +42,7 @@ n_audio_ctx, d_model] (a stubbed conv front end's output); training adds
 
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -50,6 +51,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch.backends import state_backend
 from repro_torch.backends.state import CrossCache
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
 from repro_torch.models.blocks import (
     block_apply,
     block_decode,
@@ -178,11 +180,11 @@ def _embed_tokens(params, tokens: Tensor, cfg: ModelConfig,
     sequence, ``[b]`` or ``[1]`` for a decode step, ``[b, c]`` for a
     chunk; unread under RoPE, which attention applies)."""
     dtype = torch_dtype(cfg.dtype)
-    x = embed_apply(params["embed"], tokens, dtype)
+    x = embed_apply(spmd.on_rows(params["embed"]), tokens, dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dtype)
     if cfg.pos == "learned":
-        x = x + params["pos_embed"][positions.long()].to(dtype)
+        x = x + spmd.on_rows(params["pos_embed"])[positions.long()].to(dtype)
     elif cfg.pos == "sinusoidal":
         pe = sinusoidal_pos(positions.reshape(-1), cfg.d_model)
         x = x + pe.reshape(positions.shape + (cfg.d_model,)).to(dtype)
@@ -218,9 +220,9 @@ def _kv_source(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Optional[T
 
 
 def _logits(params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    x = norm_apply(spmd.on_stream(params["final_norm"]), x, cfg.norm, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = unembed_apply(table, x)
+    logits = unembed_apply(spmd.on_stream(table), x)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -241,25 +243,32 @@ def _dots_saveable():
 def _remat(fn, cfg: ModelConfig):
     """Per-block rematerialisation: under ``remat="full"`` a block keeps only
     its input for the backward and reruns itself there; under
-    ``"dots_saveable"`` it keeps its matrix products' outputs too."""
+    ``"dots_saveable"`` it keeps its matrix products' outputs too.  The
+    rerun sees the context variables of the first run (a mesh's
+    ``spmd.region``): on a card the backward runs on another thread."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if cfg.remat == "dots_saveable":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
-                                        context_fn=_dots_saveable)
-    raise ValueError(cfg.remat)
+    if cfg.remat not in ("full", "dots_saveable"):
+        raise ValueError(cfg.remat)
+    extra = {"context_fn": _dots_saveable} if cfg.remat == "dots_saveable" else {}
+
+    def run(*args):
+        ctx = contextvars.copy_context()
+        return checkpoint(lambda *a: ctx.run(fn, *a), *args, use_reentrant=False, **extra)
+
+    return run
 
 
 def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """Full training/eval forward.  Returns (logits [b, n, vocab] f32, aux).
 
     Differentiable w.r.t. the params; run it under ``torch.no_grad()`` for
-    inference."""
+    inference.  Inside a mesh's ``distributed.spmd.region`` ``params`` are
+    this rank's blocks, ``batch`` its rows, and the logits its block
+    ``("dp", "sp", None)``."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed_tokens(params, tokens, cfg, positions)
+    x = spmd.to_stream(_embed_tokens(params, tokens, cfg, positions))
     kv_src = _kv_source(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     block = _remat(block_apply, cfg)

@@ -13,8 +13,10 @@ depthwise conv on (x, B, C); SSD; gated RMSNorm(y ⊙ silu(z)); out_proj.
 
 The numerics are the JAX package's: the conv accumulates in the activation
 dtype, the SSD runs in float32, and the decode state keeps ``ssd`` in
-float32 and ``conv`` in the cache dtype.  The context-parallel SSD and the
-sharding constraints of the JAX package are not ported.
+float32 and ``conv`` in the cache dtype.  On a mesh the block's layout is
+set by ``distributed/spmd.py::site`` around it; under
+``attn_sharding="cp"`` it runs the context-parallel SSD on its sequence
+block (``mamba_apply``).
 """
 
 from __future__ import annotations
@@ -167,11 +169,62 @@ def _ssd_output(params, y: Tensor, xs: Tensor, z: Tensor, dtype) -> Tensor:
 
 def mamba_apply(params, x: Tensor, cfg: ModelConfig, chunk: int = 128) -> Tensor:
     """Full-sequence forward: ``x`` [b, n, d_model] (the pre-normed block
-    input) -> [b, n, d_model].  One chunk when ``n % chunk``."""
-    z, _, xs, dt, A, B, C = _ssd_inputs(params, x, cfg)
+    input) -> [b, n, d_model].  One chunk when ``n % chunk``.
+
+    Under ``attn_sharding="cp"`` inside a sharding context, ``x`` is this
+    rank's sequence block (``distributed/spmd.py``): the SSD runs the
+    decay-weighted context parallelism of ``core/ssd_context_parallel.py``
+    and the causal conv reads the previous block's last inputs."""
     if x.shape[1] % chunk != 0:
         chunk = x.shape[1]  # single-chunk fallback (tests / odd shapes)
+    seq_ax = _cp_axis(cfg)
+    if seq_ax is not None:
+        return _mamba_apply_cp(params, x, cfg, chunk, *seq_ax)
+    z, _, xs, dt, A, B, C = _ssd_inputs(params, x, cfg)
     y = _ssd_chunked(xs, dt, A, B, C, chunk)
+    return _ssd_output(params, y, xs, z, x.dtype)
+
+
+def _cp_axis(cfg: ModelConfig):
+    """``(mesh, sequence axis)`` when the block runs context-parallel, else
+    None."""
+    if cfg.attn_sharding != "cp":
+        return None
+    from repro_torch.distributed import api as dist  # noqa: PLC0415 (cycle)
+
+    ctx = dist.active()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    seq_ax = rules.get("sp") or rules.get("tp")
+    return None if seq_ax is None else (mesh, seq_ax)
+
+
+def _mamba_apply_cp(params, x: Tensor, cfg: ModelConfig, chunk: int, mesh, axis) -> Tensor:
+    """``mamba_apply`` on this rank's sequence block ``x`` [b, n_loc, d]."""
+    from repro_torch.core.ssd_context_parallel import ssd_cp_local  # noqa: PLC0415 (cycle)
+    from repro_torch.distributed import collectives as col  # noqa: PLC0415
+
+    s, d = cfg.ssm, cfg.d_model
+    di, nh = s.d_inner(d), s.n_ssm_heads(d)
+    gN = s.n_groups * s.d_state
+    b, n, _ = x.shape
+    zxbcdt = x @ params["in_proj"]["w"].to(x.dtype)
+    z, xbc_raw, dt = _split_proj(s, d, zxbcdt)
+    # the conv's halo: the previous block's last W-1 inputs (zeros on the
+    # first block, through the gathered tensor all the same, so that every
+    # rank's backward runs the gather's transpose)
+    W = params["conv_w"].shape[0]
+    tails = col.all_gather(xbc_raw[None, :, n - (W - 1):], 0, mesh, axis, grad="sum")
+    idx = col.axis_rank(mesh, axis)
+    halo = tails[max(idx - 1, 0)] * float(idx > 0)
+    xbc, _ = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"], state=halo)
+    xs = xbc[..., :di].reshape(b, n, nh, s.head_dim)
+    B = xbc[..., di:di + gN].reshape(b, n, s.n_groups, s.d_state)
+    C = xbc[..., di + gN:].reshape(b, n, s.n_groups, s.d_state)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    y = ssd_cp_local(xs, dt, A, B, C, mesh, axis, chunk)
     return _ssd_output(params, y, xs, z, x.dtype)
 
 

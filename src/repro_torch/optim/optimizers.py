@@ -34,8 +34,14 @@ Schedule = Callable[[Tensor], Tensor]
 
 
 class Optimizer(NamedTuple):
+    """``update(grads, state, params, norm=global_norm)``: ``norm`` measures
+    the gradient tree for the clip (a mesh's step passes one that sums each
+    leaf over its blocks).  ``not_on_mesh``: why the optimizer cannot run
+    on a mesh's blocks yet (None: it can)."""
+
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], tuple]
+    update: Callable[..., tuple]
+    not_on_mesh: Optional[str] = None
 
 
 def global_norm(tree) -> Tensor:
@@ -44,15 +50,15 @@ def global_norm(tree) -> Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
-def _clip_scale(grads, clip_norm: Optional[float]) -> Optional[Tensor]:
-    """min(1, clip_norm / ‖grads‖) (float32 0-d), or None without clipping."""
+def _clip_scale(grads, clip_norm: Optional[float], norm=global_norm) -> Optional[Tensor]:
+    """min(1, clip_norm / norm(grads)) (float32 0-d), or None without clipping."""
     if clip_norm is None:
         return None
-    return torch.clamp(clip_norm / torch.clamp(global_norm(grads), min=1e-9), max=1.0)
+    return torch.clamp(clip_norm / torch.clamp(norm(grads), min=1e-9), max=1.0)
 
 
-def _clip_by_global_norm(grads, clip_norm: Optional[float]):
-    scale = _clip_scale(grads, clip_norm)
+def _clip_by_global_norm(grads, clip_norm: Optional[float], norm=global_norm):
+    scale = _clip_scale(grads, clip_norm, norm)
     if scale is None:
         return grads
     return tree_map(lambda g: g * scale.to(g.dtype), grads)
@@ -107,8 +113,8 @@ def adamw(
         return AdamState(step=_step0(params), m=_zeros_like_tree(params, state_dtype),
                          v=_zeros_like_tree(params, state_dtype))
 
-    def update(grads, state, params):
-        grads = _clip_by_global_norm(grads, clip_norm)
+    def update(grads, state, params, norm=global_norm):
+        grads = _clip_by_global_norm(grads, clip_norm, norm)
         step = state.step + 1
         lr = schedule(step)
         s = step.to(torch.float32)
@@ -220,9 +226,9 @@ def adafactor(
         return AdafactorState(step=_step0(params), m=tree_map(mom, layout),
                               v=tree_map(fv, layout))
 
-    def update(grads, state, params):
+    def update(grads, state, params, norm=global_norm):
         g_leaves, p_leaves = tree_leaves(grads), tree_leaves(params)
-        scale = _clip_scale(g_leaves, clip_norm)
+        scale = _clip_scale(g_leaves, clip_norm, norm)
         step = state.step + 1
         lr = schedule(step)
         vs = tree_leaves(state.v)
@@ -238,7 +244,9 @@ def adafactor(
         return tree_unflatten(params, updates), AdafactorState(
             step=step, m=tree_unflatten(state.m, new_m), v=tree_unflatten(state.v, new_v))
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, not_on_mesh=(
+        "adafactor: its statistics run over the reference's stacked leaves, which a mesh "
+        "splits"))
 
 
 def _adafactor_leaf(idx, g_leaves, p_leaves, m, v: FactoredV, scale, lr, updates,
@@ -318,8 +326,8 @@ def sgdm(
     def init(params):
         return SgdState(step=_step0(params), m=_zeros_like_tree(params, state_dtype))
 
-    def update(grads, state, params):
-        grads = _clip_by_global_norm(grads, clip_norm)
+    def update(grads, state, params, norm=global_norm):
+        grads = _clip_by_global_norm(grads, clip_norm, norm)
         step = state.step + 1
         lr = schedule(step)
 

@@ -9,6 +9,10 @@ and on exit.
 
 ``max_wall_seconds`` stops the loop cleanly mid-run (a simulated
 preemption in tests); a second invocation continues to the target step.
+
+On a mesh (``state_placements``: the state's ``Placements``) every rank
+runs the loop: checkpoints hold the whole state, written by rank 0 and
+waited for by every rank, and the restore cuts them to this mesh.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (
     latest_step,
@@ -45,12 +50,19 @@ def run_training(
     batch_at: Callable[[int], Dict[str, torch.Tensor]],
     loop: TrainLoopConfig,
     log: Callable[[str], None] = print,
+    state_placements=None,
 ) -> TrainState:
     """Run ``step_fn`` from the newest committed step (or ``state``) up to
-    ``loop.total_steps``; returns the final state."""
+    ``loop.total_steps``; returns the final state.  With
+    ``state_placements`` the state's leaves are this rank's blocks."""
+    sharded = state_placements is not None
+    save = lambda step, block: save_checkpoint(loop.checkpoint_dir, step, state,
+                                                block=block or sharded, keep=loop.keep,
+                                                placements=state_placements)
     if loop.checkpoint_dir and latest_step(loop.checkpoint_dir) is not None:
         state = restore_checkpoint(loop.checkpoint_dir, state,
-                                   step=latest_step(loop.checkpoint_dir))
+                                   step=latest_step(loop.checkpoint_dir),
+                                   placements=state_placements)
         log(f"[loop] resumed from checkpoint step {int(state.step)}")
     start_step = int(state.step)
 
@@ -66,9 +78,9 @@ def run_training(
             and loop.checkpoint_every
             and (step + 1) % loop.checkpoint_every == 0
         ):
-            save_checkpoint(loop.checkpoint_dir, step + 1, state,
-                            block=not loop.async_save, keep=loop.keep)
-        if loop.max_wall_seconds and time.monotonic() - t0 > loop.max_wall_seconds:
+            save(step + 1, not loop.async_save)
+        if loop.max_wall_seconds and _any_rank(time.monotonic() - t0 > loop.max_wall_seconds,
+                                               sharded, state.step.device):
             log(f"[loop] wall-clock budget hit at step {step + 1} (simulated preemption)")
             break
 
@@ -76,5 +88,14 @@ def run_training(
         wait_for_saves()
         final = int(state.step)
         if latest_step(loop.checkpoint_dir) != final:
-            save_checkpoint(loop.checkpoint_dir, final, state, block=True, keep=loop.keep)
+            save(final, True)
     return state
+
+
+def _any_rank(flag: bool, sharded: bool, device) -> bool:
+    """``flag`` of any rank (every rank takes the same branch on a mesh)."""
+    if not sharded or not dist.is_initialized():
+        return flag
+    t = torch.tensor(float(flag), device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())

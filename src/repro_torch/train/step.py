@@ -1,4 +1,5 @@
-"""Loss + train step (functional over the param tree)."""
+"""Loss + train step (functional over the param tree), on one device or on
+a mesh (``make_sharded_train_step``)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding, spmd
 from repro_torch.models import lm_apply, lm_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer, apply_updates
@@ -39,8 +41,9 @@ def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
     """Mean token NLL.  logits fp32 [b, n, v]; labels int [b, n]."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
+    labels = spmd.stream_block(labels)  # a mesh's logits are the rank's sequence block
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return (logz - gold).mean()
+    return spmd.mean_nll(logz - gold)
 
 
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
@@ -77,6 +80,52 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, aux_weight: float = 
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
             params = apply_updates(state.params, updates)
         metrics = dict(metrics, total_loss=loss)
+        return TrainState(state.step + 1, params, opt_state), metrics
+
+    return train_step
+
+
+def check_mesh_ready(cfg: ModelConfig, optimizer: Optimizer) -> None:
+    """Raise for a model or an optimizer whose sharded path is not ported
+    yet (MoE, the cross-attention families, Adafactor)."""
+    spmd.check_supported(cfg)
+    if optimizer.not_on_mesh:
+        raise NotImplementedError(f"{optimizer.not_on_mesh}: {spmd.NOT_PORTED}")
+
+
+def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, rules,
+                            aux_weight: float = 0.01):
+    """train_step(state, batch) -> (state, metrics) on a mesh.
+
+    ``placements`` (a ``distributed.sharding.Placements`` of the
+    ``TrainState``) gives each leaf's block; ``batch`` is whole and the same
+    on every rank (each takes its rows).  The loss is ``make_loss_fn``'s,
+    run inside ``distributed.spmd.region``; the transposes of the region's
+    collectives deliver each gradient summed over the ranks and in its
+    parameter's own layout, and the clip norm sums each leaf over its
+    blocks, so the update equals the single-device step's.  Metrics come
+    back the same on every rank.  An optimizer that gives a reason in
+    ``not_on_mesh`` (Adafactor) raises here."""
+    check_mesh_ready(cfg, optimizer)
+    loss_fn = make_loss_fn(cfg, aux_weight)
+    mesh, pspecs = placements.mesh, placements.specs.params
+    spec_list = tree_leaves(pspecs)
+    norm = lambda tree: sharding.global_norm(tree_leaves(tree), spec_list, mesh)
+
+    def train_step(state: TrainState, batch: Dict[str, Tensor]):
+        b, n = batch["tokens"].shape
+        lay = spmd.layout_for(mesh, rules, b, n, cfg.d_model)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        with spmd.region(lay, params, pspecs):
+            loss, metrics = loss_fn(params, spmd.local_batch(batch, lay))
+        grads = tree_unflatten(state.params, list(torch.autograd.grad(loss, leaves)))
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                                  norm=norm)
+            params = apply_updates(state.params, updates)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["total_loss"] = loss.detach()
         return TrainState(state.step + 1, params, opt_state), metrics
 
     return train_step

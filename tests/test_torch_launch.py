@@ -196,10 +196,17 @@ def test_launcher_trains_as_the_reference_pieces_and_resumes_exactly(tmp_path, c
         np.testing.assert_array_equal(bits(a), bits(b), err_msg=key)
 
 
-def test_launcher_mesh_flags_and_device():
-    for extra in (["--mesh-data", "2"], ["--mesh-model", "4"], ["--production-mesh"],
-                  ["--multi-pod"]):
-        with pytest.raises(NotImplementedError, match="not yet ported to torch.*item 6"):
+def test_launcher_mesh_flags_and_device(capsys):
+    # one process: the host mesh shrinks to 1×1 (as make_host_mesh does) and
+    # the run is the single-device one, bit for bit
+    meshed = launch.main(launcher_args("adamw", "--mesh-data", "2", "--mesh-model", "2"))
+    assert "on mesh {'data': 1, 'model': 1} (cpu)" in capsys.readouterr().out
+    plain = launch.main(launcher_args("adamw"))
+    for (key, a), b in zip(tree_items(meshed), tree_leaves(plain)):
+        np.testing.assert_array_equal(bits(a), bits(b), err_msg=key)
+    # the production meshes need 256 / 512 ranks
+    for extra, n in ((["--production-mesh"], 256), (["--production-mesh", "--multi-pod"], 512)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks, but the process group has 1"):
             launch.main(launcher_args("adamw", *extra))
     with pytest.raises(ValueError, match="unknown optimizer"):
         launch.build_optimizer("lion", LR, WARMUP, STEPS, get_reduced("smollm-135m"))

@@ -260,6 +260,21 @@ def test_checkpoint_round_trip_with_bf16(tmp_path, setup):
     assert torch.equal(back.opt_state[0], tree.opt_state[0])
 
 
+def test_a_corrupted_checkpoint_raises_and_an_empty_leaf_restores(tmp_path):
+    """Restores map each member from the file and check its CRC-32 first."""
+    tree = {"x": torch.arange(4096, dtype=torch.float32), "e": torch.zeros(0, 3)}
+    path = os.path.join(save_checkpoint(str(tmp_path), 1, tree), "host_0.npz")
+    back = restore_checkpoint(str(tmp_path), tree)
+    assert torch.equal(back["x"], tree["x"]) and back["e"].shape == (0, 3)
+    with open(path, "r+b") as f:  # one byte of x's data flipped
+        blob = f.read()
+        at = blob.index(np.float32(1000.0).tobytes())
+        f.seek(at)
+        f.write(bytes([blob[at] ^ 1]))
+    with pytest.raises(ValueError, match="CRC-32"):
+        restore_checkpoint(str(tmp_path), tree)
+
+
 def test_uncommitted_checkpoints_are_ignored_and_retention_keeps_the_newest(tmp_path):
     tree = {"x": torch.ones(3)}
     for step in (1, 2, 3, 4):

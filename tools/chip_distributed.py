@@ -1,0 +1,54 @@
+#!/usr/bin/env python3
+"""Runs chip_smoke.py's phase 16 (distributed training) alone on the card.
+
+Builds the Taylor kernels from this checkout, then runs
+``chip_smoke.phase_distributed``: the unsharded references in this
+process, then 2 ranks (``gloo`` sharing one card, or ``nccl`` one card a
+rank) for tp 1×2, dp × fsdp 2×1, Taylor and SSD context parallelism and
+the elastic restore, with every check of the full script.  Prints the
+card's name and power limit first and each kernel's launches per rank
+last; exits non-zero on a failed check or without a CUDA device.
+
+    python3 tools/chip_distributed.py
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_distributed: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+
+    sys.path.insert(0, str(chip_smoke.SRC))
+    from repro_torch.kernels.taylor_attention import kernel as K
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    K.build()
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out = chip_smoke.phase_distributed(torch, K)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    for name in ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"):
+        print(name, chip_smoke.dist_launches(out, name))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
