@@ -30,8 +30,11 @@ share the one card over gloo, or one card a rank over nccl; qwen2-1.5b
 whole trained tensor-parallel on 1×2 and dp × fsdp on 2×1 through the
 kernels against an unsharded run, Taylor and SSD context parallelism on
 1×2 against unsharded forwards, the elastic restore of a sharded state),
-and prints one JSON line describing every ported kernel followed by the
-device line.
+then serving on a mesh in the same ranks (phase 17: qwen2-1.5b whole on tp
+1×2 and dp 2×1, granite-20b's one kv head split by its d_v columns, int8
+moments with a NaN-poisoned slot, each against an unsharded engine), and
+prints one JSON line describing every ported kernel followed by the device
+line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -257,7 +260,7 @@ RESUME_FLOOR = 1e-5
 # card over gloo, or one card a rank over nccl): qwen2-1.5b whole in float32
 # through the kernels under tp (1×2) and dp × fsdp (2×1) against an unsharded
 # run of the same seed and batch, Taylor and SSD context parallelism (1×2),
-# and the elastic restore of (a)'s state.
+# and the elastic restore of a sharded state (qwen2-1.5b at a cut depth).
 DIST = dict(
     world=2,
     device="cuda",
@@ -266,12 +269,29 @@ DIST = dict(
     b=TRAIN["b"], n=TRAIN["n"], steps=2,
     cp_fwd=(1, 16384),          # (c)'s forward: (b, n)
     ssd_fwd=(1, 8192),          # (d)'s forward: (b, n)
+    e_groups=4,                 # (e)'s state: qwen2-1.5b at 4 of its 28 layers, full width
     stride=16,                  # the forward checks compare every 16th position's logits
     reduced=False,
 )
 DIST_LOSS_TOL = 2e-3  # sharded vs unsharded losses (tests/test_distributed.py:127)
 CP_LOSS_TOL = 5e-3  # cp vs tp losses (tests/test_distributed.py:204)
 DIST_FWD_TOL = 1e-3  # f32 logits, rel (max|Δ|/max|ref|): phase 4's float32 tolerance
+# Phase 17: serving on a mesh, in phase 16's spawn of ranks: qwen2-1.5b whole
+# in float32 on tp 1×2 (a) and dp 2×1 (b), granite-20b at published width cut
+# to 2 of its 52 layers, as phase 12 cuts it, on tp 1×2 (c; its one kv head
+# cannot split: each rank holds the d_v columns of the value moments), and
+# (a) with int8 moments and a NaN poured into one slot (d); each against an
+# unsharded engine of the same weights run in the parent first.
+SERVE_MESH = dict(
+    arch="qwen2-1.5b", mqa_arch="granite-20b", mqa_groups=2,
+    slots=4, n_max=N_MAX, decode_block=8, new=16,
+    lens=(64, 128, 96, 112, 80, 400),  # the last `late` are submitted after the first step
+    late=2, chunk=128,                 # prefill_chunk: only the 400-token prompt is chunked
+    corrupt=(1, 1),                    # (d): NaN into slot 1 (request 1) after block 1
+)
+SERVE_MESH_LOGIT_TOL = 1e-4  # teacher-forced logits, sharded vs unsharded, rel
+SERVE_MESH_TIE = 1e-5  # a differing token passes where the top-2 gap < this × RMS(logits)
+SERVE_MESH_BYTES_TOL = 0.01  # (a): a rank's slot-cache bytes against half the unsharded
 # params after the steps: per leaf, RMS(sharded - unsharded) / RMS(the
 # unsharded update).  AdamW moves an element by ~lr whatever its gradient's
 # size, so rounding noise flips the few elements whose gradient is near
@@ -3055,9 +3075,10 @@ def dist_checksums(torch, tree, placements, dev):
     return sums
 
 
-def dist_rank(rank, world, spec, ref_dir, work):
-    """One rank of phase 16 (a)-(e); returns its measurements (rank 0 prints
-    each part's wall time as it ends)."""
+def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None):
+    """One rank of phase 16 (a)-(e), then of phase 17 (``serve``) in the same
+    process group; returns its measurements (rank 0 prints each part's wall
+    time as it ends)."""
     import torch
 
     t_start = time.perf_counter()
@@ -3082,24 +3103,31 @@ def dist_rank(rank, world, spec, ref_dir, work):
     cfg = dist_cfg(torch, spec, "arch")
     tp, dp = make_host_mesh(1, world, device=dev), make_host_mesh(world, 1, device=dev)
 
-    # (a) tp 1×2, and its state saved for (e)
+    # (a) tp 1×2
     state, pl, out["a"] = dist_train(torch, K, spec, cfg, tp, dev)
     out["a"]["param_err"] = dist_param_err(torch, state, pl, ref_dir, cfg, dev)
-    t0 = time.perf_counter()
-    save_checkpoint(f"{work}/e", spec["steps"], state, placements=pl)
-    out["e"] = dict(save_s=time.perf_counter() - t0)
-    done("(a) and its save")
+    del state
+    done("(a)")
 
     # (b) dp × fsdp 2×1
+    state, pl2, out["b"] = dist_train(torch, K, spec, cfg, dp, dev)
+    out["b"]["param_err"] = dist_param_err(torch, state, pl2, ref_dir, cfg, dev)
+    del state
+    done("(b)")
+
+    # (e) the elastic restore at (e)'s cut depth: the state after one tp 1×2
+    # step saved, restored on 2×1 (into a 2×1 state as the template) and
+    # whole (as one process reads it): each leaf's bit checksum against the
+    # saved one
+    ecfg = cfg if spec["reduced"] else cfg.replace(n_groups=spec["e_groups"])
+    state, pl, _ = dist_train(torch, K, dict(spec, steps=1), ecfg, tp, dev)
+    t0 = time.perf_counter()
+    save_checkpoint(f"{work}/e", 1, state, placements=pl)
+    out["e"] = dict(save_s=time.perf_counter() - t0)
     sums_a = dist_checksums(torch, state, pl, dev)
     whole_t = whole_template(state, pl)
     del state
-    state, pl2, out["b"] = dist_train(torch, K, spec, cfg, dp, dev)
-    out["b"]["param_err"] = dist_param_err(torch, state, pl2, ref_dir, cfg, dev)
-    done("(b)")
-
-    # (e) (a)'s state restored on 2×1 (into (b)'s state as the template), and
-    # whole (as one process reads it): each leaf's bit checksum against (a)'s
+    state, _, pl2, _ = dist_state(torch, spec, ecfg, dp, dev)
     t0 = time.perf_counter()
     back = restore_checkpoint(f"{work}/e", state, placements=pl2)
     out["e"]["restore_2x1_s"] = time.perf_counter() - t0
@@ -3137,13 +3165,19 @@ def dist_rank(rank, world, spec, ref_dir, work):
     out["d"] = dist_forward(torch, spec, scfg, tp, dist_tokens(torch, scfg.vocab, b, n), dev)
     out["d"]["launches"] = K.taylor_fwd.launches
     done("(d)")
+    if serve is not None:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["serve"] = serve_mesh_rank(torch, K, spec, serve, teach, dev, done)
     return out
 
 
-def phase_distributed(torch, K, spec=DIST):
-    """Phase 16: the unsharded references in this process (freed before the
-    ranks start), then ``spec["world"]`` ranks run (a)-(e) in one spawn.
-    Returns the summary; fails on any check."""
+def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH):
+    """Phases 16 and 17: the unsharded references in this process (freed
+    before the ranks start), then ``spec["world"]`` ranks run phase 16's
+    (a)-(e) and phase 17's (a)-(d) in one spawn.  Returns the summary
+    (phase 17's under "serve"); fails on any check."""
     import tempfile
 
     from repro_torch.checkpoint import save_checkpoint
@@ -3194,11 +3228,17 @@ def phase_distributed(torch, K, spec=DIST):
                                  ms=(time.perf_counter() - t0) * 1e3,
                                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
             del params, logits
+        # phase 17's unsharded engines, and their teacher-forced logits
+        t0 = time.perf_counter()
+        serve_refs = serve_mesh_refs(torch, K, spec, serve)
+        out["serve_refs_s"] = time.perf_counter() - t0
+        teach = {part: (r["tokens"][0], r["teacher_logits"]) for part, r in serve_refs.items()
+                 if "teacher_logits" in r}
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = run_ranks(dist_rank, world, backend=backend, init_file=f"{work}/store",
-                          args=(spec, f"{work}/ref", work))
+                          args=(spec, f"{work}/ref", work, serve, teach))
         out["ranks_s"] = time.perf_counter() - t0
     total = ranks[0]["total_gib"]
     ref = out["ref"]
@@ -3254,7 +3294,8 @@ def phase_distributed(torch, K, spec=DIST):
         if any(any(x) for x in o["launches"]):
             fail(f"[16c] rank {r}: the cp training launched a kernel: {o['launches']}")
     e = ranks[0]["e"]
-    print(f"[16e] (a)'s state ({e['leaves']} leaves) saved from 1x2 in {e['save_s']:.1f} s, "
+    print(f"[16e] qwen2-1.5b x{spec['e_groups']} state after a tp step ({e['leaves']} leaves) "
+          f"saved from 1x2 in {e['save_s']:.1f} s, "
           f"restored on 2x1 in {e['restore_2x1_s']:.1f} s and whole in "
           f"{e['restore_whole_s']:.1f} s: mismatches "
           f"{[m for rk in ranks for m in rk['e']['mismatches']]}")
@@ -3262,6 +3303,7 @@ def phase_distributed(torch, K, spec=DIST):
         fail("[16e] a restored leaf differs from the saved state")
     out.update({part: [rk[part] for rk in ranks] for part in ("a", "b", "c_train")})
     out["total_gib"] = total
+    out["serve"] = serve_mesh_report(torch, spec, serve, serve_refs, [rk["serve"] for rk in ranks])
     return out
 
 
@@ -3278,7 +3320,247 @@ def dist_launches(dist, name):
         for key, arch in (("c", "qwen2-1.5b"), ("d", "mamba2-780m")):
             for r, n in enumerate(dist[key]["launches"]):
                 out[f"{arch}_cp_1x2_lm_apply_rank{r}"] = n
+    for part, path in SERVE_MESH_PATHS.items():  # phase 17: serving reaches no kernel
+        for r, rk in enumerate(dist["serve"]["ranks"]):
+            out[f"{path}_rank{r}"] = rk[part]["launches"][i]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: serving on a mesh
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_PATHS = {"a": "qwen2-1.5b_serve_tp_1x2", "b": "qwen2-1.5b_serve_dp_2x1",
+                    "c": "granite-20b_x2_serve_tp_1x2_dv", "d": "qwen2-1.5b_serve_tp_1x2_int8_nan"}
+
+
+def serve_mesh_cfg(torch, spec, sm, mqa=False):
+    """Phase 17's config in float32: qwen2-1.5b whole, or granite-20b cut to
+    ``sm["mqa_groups"]`` layers (the reduced ones in a rehearsal)."""
+    from repro_torch.configs import get_config, get_reduced
+
+    arch = sm["mqa_arch"] if mqa else sm["arch"]
+    cfg = (get_reduced if spec["reduced"] else get_config)(arch).replace(dtype="float32")
+    if mqa and not spec["reduced"]:
+        cfg = cfg.replace(n_groups=sm["mqa_groups"])
+    return cfg
+
+
+def serve_mesh_prompts(cfg, sm):
+    import torch
+
+    gen = torch.Generator().manual_seed(2)
+    return [torch.randint(0, cfg.vocab, (n,), generator=gen).numpy() for n in sm["lens"]]
+
+
+def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, **engine_kw):
+    """Phase 17's requests through one engine (``mesh=None``: unsharded):
+    the first requests, one step, the late ones, ``run``.  The weights come
+    from ``make_params`` and go to the engine alone (on a mesh it keeps
+    this rank's blocks).  ``teacher`` = (tokens of request 0 from the
+    unsharded engine, their unsharded logits), or "self" on the unsharded
+    engine: the engine's forward runs ``lm_prefill`` on request 0's prompt
+    and ``lm_decode_step`` on those tokens (its own, for "self", whose
+    logits are returned), and the relative error against the given logits
+    is measured.  Returns the tokens, statuses, stats, bytes, GiB, launches
+    and collectives."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.models.lm import lm_decode_step, lm_prefill
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(make_params(), cfg, max_slots=sm["slots"], n_max=sm["n_max"],
+                      decode_block=sm["decode_block"], prefill_chunk=sm["chunk"], mesh=mesh,
+                      device=dev, **engine_kw)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    dist_peak(torch, dev, reset=True)
+    prompts = serve_mesh_prompts(cfg, sm)
+    reqs = [Request(tokens=p, max_new_tokens=sm["new"]) for p in prompts]
+    first = len(reqs) - sm["late"]
+    c0, n0 = taylor_counters(K), sum(col.calls.values())
+    dist_sync(torch, dev)
+    t0 = time.perf_counter()
+    rids = [eng.submit(r) for r in reqs[:first]]
+    eng.step()  # the first requests mid-flight: the rest are late admissions
+    rids += [eng.submit(r) for r in reqs[first:]]
+    res = eng.run(return_results=True)
+    dist_sync(torch, dev)
+    out = dict(wall_s=time.perf_counter() - t0, held_gib=held, peak_gib=dist_peak(torch, dev),
+               tokens=[res[r].tokens.tolist() for r in rids],
+               status=[res[r].status.value for r in rids], stats=eng.stats(),
+               slot_bytes=eng.live_state_bytes,
+               launches=tuple(a - b for a, b in zip(taylor_counters(K), c0)),
+               collectives=sum(col.calls.values()) - n0)
+    if teacher is not None:
+        toks, ref = (out["tokens"][0], None) if teacher == "self" else teacher
+        ctx = eng._on_mesh(slotted=False)  # a request's batch: whole on every "data" rank
+        with torch.no_grad(), ctx:
+            p0 = torch.as_tensor(prompts[0], device=dev)[None].long()
+            lg, caches = lm_prefill(eng.params, {"tokens": p0}, cfg, sm["n_max"])
+            steps = [lg[0]]
+            for t in range(len(toks) - 1):
+                tok = torch.tensor([toks[t]], device=dev)
+                lg, caches = lm_decode_step(eng.params, tok, caches, len(prompts[0]) + t, cfg)
+                steps.append(lg[0])
+        got = torch.stack(steps).float().cpu()
+        if ref is None:
+            out["teacher_logits"] = got.numpy()
+        else:
+            out["teacher_rel_err"] = rel_err(torch, got, torch.as_tensor(ref))
+        del caches, steps, got
+    del eng
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_params(torch, cfg, dev):
+    from repro_torch.models import lm_init
+
+    return lambda: lm_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+
+
+def serve_mesh_refs(torch, K, spec, sm):
+    """Phase 17's unsharded engines in this process: (a)'s (for (a) and (b)),
+    (c)'s and (d)'s without the NaN, with (a)'s and (c)'s teacher-forced
+    logits."""
+    dev = torch.device(spec["device"])
+    qwen, granite = serve_mesh_cfg(torch, spec, sm), serve_mesh_cfg(torch, spec, sm, mqa=True)
+    refs = {}
+    for part, cfg, kw in (("a", qwen, dict(teacher="self")), ("c", granite,
+                                                               dict(teacher="self")),
+                          ("d", qwen, dict(state_dtype="int8"))):
+        refs[part] = serve_mesh_once(torch, K, serve_mesh_params(torch, cfg, dev), cfg, None,
+                                     dev, sm, **kw)
+    return refs
+
+
+def serve_mesh_rank(torch, K, spec, sm, teach, dev, done):
+    """One rank of phase 17 (a)-(d) on the engine's serving meshes."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve import FaultPlan, SlotCorruption
+
+    world = spec["world"]
+    tp, dp = make_serve_mesh(1, world, device=dev), make_serve_mesh(world, 1, device=dev)
+    qwen, granite = serve_mesh_cfg(torch, spec, sm), serve_mesh_cfg(torch, spec, sm, mqa=True)
+    q_params, g_params = serve_mesh_params(torch, qwen, dev), serve_mesh_params(torch, granite,
+                                                                                dev)
+    out = {"a": serve_mesh_once(torch, K, q_params, qwen, tp, dev, sm, teacher=teach["a"])}
+    done("[17] (a)")
+    out["b"] = serve_mesh_once(torch, K, q_params, qwen, dp, dev, sm)
+    done("[17] (b)")
+    out["c"] = serve_mesh_once(torch, K, g_params, granite, tp, dev, sm, teacher=teach["c"])
+    done("[17] (c)")
+    block, slot = sm["corrupt"]
+    plan = FaultPlan(events=(SlotCorruption(at_block=block, slot=slot, mode="nan"),))
+    out["d"] = serve_mesh_once(torch, K, q_params, qwen, tp, dev, sm, state_dtype="int8",
+                               fault_plan=plan)
+    done("[17] (d)")
+    return out
+
+
+def serve_mesh_summary(sv) -> str:
+    """Phase 17's summary line."""
+    def tps(st):
+        return round(st["decode_tokens"] / st["decode_seconds"], 1)
+
+    return (f"[17] summary ({sv['card']}; f32, {SERVE_MESH['slots']} slots, "
+            f"{len(SERVE_MESH['lens'])} requests x {SERVE_MESH['new']} tokens, "
+            f"{len(sv['ranks'])} ranks): " + "; ".join(
+                f"{path}: decode tokens/s per rank {[tps(rk[part]['stats']) for rk in sv['ranks']]}"
+                f" (unsharded {tps(sv[part]['ref_stats'])}), slot bytes per rank "
+                f"{[rk[part]['slot_bytes'] for rk in sv['ranks']]} (unsharded "
+                f"{sv[part]['ref_slot_bytes']}), tokens equal {sv[part]['tokens_equal']}"
+                for part, path in SERVE_MESH_PATHS.items()))
+
+
+def serve_mesh_gap(torch, spec, sm, cfg, prompt, want, t):
+    """The unsharded model's top-2 logit gap, and its logits' RMS, at the
+    position of ``want[t]`` (prompt + ``want[:t]`` through ``lm_prefill``)."""
+    from repro_torch.models.lm import lm_prefill
+
+    dev = torch.device(spec["device"])
+    params = serve_mesh_params(torch, cfg, dev)()
+    seq = torch.cat([torch.as_tensor(prompt), torch.as_tensor(want[:t])]).long().to(dev)[None]
+    with torch.no_grad():
+        lg = lm_prefill(params, {"tokens": seq}, cfg, sm["n_max"])[0][0].float()
+    top = lg.topk(2).values
+    del params
+    return float(top[0] - top[1]), float(lg.square().mean().sqrt())
+
+
+def serve_mesh_report(torch, spec, sm, refs, ranks):
+    """Phase 17's gates over every rank's results; prints each rank's
+    numbers.  Returns the summary."""
+    card = "no card"  # a CPU rehearsal
+    if spec["device"] == "cuda":
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+    victim = sm["corrupt"][1]
+    parts = (("a", "qwen2-1.5b tp 1x2", "a"), ("b", "qwen2-1.5b dp 2x1", "a"),
+             ("c", f"granite-20b x{sm['mqa_groups']} tp 1x2 (d_v split)", "c"),
+             ("d", "qwen2-1.5b tp 1x2 int8 + NaN", "d"))
+    summary = {"ranks": ranks, "card": card}
+    for part, name, key in parts:
+        ref = refs[key]
+        cfg = serve_mesh_cfg(torch, spec, sm, mqa=part == "c")
+        st_ref = ref["stats"]
+        print(f"[17{part}] {name} ({card}): unsharded prefill {st_ref['prefill_seconds']:.3f} s, "
+              f"decode {st_ref['decode_tokens'] / st_ref['decode_seconds']:.1f} tokens/s, "
+              f"{ref['slot_bytes']} slot-cache bytes, held {ref['held_gib']:.2f} GiB, peak "
+              f"{ref['peak_gib']:.2f} GiB")
+        for r, rk in enumerate(ranks):
+            o, st = rk[part], rk[part]["stats"]
+            print(f"[17{part}] rank {r}: prefill {st['prefill_seconds']:.3f} s, decode "
+                  f"{st['decode_tokens'] / st['decode_seconds']:.1f} tokens/s, "
+                  f"{o['slot_bytes']} slot-cache bytes ({o['slot_bytes'] / ref['slot_bytes']:.4f} "
+                  f"of unsharded), held {o['held_gib']:.2f} GiB, peak {o['peak_gib']:.2f} GiB, "
+                  f"{st['decode_collectives'] / st['decode_tokens']:.1f} collectives per decode "
+                  f"token ({o['collectives']} in all), wall {o['wall_s']:.1f} s, launches "
+                  f"fwd,dq,dkv {o['launches']}, statuses {o['status']}"
+                  + (f", teacher-forced logits rel_err {o['teacher_rel_err']:.3e} (tol "
+                     f"{SERVE_MESH_LOGIT_TOL})" if "teacher_rel_err" in o else ""))
+            if o["tokens"] != ranks[0][part]["tokens"]:
+                fail(f"[17{part}] rank {r} emitted other tokens than rank 0")
+            if any(o["launches"]):
+                fail(f"[17{part}] rank {r}: serving launched a kernel: {o['launches']}")
+            if "teacher_rel_err" in o and not o["teacher_rel_err"] < SERVE_MESH_LOGIT_TOL:
+                fail(f"[17{part}] rank {r}: teacher-forced logits rel_err {o['teacher_rel_err']}")
+            if any(s_ != "ok" for s_ in o["status"]):
+                fail(f"[17{part}] rank {r}: statuses {o['status']}")
+            share = o["slot_bytes"] / ref["slot_bytes"]
+            if part in ("a", "d") and abs(share - 0.5) > 0.5 * SERVE_MESH_BYTES_TOL:
+                fail(f"[17{part}] rank {r}: {share:.4f} of the slot-cache bytes, not half")
+            if part == "b" and o["slot_bytes"] * sm["slots"] != ref["slot_bytes"] * (
+                    sm["slots"] // spec["world"]):
+                fail(f"[17b] rank {r}: {o['slot_bytes']} bytes, not {sm['slots'] // spec['world']}"
+                     f" of {sm['slots']} slots")
+            if part == "c" and not 0.5 <= share <= 1.0:
+                fail(f"[17c] rank {r}: {share:.4f} of the slot-cache bytes")
+            if part == "d" and not (o["stats"].get("quarantined") == 1
+                                    and o["stats"].get("corruptions_injected") == 1):
+                fail(f"[17d] rank {r}: quarantined {o['stats'].get('quarantined')}, injected "
+                     f"{o['stats'].get('corruptions_injected')}")
+        prompts = serve_mesh_prompts(cfg, sm)
+        got = ranks[0][part]["tokens"]
+        for i, (p, w, g) in enumerate(zip(prompts, ref["tokens"], got)):
+            if w == g or (part == "d" and i == victim):
+                continue
+            t = next(j for j, (x, y) in enumerate(zip(w, g)) if x != y)
+            gap, rms = serve_mesh_gap(torch, spec, sm, cfg, p, w, t)
+            print(f"[17{part}] request {i} first differs at token {t}: unsharded top-2 gap "
+                  f"{gap:.3e} (limit {SERVE_MESH_TIE} x RMS {rms:.3e})")
+            if not gap < SERVE_MESH_TIE * rms:
+                fail(f"[17{part}] request {i} differs from the unsharded engine's tokens")
+        equal = all(w == g for i, (w, g) in enumerate(zip(ref["tokens"], got))
+                    if not (part == "d" and i == victim))  # (d): the victim's retry re-prefills
+        summary[part] = dict(tokens_equal=equal, ref_stats=st_ref,
+                             ref_slot_bytes=ref["slot_bytes"], ref_peak_gib=ref["peak_gib"])
+    return summary
 
 
 def breadth_launches(br, name):
@@ -3602,7 +3884,8 @@ def main() -> int:
     t0 = time.perf_counter()
     dist = phase_distributed(torch, K)
     a0, c0 = dist["a"][0], dist["c_train"][0]
-    print(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
+    print(f"[16] phases 16 and 17 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
+          f"engines {dist['serve_refs_s']:.1f} s of it)")
     print(f"[16] summary (qwen2-1.5b whole, f32, b={DIST['b']} n={DIST['n']} remat full, "
           f"AdamW; {DIST['world']} ranks): tp 1x2 {sum(a0['step_ms'][1:]) / max(len(a0['step_ms']) - 1, 1):.1f} ms/step "
           f"(rank 0), peak per rank {[round(x['peak_gib'], 2) for x in dist['a']]} GiB vs "
@@ -3614,7 +3897,10 @@ def main() -> int:
           f"{dist['c']['ref_peak_gib']:.2f}; mamba2-780m cp forward n={DIST['ssd_fwd'][1]} "
           f"rel_err {dist['d']['rel_err']:.2e}")
 
-    # ---- 17. kernels line ----
+    # ---- 17. serving on a mesh (run in phase 16's spawn) ----
+    print(serve_mesh_summary(dist["serve"]))
+
+    # ---- 18. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -3680,7 +3966,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 18. device line ----
+    # ---- 19. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

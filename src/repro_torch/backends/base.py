@@ -52,6 +52,11 @@ class AttentionBackend:
     # accepts.
     state_dtypes: Tuple[str, ...] = ("dense",)
     supports_paged_kv: bool = False
+    # The decode state's leaves whose last dim is the value head dim d_v:
+    # where the kv heads do not divide a mesh's "model" axis, a serve
+    # engine splits these by their d_v columns (``cache_pspec``'s fallback)
+    # and gathers the others around each step (``distributed/spmd.py``).
+    value_leaves: Tuple[str, ...] = ("v",)
 
     @property
     def bounded_state(self) -> bool:
@@ -166,6 +171,25 @@ class AttentionBackend:
     def state_health(self, cache, cfg) -> Tensor:
         """``[b]`` bool: True where every floating leaf of the row is finite."""
         return tree_slot_health(cache)
+
+    # -- decode-state sharding (mesh serving) --------------------------------
+
+    def cache_pspec(self, cfg):
+        """Logical axes of this backend's decode state: a tree congruent to
+        ``init_cache``'s output whose leaves are ``P``s of logical names
+        ("dp" the slot axis, "tp" the head axis), resolved against a mesh
+        by ``distributed.sharding.slot_cache_specs``.  Where the head dim
+        does not divide, the resolver moves "tp" to the leaf's last dim
+        (MQA: d_v).  The default is the KV-cache layout; O(1)-state
+        backends override it beside ``init_cache``."""
+        from repro_torch.backends.state import kv_cache_pspec  # noqa: PLC0415 (cycle)
+
+        return kv_cache_pspec()
+
+    def cross_cache_pspec(self, cfg):
+        """Logical axes of the cross-attention read state: every backend's
+        cross state mirrors its decode state, so ``cache_pspec``."""
+        return self.cache_pspec(cfg)
 
     def init_cross_cache(self, cfg, batch: int, n_src: int, device, dtype: torch.dtype):
         """Zero cross-attention state for a source of ``n_src`` tokens."""

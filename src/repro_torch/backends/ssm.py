@@ -65,8 +65,17 @@ class SSMBackend(AttentionBackend):
         """
         return tree_slot_health(cache)
 
+    def cache_pspec(self, cfg):
+        """Logical axes of the ``MambaCache``: slots over "dp", the conv
+        channels of ``conv [b, W-1, channels]`` and the SSD heads of ``ssd
+        [b, H, P, N]`` over "tp"."""
+        from repro_torch.distributed.api import P  # noqa: PLC0415
+        from repro_torch.models.ssm import MambaCache  # noqa: PLC0415 (cycle)
+
+        return MambaCache(conv=P("dp", None, "tp"), ssd=P("dp", "tp", None, None))
+
     def merge_state(self, a, b):
         raise NotImplementedError(
-            "SSD states merge with decay weighting, not addition (the JAX "
-            "package's core/ssd_context_parallel.py, not yet ported)"
+            "SSD states merge with decay weighting, not addition "
+            "(core/ssd_context_parallel.py)"
         )

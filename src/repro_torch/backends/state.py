@@ -54,6 +54,14 @@ class KVCache(NamedTuple):
     length: Tensor  # [b] int32 — valid tokens written per row/slot
 
 
+def kv_cache_pspec() -> KVCache:
+    """Logical axes of a ``KVCache``: slots over "dp", kv heads over "tp"
+    (``k``/``v`` ``[b, hk, n_max, hd]``, ``length`` ``[b]``)."""
+    from repro_torch.distributed.api import P  # noqa: PLC0415
+
+    return KVCache(k=P("dp", "tp", None, None), v=P("dp", "tp", None, None), length=P("dp"))
+
+
 class CrossCache(NamedTuple):
     """The fixed cross-attention read state of one source (encoder output
     or projected image tokens): its K/V (a ``KVCache`` whose length is the
@@ -132,19 +140,33 @@ def quantize_leaf(x: Tensor, n_lead: int, qdtype: str) -> QuantizedLeaf:
       ``QuantizedLeaf`` with ``q`` in the storage dtype and a float32
       ``scale`` shaped like ``x`` with size-1 reduced axes.
     """
-    bits = _QBITS[qdtype]
-    xf = x.float()
+    scale = quant_scale(leaf_amax(x, n_lead), qdtype)
+    return QuantizedLeaf(q=quant_payload(x, scale, qdtype), scale=scale)
+
+
+def leaf_amax(x: Tensor, n_lead: int) -> Tensor:
+    """``|x|``'s max over the axes from ``n_lead`` on (kept, size 1), in
+    float32; NaN propagates."""
+    xf = x.float().abs()
     axes = tuple(range(n_lead, x.ndim))
-    amax = xf.abs().amax(dim=axes, keepdim=True) if axes else xf.abs()
+    return xf.amax(dim=axes, keepdim=True) if axes else xf
+
+
+def quant_scale(amax: Tensor, qdtype: str) -> Tensor:
+    """The power-of-two scale ``2**(frexp(amax) - BITS)`` (a non-finite
+    ``amax`` is its own scale)."""
     _, e = torch.frexp(amax)
-    scale = torch.exp2((e - bits).float())
-    scale = torch.where(torch.isfinite(amax), scale, amax)
-    y = xf / scale
+    scale = torch.exp2((e - _QBITS[qdtype]).float())
+    return torch.where(torch.isfinite(amax), scale, amax)
+
+
+def quant_payload(x: Tensor, scale: Tensor, qdtype: str) -> Tensor:
+    """``x / scale`` in the storage dtype: int8 rounded half to even and
+    clipped at ±127, fp8 e4m3 clipped at ±240."""
+    y = x.float() / scale
     if qdtype == "int8":
-        q = y.round().clamp(-127.0, 127.0).to(torch.int8)
-    else:
-        q = y.clamp(-240.0, 240.0).to(torch.float8_e4m3fn)
-    return QuantizedLeaf(q=q, scale=scale)
+        return y.round().clamp(-127.0, 127.0).to(torch.int8)
+    return y.clamp(-240.0, 240.0).to(torch.float8_e4m3fn)
 
 
 def dequantize_leaf(leaf: QuantizedLeaf, dtype=torch.float32) -> Tensor:

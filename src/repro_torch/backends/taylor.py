@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.backends.base import AttentionBackend
 from repro_torch.core import (
+    TaylorState,
     init_taylor_state,
     merge_states,
     taylor_attention,
@@ -73,6 +74,7 @@ class TaylorBackend(AttentionBackend):
     # dispatches, with per-head power-of-two scales; absorbs and reads run
     # in float32 (serve/state_repr.py).
     state_dtypes = ("dense", "int8", "fp8")
+    value_leaves = ("s0", "s1", "s2")
 
     def validate(self, cfg):
         super().validate(cfg)
@@ -200,6 +202,22 @@ class TaylorBackend(AttentionBackend):
 
     def merge_state(self, a, b):
         return merge_states(a, b)
+
+    def cache_pspec(self, cfg):
+        """Logical axes of the ``TaylorState`` moments: slots over "dp", kv
+        heads over "tp"; where the kv heads do not divide (MQA) the
+        resolver puts "tp" on each leaf's last dim instead (d_v of s0, s1,
+        s2; the key dim of z1, z2)."""
+        from repro_torch.distributed.api import P  # noqa: PLC0415
+
+        t = cfg.taylor
+        second = t.order >= 2
+        # sym_state packs z2/s2 to [b, k, D2(, v)]; same leading axes
+        z2 = P("dp", "tp", None) if t.sym_state else P("dp", "tp", None, None)
+        s2 = P("dp", "tp", None, None) if t.sym_state else P("dp", "tp", None, None, None)
+        return TaylorState(n0=P("dp", "tp"), s0=P("dp", "tp", None), z1=P("dp", "tp", None),
+                           s1=P("dp", "tp", None, None), z2=z2 if second else None,
+                           s2=s2 if second else None)
 
     def apply_cp(self, q, k, v, cfg, mesh, axis, dp_axis=None):
         from repro_torch.core.context_parallel import (  # noqa: PLC0415 (cycle)

@@ -27,11 +27,14 @@ under ``gloo`` with CUDA tensors.)  An axis of size 1 makes every call the
 identity.
 
 A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` or the
-single-rank ``launch.mesh.SingleMesh``.
+single-rank ``launch.mesh.SingleMesh``.  ``calls`` counts the c10d calls
+this process made, by kind (the serve engine reports collectives per
+token from it).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Tuple, Union
 
 import torch
@@ -39,6 +42,8 @@ import torch.distributed as dist
 
 Tensor = torch.Tensor
 Axis = Union[str, Tuple[str, ...]]
+
+calls: Counter = Counter()
 
 
 def _names(axis: Axis) -> Tuple[str, ...]:
@@ -69,9 +74,12 @@ def axis_group(mesh, axis: Axis):
 
 
 def _gather(x: Tensor, dim: int, mesh, axis: Axis) -> Tensor:
+    if x.dtype == torch.bool or (x.is_floating_point() and x.element_size() == 1):
+        return _gather(x.view(torch.uint8), dim, mesh, axis).view(x.dtype)  # bools, fp8: bytes
     n = axis_size(mesh, axis)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + xt.shape[1:])
+    calls["all_gather"] += 1
     dist.all_gather_into_tensor(out, xt, group=axis_group(mesh, axis))
     return out.movedim(0, dim)
 
@@ -80,12 +88,14 @@ def _reduce_scatter(x: Tensor, dim: int, mesh, axis: Axis) -> Tensor:
     n = axis_size(mesh, axis)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
+    calls["reduce_scatter"] += 1
     dist.reduce_scatter_tensor(out, xt, group=axis_group(mesh, axis))
     return out.movedim(0, dim)
 
 
 def _all_reduce(x: Tensor, mesh, axis: Axis) -> Tensor:
     x = x.clone()
+    calls["all_reduce"] += 1
     dist.all_reduce(x, group=axis_group(mesh, axis))
     return x
 

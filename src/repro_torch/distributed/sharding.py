@@ -17,8 +17,10 @@ Logical axes (bound to physical axes by ``distributed.api`` rules):
 ``Placements(mesh, specs)`` says where each leaf of a tree lives;
 ``distribute_tree`` cuts whole leaves into this rank's blocks and
 ``gather_tree`` puts the blocks back together (a collective).  The serve
-engine's cache specs (``slot_cache_specs``, ``cache_specs``) are not
-ported yet.
+engine's slotted decode cache takes its specs from ``slot_cache_specs``
+(each backend's ``cache_pspec`` resolved per leaf by
+``_resolve_logical_spec``), a prefill's caches from ``cache_specs``, and
+its weights from ``serve_param_specs``.
 """
 
 from __future__ import annotations
@@ -208,6 +210,15 @@ def global_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def block_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
+    """A block's shape from the whole leaf's shape and its spec (the inverse
+    of ``global_shape``)."""
+    out = list(shape)
+    for dim, entry in _entries(spec):
+        out[dim] //= mesh_axis_size(mesh, entry)
+    return tuple(out)
+
+
 def whole_template(tree: Any, placements: Placements) -> Any:
     """Uninitialised whole-shaped CPU tensors for a tree of blocks (a
     template to read whole leaves into)."""
@@ -240,3 +251,172 @@ def global_norm(leaves, specs, mesh) -> torch.Tensor:
         for j, i in enumerate(idx):
             out[i] = vals[j]
     return torch.stack(out).sum().sqrt()
+
+
+# ---------------------------------------------------------------------------
+# Slotted serve-cache specs: each backend's state layout, resolved per leaf
+# ---------------------------------------------------------------------------
+
+
+def _resolve_logical_spec(logical, shape: Sequence[int], rules: Rules, mesh) -> P:
+    """One leaf's logical spec ("dp" / "tp" / None per dim) -> physical axes,
+    divisibility-aware, one physical axis once, and where the dim carrying
+    "tp" (the head dim) does not divide, "tp" on the leaf's last dim when
+    that divides (MQA: the Taylor value moments shard their d_v columns)."""
+    entries: list = []
+    used = set()
+    for name, size in zip(tuple(logical), shape):
+        phys = _resolve_dim(name, size, rules, mesh)
+        key = tuple(phys) if isinstance(phys, tuple) else phys
+        if phys is not None and key in used:
+            phys = None
+        if phys is not None:
+            used.add(key)
+        entries.append(phys)
+    logical_t = tuple(logical)
+    if "tp" in logical_t:
+        i = logical_t.index("tp")
+        if entries[i] is None and i < len(shape) - 1 and logical_t[-1] is None:
+            phys = _resolve_dim("tp", shape[-1], rules, mesh)
+            key = tuple(phys) if isinstance(phys, tuple) else phys
+            if phys is not None and key not in used:
+                entries[-1] = phys
+    return P(*entries)
+
+
+def _logical_cache_specs(cfg) -> Dict[str, Any]:
+    """The logical spec tree of ``lm_init_caches``'s output: each run's state
+    from its own backend's ``cache_pspec`` (a mamba run's from the "ssm"
+    backend, a cross block's pair with its ``cross_cache_pspec``), group
+    runs with their ``[n_groups, run_len]`` stacking entries in front, and
+    ``kv_src`` slots over "dp"."""
+    from repro_torch.backends import get_backend, resolve_backend  # noqa: PLC0415 (cycle)
+    from repro_torch.backends.state import CrossCache  # noqa: PLC0415
+    from repro_torch.models.config import schedule_runs  # noqa: PLC0415
+
+    def one(kind, rcfg):
+        if kind == "mamba":
+            return get_backend("ssm").cache_pspec(rcfg)
+        backend = resolve_backend(rcfg)
+        spec = backend.cache_pspec(rcfg)
+        if kind != "cross":
+            return spec
+        return spec, CrossCache(kv=backend.cross_cache_pspec(rcfg))
+
+    def stack(tree):
+        return tree_map(lambda p: P(None, None, *p), tree)
+
+    tail_cfg = cfg.layer_cfg(cfg.attention)
+    return {
+        "group": tuple(stack(one(kind, cfg.layer_cfg(bk))) for kind, bk, _ in
+                       schedule_runs(cfg)) if cfg.n_groups else (),
+        "tail": tuple(one(kind, tail_cfg) for kind in cfg.tail),
+        "kv_src": P("dp", None, None) if cfg.family in ("vlm", "encdec") else None,
+    }
+
+
+def slot_cache_specs(cfg, max_slots: int, n_max: int, mesh, rules: Rules, state=None) -> Any:
+    """The spec tree of the serve engine's slotted decode cache.
+
+    Congruent with ``models.lm.lm_init_caches(cfg, max_slots, n_max)``
+    (group caches ``[n_groups, run_len, slots, ...]``, tail caches
+    ``[slots, ...]``, ``kv_src``), or with a codec's stored tree when
+    ``state`` is a ``serve.state_repr`` codec other than the dense one
+    (its ``logical_specs``: a quantised payload keeps the dense leaf's
+    spec and its scale replicates; page pools reuse the dense K/V specs,
+    the page table and lengths replicate).  Each run's layout comes from
+    its backend's ``cache_pspec``: ``kv`` and ``moments`` states put slots
+    over "dp" and kv heads over "tp" (MQA's indivisible heads fall back to
+    the last dim), ``ssm`` states slots over "dp" and SSD heads and conv
+    channels over "tp".  Every axis resolves divisibility-aware, so a 1×1
+    mesh (or an indivisible one) gives replicated specs."""
+    import dataclasses  # noqa: PLC0415
+
+    from repro_torch.models.lm import lm_init_caches  # noqa: PLC0415 (cycle)
+
+    meta = torch.device("meta")
+    logical = _logical_cache_specs(cfg)
+    if state is not None and state.name != "dense":
+        shapes = dataclasses.replace(state, device=meta, mesh=None).init_stored()
+        logical = state.logical_specs(logical)
+    else:
+        shapes = lm_init_caches(cfg, max_slots, n_max, device=meta)
+    return tree_map(lambda p, leaf: _resolve_logical_spec(p, leaf.shape, rules, mesh),
+                    logical, shapes)
+
+
+def cache_specs(cache_shapes: Any, mesh, rules: Rules, batch: int) -> Any:
+    """Decode caches of a batch (``lm_prefill``'s output): the batch dim is
+    found by its size (0 for tail caches, 1 or 2 under the group stacking)
+    and goes over "dp", the heads dim after it over "tp", falling back to
+    the last dim (MQA Taylor states shard their d_v dim)."""
+
+    def one(leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not shape:
+            return P()
+        entries: list = [None] * len(shape)
+        for b_idx in (0, 1, 2):
+            if len(shape) > b_idx and shape[b_idx] == batch:
+                break
+        else:
+            return P(*entries)
+        entries[b_idx] = _resolve_dim("dp", shape[b_idx], rules, mesh)
+        h_idx = b_idx + 1
+        if len(shape) > h_idx:
+            tp = _resolve_dim("tp", shape[h_idx], rules, mesh)
+            if tp is not None:
+                entries[h_idx] = tp
+            elif len(shape) > h_idx + 1:
+                entries[-1] = _resolve_dim("tp", shape[-1], rules, mesh)
+        return P(*entries)
+
+    return tree_map(one, cache_shapes)
+
+
+def serve_param_specs(params: Any, cfg, mesh, rules: Rules) -> Any:
+    """Where the serve engine holds each weight: a layer's attention and MLP
+    weights in their ``param_specs`` "model" blocks where its site keeps
+    them split (``spmd.attn_mode`` "heads", ``d_ff`` dividing), the value
+    projection's columns and the output projection's rows under "dv" (the
+    kv heads do not divide, MQA), everything else whole.  A decode step
+    reads every weight, so a block gathered over "data" (fsdp) would move
+    the whole model per token: the engine's weights replicate over "data",
+    and every collective of a step moves activations or state."""
+    from repro_torch.distributed import spmd  # noqa: PLC0415 (cycle)
+    from repro_torch.models.lm import _layers  # noqa: PLC0415 (cycle)
+
+    tp = rules.get("tp")
+    size = mesh_axis_size(mesh, tp) if tp is not None else 1
+    tp_rules = {"tp": tp}
+    whole = lambda tree: tree_map(lambda _: P(), tree)  # noqa: E731
+    split = lambda tree: param_specs(tree, mesh, tp_rules)  # noqa: E731
+    out = whole(params)
+
+    def block(p, kind, lcfg):
+        spec = whole(p)
+        if size == 1:
+            return spec
+        if "attn" in p and kind != "mamba":
+            mode = spmd.attn_mode(lcfg, size)
+            if mode == "heads":
+                spec["attn"] = {k: split({k: v})[k] for k, v in p["attn"].items()}
+            elif mode == "dv":
+                spec["attn"]["wv"] = {k: P(*([None] * (v.ndim - 1)), tp)
+                                      for k, v in p["attn"]["wv"].items()}
+                spec["attn"]["wo"] = {"w": P(None, tp, None)}
+        if "mlp" in p and lcfg.d_ff % size == 0:
+            spec["mlp"] = {k: split({k: v})[k] for k, v in p["mlp"].items()}
+        return spec
+
+    blocks, shared = [], None
+    for i, (kind, lcfg, p) in enumerate(_layers(params, cfg)):
+        if params["blocks"][i] is None:  # a shared_attn occurrence
+            shared = block(p, kind, lcfg)
+            blocks.append(None)
+        else:
+            blocks.append(block(p, kind, lcfg))
+    out["blocks"] = blocks
+    if shared is not None:
+        out["shared"] = shared
+    return out

@@ -48,14 +48,33 @@ reads are those that the region was given).
 The scans inside the Taylor and SSD backends run on local blocks that are
 already batch-split, which is all the reference's constraints at
 ``core/taylor.py:85, 366-368`` and ``core/taylor_vjp.py:123-125`` ask.
-Not ported on a mesh yet: MoE blocks (``ep_a2a``) and the cross-attention
-families.
+
+Serving (``serve_layout``): the cache-carrying paths (``lm_prefill``,
+``lm_decode_step``, ``lm_prefill_chunk``, ``lm_verify_chunk``) run the
+same blocks through the same hooks, each ``site`` carrying this rank's
+block of its layer's decode state (``site(..., state=)``), as
+``distributed.sharding.slot_cache_specs`` names it.  The residual stream
+stays whole (no "sp"); the slotted batch splits over "dp" (``rows`` /
+``all_rows`` move per-slot vectors between the whole and the rank's
+rows), a request's batch runs whole on every "data" rank.  Attention
+splits over "model" by ``attn_mode``: its heads where the kv heads divide
+("heads"), else the value columns d_v where the spec puts "tp" on them
+("dv", MQA: each rank computes its d_v columns of the numerator over the
+whole denominator, and the output projection runs row-split with a sum),
+else whole; a mamba block runs whole.  A state leaf that the spec splits
+but the compute runs whole (the key moments under "dv", the SSD heads and
+conv channels of a mamba block) is gathered before the step and cut back
+to its block after it.
+
+Not ported on a mesh yet: MoE blocks (``ep_a2a``, ROADMAP queue 1 item
+6b) and the cross-attention families (item 6c).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -66,7 +85,10 @@ from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
 
-NOT_PORTED = "not yet ported to torch on a mesh (ROADMAP queue 1 item 6)"
+
+def not_ported(item: str) -> str:
+    """The error text of a path whose mesh form waits for queue 1 ``item``."""
+    return f"not yet ported to torch on a mesh (ROADMAP queue 1 item {item})"
 
 
 class Layout(NamedTuple):
@@ -98,13 +120,56 @@ def layout_for(mesh, rules, b: int, n: int, d: int) -> Layout:
     return Layout(mesh, rules, dp, sp, tp, n, b)
 
 
+def serve_layout(mesh, rules, b: int, slotted: bool) -> Layout:
+    """A serve engine's layout for a batch of ``b`` rows: the slotted batch
+    (``slotted``) over "dp" where it divides, a request's batch whole on
+    every rank of "data" (a batch-1 admission does not divide: every rank
+    runs it, and the slot's owner keeps the state); heads over "tp"; the
+    residual stream whole."""
+    dp = dist.resolve_axes(("dp",), (b,), mesh, rules)[0] if slotted else None
+    tp = rules.get("tp")
+    if tp is not None and dist.mesh_axis_size(mesh, tp) == 1:
+        tp = None
+    return Layout(mesh, rules, dp, None, tp, 0, b)
+
+
+def rows(x: Tensor) -> Tensor:
+    """This rank's rows of a whole per-row tensor (a slot vector, a window)
+    where the region's batch splits over "dp"; else ``x``."""
+    r = _REGION.get()
+    if r is None or not r.lay.dp:
+        return x
+    return col.slice_values(x, 0, r.lay.mesh, r.lay.dp)
+
+
+def all_rows(x: Tensor) -> Tensor:
+    """The whole of a per-row tensor from this rank's rows (a collective
+    where the batch splits over "dp"); else ``x``."""
+    r = _REGION.get()
+    if r is None or not r.lay.dp:
+        return x
+    return col.gather_values(x, 0, r.lay.mesh, r.lay.dp)
+
+
+def attn_mode(cfg, size: int) -> str:
+    """How a serve engine splits a layer's attention over a "model" axis of
+    ``size``: its heads where the kv heads divide ("heads"); else, where the
+    value head dim divides, the d_v columns that ``cache_pspec``'s
+    last-dim fallback gives the value leaves ("dv"); else not at all."""
+    if size <= 1:
+        return "whole"
+    if cfg.n_heads % size == 0 and cfg.n_kv_heads % size == 0:
+        return "heads"
+    return "dv" if cfg.resolved_head_dim % size == 0 else "whole"
+
+
 def check_supported(cfg) -> None:
     """Raise for the models whose sharded path is not ported yet."""
     kinds = set(cfg.pattern + cfg.tail)
     if "moe" in kinds:
-        raise NotImplementedError(f"MoE blocks (moe.impl 'ep_a2a') are {NOT_PORTED}")
+        raise NotImplementedError(f"MoE blocks (moe.impl 'ep_a2a') are {not_ported('6b')}")
     if "cross" in kinds or cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(f"the cross-attention families are {NOT_PORTED}")
+        raise NotImplementedError(f"the cross-attention families are {not_ported('6c')}")
 
 
 class _Region(NamedTuple):
@@ -244,14 +309,57 @@ def _tp_axis(kind: str, cfg, lay: Layout):
     return None
 
 
-def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = None):
+_NO_STATE = object()
+
+
+@functools.lru_cache(maxsize=None)
+def _model_specs(kind: str, cfg, axis, sizes: Tuple[Tuple[str, int], ...]):
+    """The "model" entries of one layer's decode-state spec (its backend's
+    ``cache_pspec`` resolved as ``slot_cache_specs`` resolves it)."""
+    from repro_torch.backends import state_backend  # noqa: PLC0415 (cycle)
+    from repro_torch.distributed.sharding import _resolve_logical_spec  # noqa: PLC0415
+    from repro_torch.tree import tree_map  # noqa: PLC0415
+
+    class Sizes:
+        axis_names = tuple(n for n, _ in sizes)
+        shape = dict(sizes)
+
+    backend = state_backend(kind, cfg)
+    shapes = backend.init_cache(cfg, 1, 1, torch.device("meta"), torch.float32)
+    return tree_map(lambda p, x: _resolve_logical_spec(p, x.shape, {"tp": axis}, Sizes()),
+                    backend.cache_pspec(cfg), shapes)
+
+
+def _reblock(state, held, lay: Layout, keep, gather: bool):
+    """Leaves of a layer's state that ``held`` splits over "tp" and the
+    compute runs whole (all but the fields in ``keep``): gathered whole
+    (``gather``) or cut back to this rank's block."""
+    if state is None:
+        return None
+    out = []
+    for name, x, spec in zip(state._fields, state, held):
+        if x is not None and name not in keep:
+            for dim, entry in enumerate(spec):
+                if entry is not None:
+                    x = (col.gather_values(x, dim, lay.mesh, entry) if gather
+                         else col.slice_values(x, dim, lay.mesh, entry).contiguous())
+        out.append(x)
+    return type(state)(*out)
+
+
+def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = None,
+         state=_NO_STATE):
     """``fn(params, h, cfg, positions)``: a block's ``"attn"``, ``"mlp"`` or
     ``"mamba"`` compute on the normed residual ``h``.  In a region ``h`` is
     the stream's blocks and so is the output; ``positions`` are the whole
-    sequence's."""
+    sequence's.  With ``state`` (a layer's decode cache, or None for a
+    prefill) ``fn`` takes it as a fifth argument and returns ``(y, new
+    state)``, the state being this rank's block of it (see the module
+    docstring for how serving splits each site)."""
+    carry = state is not _NO_STATE
     r = _REGION.get()
     if r is None:
-        return fn(params, h, cfg, positions)
+        return fn(params, h, cfg, positions, state) if carry else fn(params, h, cfg, positions)
     lay = r.lay
     if (kind != "mlp" and cfg.attn_sharding == "cp" and lay.sp is not None
             and (lay.n // lay.size(lay.sp)) % cfg.attn_chunk == 0):
@@ -263,8 +371,20 @@ def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = No
     if cfg.attn_sharding == "cp":
         cfg = cfg.replace(attn_sharding="tp")
     tp = _tp_axis(kind, cfg, lay)
-    hf = _enter(h, lay, tp is not None)
-    w = _use_tree(r, params, keep=(tp,) if tp else (), split=_split_axes(lay, False))
+    mode = "heads" if tp else "whole"
+    if carry and kind == "attn" and not tp and lay.tp:
+        mode = attn_mode(cfg, lay.size(lay.tp))
+    split = tp or (lay.tp if mode == "dv" else None)
+    hf = _enter(h, lay, split is not None)
+    w = _use_tree(r, params, keep=(split,) if split else (), split=_split_axes(lay, False))
+    held, keep = None, ()
+    if carry and kind != "mlp" and lay.tp and mode != "heads":
+        sizes = tuple((n, dist.mesh_axis_size(lay.mesh, n)) for n in dist.entry_names(lay.tp))
+        from repro_torch.backends import state_backend  # noqa: PLC0415 (cycle)
+
+        held = _model_specs(kind, cfg, lay.tp, sizes)
+        keep = state_backend(kind, cfg).value_leaves if mode == "dv" else ()
+        state = _reblock(state, held, lay, keep, gather=True)
     if tp and kind == "attn":
         size = lay.size(tp)
         cfg = cfg.replace(n_heads=cfg.n_heads // size, n_kv_heads=cfg.n_kv_heads // size,
@@ -272,4 +392,9 @@ def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = No
     if tp and "b_down" in w:  # added by one rank, so that the reduction adds it once
         first = float(col.axis_rank(lay.mesh, tp) == 0)
         w = dict(w, b_down=col.sum_grad(w["b_down"], lay.mesh, tp) * first)
-    return _exit(fn(w, hf, cfg, positions), lay, tp is not None)
+    if not carry:
+        return _exit(fn(w, hf, cfg, positions), lay, split is not None)
+    y, state = fn(w, hf, cfg, positions, state)
+    if held is not None:
+        state = _reblock(state, held, lay, keep, gather=False)
+    return _exit(y, lay, split is not None), state

@@ -81,9 +81,9 @@ def make_host_mesh(data: int = 1, model: int = 1, device=None):
 
 
 def make_serve_mesh(slots: int = 1, model: int = 1, device=None):
-    """Serving mesh ("data" shards the serve engine's slots, "model" the
-    weights).  Unlike ``make_host_mesh`` it refuses to shrink.  The serve
-    engine's ``mesh=`` is not ported yet."""
+    """Serving mesh for ``ServeEngine(mesh=)``: "data" shards the engine's
+    slots, "model" its heads and ``d_ff``.  Unlike ``make_host_mesh`` it
+    refuses to shrink."""
     n = world_size()
     if slots * model > n:
         raise ValueError(f"make_serve_mesh({slots}×{model}) needs {slots * model} ranks "

@@ -91,26 +91,44 @@ def block_apply(
     return x + y, aux
 
 
+def _mamba_prefill(p, h: Tensor, cfg: ModelConfig, n_max: int):
+    return get_backend("ssm").prefill(p, h, cfg, n_max)
+
+
+def _mamba_tokens(p, h: Tensor, cfg: ModelConfig, cache):
+    """The token recurrence over ``h`` [b, c, d] (a chunk, as the JAX
+    package runs it, not the chunked SSD)."""
+    backend, ys = get_backend("ssm"), []
+    for i in range(h.shape[1]):
+        y_t, cache = backend.decode_step(p, h[:, i], cache, cfg, None)
+        ys.append(y_t)
+    return torch.stack(ys, dim=1), cache
+
+
 def block_prefill(
     params, kind: str, x: Tensor, cfg: ModelConfig, n_max: int,
     positions: Optional[Tensor] = None, kv_src: Optional[Tensor] = None,
 ):
     """Returns (x, cache): a ``MambaCache`` for a mamba block, the pair
     ``(self cache, CrossCache)`` for a cross block, the attention backend's
-    state otherwise."""
+    state otherwise.  Inside a serve engine's ``spmd.region`` the cache is
+    this rank's block of it."""
     _check_kind(kind)
     eps = cfg.norm_eps
-    h = norm_apply(params["norm1"], x, cfg.norm, eps)
+    h = norm_apply(spmd.on_stream(params["norm1"]), x, cfg.norm, eps)
     if kind == "mamba":
-        y, cache = get_backend("ssm").prefill(params["mamba"], h, cfg, n_max)
+        y, cache = spmd.site("mamba", lambda p, h, c, pos, st: _mamba_prefill(p, h, c, n_max),
+                             params["mamba"], h, cfg, state=None)
         return x + y, cache
-    y, cache = attn.attention_prefill(params["attn"], h, cfg, n_max, positions)
+    y, cache = spmd.site(
+        "attn", lambda p, h, c, pos, st: attn.attention_prefill(p, h, c, n_max, pos),
+        params["attn"], h, cfg, positions, state=None)
     x = x + y
     if kind == "cross":
         hc = norm_apply(params["norm_c"], x, cfg.norm, eps)
         x = x + attn.attention_apply(params["cross"], hc, cfg, kv_src=kv_src)
         cache = (cache, attn.cross_prefill(params["cross"], kv_src, cfg))
-    h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
+    h2 = norm_apply(spmd.on_stream(params["norm2"]), x, cfg.norm, eps)
     return x + _ffn(params, kind, h2, cfg)[0], cache
 
 
@@ -118,19 +136,23 @@ def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
     """One-token step.  Returns (x_t, new_cache)."""
     _check_kind(kind)
     eps = cfg.norm_eps
-    h = norm_apply(params["norm1"], x_t, cfg.norm, eps)
+    h = norm_apply(spmd.on_stream(params["norm1"]), x_t, cfg.norm, eps)
     if kind == "mamba":
-        y, cache = get_backend("ssm").decode_step(params["mamba"], h, cache, cfg, pos)
+        y, cache = spmd.site(
+            "mamba", lambda p, h, c, pos, st: get_backend("ssm").decode_step(p, h, st, c, pos),
+            params["mamba"], h, cfg, pos, state=cache)
         return x_t + y, cache
     if kind == "cross":
         cache, ccache = cache
-    y, cache = attn.attention_decode(params["attn"], h, cache, cfg, pos)
+    y, cache = spmd.site(
+        "attn", lambda p, h, c, pos, st: attn.attention_decode(p, h, st, c, pos),
+        params["attn"], h, cfg, pos, state=cache)
     x_t = x_t + y
     if kind == "cross":
         hc = norm_apply(params["norm_c"], x_t, cfg.norm, eps)
         x_t = x_t + attn.cross_decode(params["cross"], hc, ccache, cfg)
         cache = (cache, ccache)
-    h2 = norm_apply(params["norm2"], x_t, cfg.norm, eps)
+    h2 = norm_apply(spmd.on_stream(params["norm2"]), x_t, cfg.norm, eps)
     # the FFN sees the token as a length-1 sequence [b, 1, d]
     return x_t + _ffn(params, kind, h2[:, None, :], cfg)[0][:, 0, :], cache
 
@@ -156,21 +178,21 @@ def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
     """
     _check_kind(kind)
     eps = cfg.norm_eps
-    h = norm_apply(params["norm1"], x, cfg.norm, eps)
+    h = norm_apply(spmd.on_stream(params["norm1"]), x, cfg.norm, eps)
     if kind == "mamba":
-        ssm_backend, ys = get_backend("ssm"), []
-        for i in range(h.shape[1]):
-            y_t, cache = ssm_backend.decode_step(params["mamba"], h[:, i], cache, cfg, None)
-            ys.append(y_t)
-        return x + torch.stack(ys, dim=1), cache
+        y, cache = spmd.site("mamba", lambda p, h, c, pos, st: _mamba_tokens(p, h, c, st),
+                             params["mamba"], h, cfg, state=cache)
+        return x + y, cache
     if kind == "cross":
         cache, ccache = cache
-    y, cache = attn.attention_prefill_chunk(params["attn"], h, cache, cfg, positions)
+    y, cache = spmd.site(
+        "attn", lambda p, h, c, pos, st: attn.attention_prefill_chunk(p, h, st, c, pos),
+        params["attn"], h, cfg, positions, state=cache)
     x = x + y
     if kind == "cross":
         hc = norm_apply(params["norm_c"], x, cfg.norm, eps)
         x = x + torch.stack([attn.cross_decode(params["cross"], hc[:, i], ccache, cfg)
                              for i in range(hc.shape[1])], dim=1)
         cache = (cache, ccache)
-    h2 = norm_apply(params["norm2"], x, cfg.norm, eps)
+    h2 = norm_apply(spmd.on_stream(params["norm2"]), x, cfg.norm, eps)
     return x + _ffn(params, kind, h2, cfg)[0], cache

@@ -132,7 +132,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     # "full": each block's activations are recomputed in the backward
     # (torch.utils.checkpoint per block); "none": all are kept;
-    # "dots_saveable" is not yet ported (lm_apply raises)
+    # "dots_saveable": the matrix products' outputs are kept too
     remat: str = "full"
     max_seq: int = 131072
 

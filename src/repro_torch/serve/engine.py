@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import spmd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
     lm_decode_step,
@@ -136,7 +137,11 @@ def decode_scan(
     Per step each ACTIVE slot feeds its current token at its own position,
     picks the next token and goes inactive when it emits its ``eos_id``.
     Inactive slots freeze (token/pos held), and slots inactive at the start
-    keep their cache bit-identically.
+    keep their cache bit-identically.  Inside a serve engine's
+    ``spmd.region`` the per-slot vectors stay whole on every rank, the
+    model runs on this rank's slots (``spmd.rows``), and the logits are
+    gathered whole (``spmd.all_rows``) before the next tokens are picked:
+    one generator draws for every slot, as on one device.
 
     Args:
       params: model params.
@@ -168,7 +173,8 @@ def decode_scan(
     caches_in, active_in = caches, active
     toks, masks = [], []
     for _ in range(steps):
-        logits, caches = lm_decode_step(params, token, caches, pos, cfg)
+        logits, caches = lm_decode_step(params, spmd.rows(token), caches, spmd.rows(pos), cfg)
+        logits = spmd.all_rows(logits)
         if sampling:
             nxt = sample_tokens(logits, generator, temperature, top_k, max_top_k)
         else:
@@ -181,7 +187,7 @@ def decode_scan(
         toks.append(nxt)
     # Slots inactive at dispatch keep their state bit-identically: a slot a
     # speculative verify advanced this step is live but masked out here.
-    caches = select_slots(active_in, caches, caches_in)
+    caches = select_slots(spmd.rows(active_in), caches, caches_in)
     if codec is not None:
         caches = codec.encode(caches, stored)
     return caches, token, pos, active, torch.stack(toks), torch.stack(masks)

@@ -41,13 +41,29 @@ decode block.  State representations (``serve/state_repr.py``):
 ``SlotStateStore`` owns the slot cache whatever its representation.  The
 vlm and encdec families take their source through ``Request.extras``
 (``image_embeds`` / ``audio_frames``, validated against the config's source
-shape at submit) and are always admitted by whole-prompt prefill.  Not yet
-ported from the JAX package's engine (ROADMAP queue 1 item 6): meshes
-(``mesh=``/``rules=``); they raise.
+shape at submit) and are always admitted by whole-prompt prefill.
+
+On a mesh (``mesh=launch.mesh.make_serve_mesh(slots, model)``) the engine
+is SPMD: every rank builds it, submits the same requests in the same order
+and steps it, and every rank's ``run`` returns the same results.  The
+weights lie as ``distributed.sharding.serve_param_specs`` says (heads and
+``d_ff`` over "model"), the slot cache as ``slot_cache_specs`` (slots over
+"data", heads over "model"), and every dispatch runs the model's one
+forward in a ``distributed.spmd.region``: a decode block or a verify on
+this rank's slots, a prefill (a request's batch does not divide over
+"data") on every rank of "data", whose state the slot's owner keeps.  The
+host scheduler decides alike on every rank: its clock reads rank 0's time
+(one collective a reading), the health sweep's verdict is gathered, and
+sampling draws from the gathered logits with one generator.  The
+resilience boundary recovers failures that every rank sees alike (the
+fault plan's); a rank that fails alone leaves the others waiting in a
+collective.  MoE blocks (ROADMAP queue 1 item 6b) and the
+cross-attention families (item 6c) raise on a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import itertools
@@ -59,18 +75,31 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import api as dist_api
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import Placements, distribute_tree, serve_param_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_prefill_chunk, tree_to
 from repro_torch.serve import slots as slots_mod
 from repro_torch.serve import speculative as spec_mod
 from repro_torch.serve.engine import decode_scan, prefill, sample_tokens
 from repro_torch.serve.state_repr import make_state_store
+from repro_torch.tree import tree_map
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to torch (ROADMAP queue 1 item {item})"
-    )
+class _MeshClock:
+    """A clock that reads rank 0's time on every rank of a mesh (one
+    all-gather a reading), so that deadlines, TTLs and backoffs decide
+    alike everywhere."""
+
+    def __init__(self, clock: Callable[[], float], mesh, device):
+        self.clock, self.mesh, self.device = clock, mesh, device
+        self.axes = tuple(mesh.mesh_dim_names)
+
+    def __call__(self) -> float:
+        t = torch.tensor([self.clock()], dtype=torch.float64, device=self.device)
+        return float(col.gather_values(t, 0, self.mesh, self.axes)[0])
 
 
 class Status(enum.Enum):
@@ -393,8 +422,12 @@ class ServeEngine:
             boundaries.
           clock: monotonic-seconds source for deadlines and TTLs (default
             ``time.monotonic``; the load harness passes a virtual clock).
-          mesh, rules: the JAX package's mesh sharding; not yet ported
-            (anything but None raises).
+            On a mesh rank 0's reading holds on every rank.
+          mesh: a ``make_serve_mesh`` mesh over the process group: the engine
+            runs sharded (see the module docstring); every rank passes the
+            same whole ``params``.  None = one device.
+          rules: logical-to-physical axis rules on ``mesh`` (default
+            ``rules_for_mesh(mesh)``); read only with a mesh.
           state_dtype: slot-state storage: "dense", or the Taylor moments
             quantised "int8"/"fp8" (backends listing it in
             ``state_dtypes``).  Compute always runs dense in float32; only
@@ -406,8 +439,6 @@ class ServeEngine:
           kv_pages: the page pool's size (default ``max_slots × ⌈n_max /
             kv_page_size⌉``, which never runs out).
         """
-        if mesh is not None or rules is not None:
-            raise _not_ported("ServeEngine(mesh=, rules=)", 6)
         if max_slots < 1 or decode_block < 1:
             raise ValueError("max_slots and decode_block must be >= 1")
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -435,13 +466,25 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         self.fault_plan = fault_plan
         self._clock = clock if clock is not None else time.monotonic
+        self.mesh = mesh
+        self.rules = None
         self.params = tree_to(params, self.device)
+        self._param_specs = None
+        if mesh is not None:
+            spmd.check_supported(cfg)
+            self.rules = rules if rules is not None else dist_api.rules_for_mesh(mesh)
+            self._param_specs = serve_param_specs(self.params, cfg, mesh, self.rules)
+            blocks = distribute_tree(self.params, Placements(mesh, self._param_specs))
+            # a block cut along dim 0 is a view: copy it, so the whole leaf can go
+            self.params = tree_map(lambda x, spec: x.clone() if any(spec) else x, blocks,
+                                   self._param_specs)
+            self._clock = _MeshClock(self._clock, mesh, self.device)
         # The store owns the slot cache's storage representation (dense,
         # quantised moments or paged KV) and validates it against the
         # backends' capability flags.
         self.state_store = make_state_store(
             cfg, max_slots, n_max, self.device, state_dtype=state_dtype,
-            kv_page_size=kv_page_size, kv_pages=kv_pages)
+            kv_page_size=kv_page_size, kv_pages=kv_pages, mesh=mesh, rules=self.rules)
         self.caches = self.state_store.init_caches()
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -467,6 +510,15 @@ class ServeEngine:
         """Wait for the device, so that a host-clock interval covers its work."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _on_mesh(self, slotted: bool):
+        """The context of a dispatch: on a mesh the model's forward runs on
+        this rank's blocks, of the slotted batch (``slotted``, its slots
+        over "data") or of a request's batch (whole on every "data" rank)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        lay = spmd.serve_layout(self.mesh, self.rules, self.max_slots, slotted)
+        return spmd.region(lay, self.params, self._param_specs)
 
     # -- submission ---------------------------------------------------------
 
@@ -762,8 +814,9 @@ class ServeEngine:
         take = min(self._chunk_for(tr), n - p.consumed)
         chunk = torch.as_tensor(toks[None, p.consumed:p.consumed + take], device=self.device)
         t0 = time.perf_counter()
-        p.logits, p.caches = lm_prefill_chunk(self.params, chunk, p.caches, p.consumed,
-                                              self.cfg)
+        with self._on_mesh(slotted=False):
+            p.logits, p.caches = lm_prefill_chunk(self.params, chunk, p.caches, p.consumed,
+                                                  self.cfg)
         self._sync()
         self._stats["prefill_seconds"] += time.perf_counter() - t0
         self._stats["dispatches"] += 1
@@ -890,7 +943,8 @@ class ServeEngine:
                 st.remaining, st.out = 0, []
                 self._partial = _PartialPrefill(
                     rid=rid, slot=slot,
-                    caches=slots_mod.init_slot_caches(self.cfg, 1, self.n_max, self.device),
+                    caches=slots_mod.init_slot_caches(self.cfg, 1, self.n_max, self.device,
+                                                      self.mesh, self.rules),
                     last_chunk_block=self._block,
                 )
                 self._advance_partial()  # first chunk this step
@@ -920,7 +974,8 @@ class ServeEngine:
                     np.concatenate([np.asarray(t.req.extras[k]) for t in trs]),
                     device=self.device)
             t0 = time.perf_counter()
-            logits, pref_caches = prefill(self.params, batch, self.cfg, self.n_max)
+            with self._on_mesh(slotted=False):
+                logits, pref_caches = prefill(self.params, batch, self.cfg, self.n_max)
             firsts = self._first_tokens(logits, trs)
             self._stats["prefill_seconds"] += time.perf_counter() - t0
             self._stats["dispatches"] += 1
@@ -1106,20 +1161,23 @@ class ServeEngine:
                 self.caches = self.state_store.ensure_tokens(
                     self.caches, int(i), int(self._pos[i]) + int(steps))
         dev = lambda x: torch.as_tensor(x, device=self.device)  # noqa: E731
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), sum(col.calls.values())
         try:
-            self.caches, token, pos, dev_active, toks, mask = self._dispatch(
-                lambda: decode_scan(
-                    self.params, self.caches, dev(self._token), dev(self._pos), dev(active),
-                    dev(self._temp), dev(self._topk), dev(self._eos), self._gen, self.cfg,
-                    steps, sampling=sampling, max_top_k=max_top_k,
-                    codec=self.state_store.codec,
-                ))
+            with self._on_mesh(slotted=True):
+                self.caches, token, pos, dev_active, toks, mask = self._dispatch(
+                    lambda: decode_scan(
+                        self.params, self.caches, dev(self._token), dev(self._pos),
+                        dev(active), dev(self._temp), dev(self._topk), dev(self._eos),
+                        self._gen, self.cfg, steps, sampling=sampling, max_top_k=max_top_k,
+                        codec=self.state_store.codec,
+                    ))
             toks, mask = toks.cpu().numpy(), mask.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — the resilience boundary
             self._rebuild_after_loss(f"decode dispatch failed: {e!r}")
             return self._has_work()
         self._stats["decode_seconds"] += time.perf_counter() - t0
+        if self.mesh is not None:
+            self._stats["decode_collectives"] += sum(col.calls.values()) - c0
         self._stats["dispatches"] += 1
         self._stats["decode_dispatches"] += 1
         self._token = token.cpu().numpy().astype(np.int64)
@@ -1195,7 +1253,8 @@ class ServeEngine:
         port's own: host-clock ``prefill_seconds`` / ``decode_seconds`` /
         ``verify_seconds`` (verify and rollback) / ``draft_seconds`` (each
         ends when the work's results reach the host, so it covers the
-        device work).  Gauges: ``blocks``, ``queue_depth``,
+        device work) and, on a mesh, ``decode_collectives`` (the c10d calls
+        of the decode blocks, retries included).  Gauges: ``blocks``, ``queue_depth``,
         ``slots_occupied``.
         """
         out = dict(self._stats)

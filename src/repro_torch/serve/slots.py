@@ -20,7 +20,16 @@ encdec families with them.
 
 ``write_slot`` and ``clear_slot`` update the cache IN PLACE (the JAX
 package donates the buffer for the same effect) and return it;
-``read_slot`` and ``corrupt_slot`` return copies.  ``slot_health`` is the
+``read_slot`` and ``corrupt_slot`` return copies.
+
+On a mesh (``init_slot_caches(mesh=, rules=)``) each rank holds only its
+block of every leaf, as ``distributed.sharding.slot_cache_specs`` names
+it, and the ops take the cache's ``Placements``: a leaf whose slot axis
+splits over "data" is written, cleared or poisoned only by the rank that
+owns the slot (the others leave their block as it is), one that holds
+every slot (a quantised leaf's replicated scale) by every rank, and
+``read_slot`` hands the owner's row to every rank (one all-gather over
+"data", which every rank calls).  ``slot_health`` is the
 per-slot finiteness sweep the engine's resilience boundary runs.  The
 splice, zero, read, poison and select ops also walk a quantised stored
 tree (``QuantizedLeaf`` payloads and scales keep the slot axis); the
@@ -36,6 +45,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.backends import get_backend, resolve_backend, state_backend, tree_slot_health
+from repro_torch.distributed import collectives as col
 from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.lm import lm_init_caches
 from repro_torch.tree import tree_leaves, tree_map
@@ -112,38 +122,85 @@ def slot_bytes(caches, max_slots: int) -> int:
     return total // max_slots
 
 
-def init_slot_caches(cfg: ModelConfig, max_slots: int, n_max: int, device=None):
-    """Zero slotted decode cache with ``max_slots`` batch rows.
+def init_slot_caches(cfg: ModelConfig, max_slots: int, n_max: int, device=None, mesh=None,
+                     rules=None):
+    """Zero slotted decode cache with ``max_slots`` batch rows; on a mesh this
+    rank's block of it (``slot_cache_specs`` under ``rules``).
 
     Validates the backend first, so an unservable config fails at engine
     construction."""
     resolve_backend(cfg)
-    return lm_init_caches(cfg, max_slots, n_max, device)
+    if mesh is None:
+        return lm_init_caches(cfg, max_slots, n_max, device)
+    from repro_torch.distributed.sharding import slot_cache_specs  # noqa: PLC0415 (cycle)
+
+    return _local_zeros(lm_init_caches(cfg, max_slots, n_max, "meta"),
+                       slot_cache_specs(cfg, max_slots, n_max, mesh, rules), mesh, device)
 
 
-def write_slot(caches, request_caches, slot: int):
-    """Splice a batch-1 request cache into slot ``slot`` (in place)."""
+def _local_zeros(shapes, specs, mesh, device):
+    """Zeros of each leaf's block (``shapes``: whole leaves, e.g. on the meta
+    device; ``specs`` congruent)."""
+    from repro_torch.distributed.sharding import block_shape  # noqa: PLC0415 (cycle)
 
-    def put(full: Tensor, one: Tensor, axis: int) -> Tensor:
-        full.narrow(axis, slot, 1).copy_(one)
+    return tree_map(lambda x, s: torch.zeros(block_shape(x.shape, s, mesh), dtype=x.dtype,
+                                             device=device), shapes, specs)
+
+
+def _owned(full: Tensor, spec, axis: int, slot: int, placements):
+    """This rank's index of ``slot`` in a leaf's block, or None where
+    another rank of the slot axis holds it."""
+    entry = spec[axis] if placements is not None and len(spec) > axis else None
+    if not entry:
+        return slot
+    lo = col.axis_rank(placements.mesh, entry) * full.shape[axis]
+    return slot - lo if lo <= slot < lo + full.shape[axis] else None
+
+
+def _specs(caches, placements):
+    return caches if placements is None else placements.specs
+
+
+def write_slot(caches, request_caches, slot: int, placements=None):
+    """Splice a batch-1 request cache into slot ``slot`` (in place).  With
+    ``placements`` (a sharded cache's), the request cache is this rank's
+    block of it apart from the slot axis."""
+
+    def put(full: Tensor, one: Tensor, spec, axis: int) -> Tensor:
+        i = _owned(full, spec, axis, slot, placements)
+        if i is not None:
+            full.narrow(axis, i, 1).copy_(one)
         return full
 
-    return _map(put, caches, request_caches)
+    return _map(put, caches, request_caches, _specs(caches, placements))
 
 
-def clear_slot(caches, slot: int):
+def clear_slot(caches, slot: int, placements=None):
     """Zero one slot's state (in place)."""
 
-    def zero(full: Tensor, axis: int) -> Tensor:
-        full.narrow(axis, slot, 1).zero_()
+    def zero(full: Tensor, spec, axis: int) -> Tensor:
+        i = _owned(full, spec, axis, slot, placements)
+        if i is not None:
+            full.narrow(axis, i, 1).zero_()
         return full
 
-    return _map(zero, caches)
+    return _map(zero, caches, _specs(caches, placements))
 
 
-def read_slot(caches, slot: int):
-    """One slot as a batch-1 cache (a copy)."""
-    return _map(lambda full, axis: full.narrow(axis, slot, 1).clone(), caches)
+def read_slot(caches, slot: int, placements=None):
+    """One slot as a batch-1 cache (a copy).  With ``placements`` every rank
+    gets the owner's row: each rank offers its row at the slot's local
+    index, and the owner's is kept from their all-gather."""
+
+    def take(full: Tensor, spec, axis: int) -> Tensor:
+        entry = spec[axis] if placements is not None and len(spec) > axis else None
+        if not entry:
+            return full.narrow(axis, slot, 1).clone()
+        n = full.shape[axis]
+        rows = col.gather_values(full.narrow(axis, slot % n, 1), axis, placements.mesh, entry)
+        return rows.narrow(axis, slot // n, 1).clone()
+
+    return _map(take, caches, _specs(caches, placements))
 
 
 def slot_health(caches, cfg: ModelConfig) -> Tensor:
@@ -192,7 +249,7 @@ def slot_health(caches, cfg: ModelConfig) -> Tensor:
     return ok
 
 
-def corrupt_slot(caches, slot: int, fill: float):
+def corrupt_slot(caches, slot: int, fill: float, placements=None):
     """Copy of the cache with slot ``slot``'s floating leaves set to ``fill``.
 
     The fault-injection primitive behind ``serve.faults.SlotCorruption``
@@ -201,17 +258,20 @@ def corrupt_slot(caches, slot: int, fill: float):
     stay bit-identical.  Out of place: ``caches`` is not modified.
     """
 
-    def poison(full: Tensor, axis: int) -> Tensor:
+    def poison(full: Tensor, spec, axis: int) -> Tensor:
         out = full.clone()
+        i = _owned(full, spec, axis, slot, placements)
+        if i is None:
+            return out
         if out.dtype in _FP8:
             # float8_e4m3fn has no inf: a non-finite fill is stored as NaN,
             # the JAX package's cast of inf to it
-            out.narrow(axis, slot, 1).fill_(fill if math.isfinite(fill) else math.nan)
+            out.narrow(axis, i, 1).fill_(fill if math.isfinite(fill) else math.nan)
         elif out.is_floating_point():
-            out.narrow(axis, slot, 1).fill_(fill)
+            out.narrow(axis, i, 1).fill_(fill)
         return out
 
-    return _map(poison, caches)
+    return _map(poison, caches, _specs(caches, placements))
 
 
 def select_slots(mask: Tensor, new, old):

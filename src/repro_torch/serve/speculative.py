@@ -39,7 +39,11 @@ Two proposers ship (a registry, extensible with ``register_proposer``):
 
 The JAX package compiles the verify and the draft round with ``jax.jit``;
 here they are plain functions with the same maths and the same
-``select_slots`` mask.  Policy surface: ``SchedulerPolicy.speculative_k``
+``select_slots`` mask.  On an engine's mesh both run in its slotted
+``spmd.region`` (each rank's slots; the argmaxes gathered whole), the
+order-1 draft's slot cache lies on the mesh as the engine's does, and a
+rollback or a draft's priming runs on every "data" rank, whose slot
+owner keeps the state.  Policy surface: ``SchedulerPolicy.speculative_k``
 / ``speculative_draft`` engine-wide, ``Request.speculative_k`` /
 ``Request.draft`` per request (greedy requests only: sampled slots decode
 plainly, as in the JAX package).
@@ -54,6 +58,8 @@ import numpy as np
 import torch
 
 from repro_torch.backends import resolve_backend
+from repro_torch.distributed import spmd
+from repro_torch.distributed.sharding import Placements, slot_cache_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_decode_step, lm_prefill, lm_prefill_chunk, lm_verify_chunk
 from repro_torch.serve import slots as slots_mod
@@ -95,8 +101,9 @@ def verify(params, caches, window: Tensor, pos0: Tensor, mask: Tensor, cfg: Mode
     Returns:
       ``(new caches, greedy [s, width] int64)``.
     """
-    logits, new = lm_verify_chunk(params, window, caches, pos0, cfg)
-    return slots_mod.select_slots(mask, new, caches), logits.argmax(dim=-1)
+    logits, new = lm_verify_chunk(params, spmd.rows(window), caches, spmd.rows(pos0), cfg)
+    return (slots_mod.select_slots(spmd.rows(mask), new, caches),
+            spmd.all_rows(logits.argmax(dim=-1)))
 
 
 @torch.no_grad()
@@ -122,6 +129,7 @@ def draft_propose(params, caches, window: Tensor, pos0: Tensor, mask: Tensor,
     Returns:
       ``(new draft caches, drafts [s, k] int64)``.
     """
+    window, pos0, mask = spmd.rows(window), spmd.rows(pos0), spmd.rows(mask)
     logits, absorbed = lm_prefill_chunk(params, window, caches, pos0, cfg)
     d = logits.argmax(dim=-1)
     drafts = [d]
@@ -132,7 +140,7 @@ def draft_propose(params, caches, window: Tensor, pos0: Tensor, mask: Tensor,
         d = lg.argmax(dim=-1)
         drafts.append(d)
         posv = posv + 1
-    return slots_mod.select_slots(mask, absorbed, caches), torch.stack(drafts, dim=1)
+    return slots_mod.select_slots(mask, absorbed, caches), spmd.all_rows(torch.stack(drafts, dim=1))
 
 
 # -- proposer protocol + registry -------------------------------------------
@@ -281,7 +289,10 @@ class Order1SelfDraft(DraftProposer):
         if dcfg is None:
             raise ValueError(f"backend {eng.cfg.backend_desc!r} has no self-draft config")
         self.cfg = dcfg
-        self._caches = slots_mod.init_slot_caches(dcfg, eng.max_slots, eng.n_max, eng.device)
+        self._caches = slots_mod.init_slot_caches(dcfg, eng.max_slots, eng.n_max, eng.device,
+                                                  eng.mesh, eng.rules)
+        self._placements = None if eng.mesh is None else Placements(
+            eng.mesh, slot_cache_specs(dcfg, eng.max_slots, eng.n_max, eng.mesh, eng.rules))
         # Positions the draft state has absorbed, per slot; -1 = unprimed.
         self._pos = np.full((eng.max_slots,), -1, np.int64)
 
@@ -293,8 +304,9 @@ class Order1SelfDraft(DraftProposer):
         toks = torch.as_tensor(np.asarray(self.spec.ctx(slot)[:p], np.int64)[None],
                                device=eng.device)
         t0 = time.perf_counter()
-        _lg, c = lm_prefill(eng.params, {"tokens": toks}, self.cfg, eng.n_max)
-        self._caches = slots_mod.write_slot(self._caches, c, slot)
+        with eng._on_mesh(slotted=False):
+            _lg, c = lm_prefill(eng.params, {"tokens": toks}, self.cfg, eng.n_max)
+        self._caches = slots_mod.write_slot(self._caches, c, slot, self._placements)
         eng._sync()
         eng._stats["draft_seconds"] += time.perf_counter() - t0
         eng._stats["dispatches"] += 1
@@ -342,8 +354,9 @@ class Order1SelfDraft(DraftProposer):
                 mask[i] = True
             dev = lambda x: torch.as_tensor(x, device=eng.device)  # noqa: E731
             t0 = time.perf_counter()
-            self._caches, drafts = draft_propose(eng.params, self._caches, dev(window),
-                                                 dev(pos0), dev(mask), self.cfg, k)
+            with eng._on_mesh(slotted=True):
+                self._caches, drafts = draft_propose(eng.params, self._caches, dev(window),
+                                                     dev(pos0), dev(mask), self.cfg, k)
             drafts = drafts.cpu().numpy()
             eng._stats["draft_seconds"] += time.perf_counter() - t0
             eng._stats["dispatches"] += 1
@@ -510,8 +523,9 @@ class Speculator:
         fn = wrap_cache_fn(verify, store.codec)
         t0 = time.perf_counter()
         try:
-            eng.caches, greedy = eng._dispatch(lambda: fn(
-                eng.params, eng.caches, dev(window), dev(eng._pos), dev(mask), eng.cfg))
+            with eng._on_mesh(slotted=True):
+                eng.caches, greedy = eng._dispatch(lambda: fn(
+                    eng.params, eng.caches, dev(window), dev(eng._pos), dev(mask), eng.cfg))
             greedy = greedy.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — the resilience boundary
             eng._rebuild_after_loss(f"verify dispatch failed: {e!r}")
@@ -551,8 +565,9 @@ class Speculator:
                 eng._stats["spec_rollbacks"] += 1
                 prefix, snap = dev(window[i:i + 1, :m + 1]), snaps.pop(i)
                 try:
-                    _lg, c1 = eng._dispatch(lambda: lm_prefill_chunk(
-                        eng.params, prefix, snap, p, eng.cfg))
+                    with eng._on_mesh(slotted=False):
+                        _lg, c1 = eng._dispatch(lambda: lm_prefill_chunk(
+                            eng.params, prefix, snap, p, eng.cfg))
                     eng.caches = store.write_slot(eng.caches, c1, i)
                 except Exception as e:  # noqa: BLE001
                     eng._rebuild_after_loss(f"rollback dispatch failed: {e!r}")

@@ -31,13 +31,24 @@ snapshot or an in-place retry of a failed dispatch still sees it.
 
 ``SlotStateStore`` (also reachable as ``serve.slots.SlotStateStore``)
 bundles a codec with the slot ops and the page allocator, and is what the
-scheduler talks to.  The JAX package's mesh shardings of stored trees are
-not ported (the engine's ``mesh=`` raises).
+scheduler talks to.
+
+On a mesh (``make_state_store(mesh=, rules=)``) every rank holds its block
+of the stored tree, as ``distributed.sharding.slot_cache_specs(...,
+state=codec)`` names it (each codec's ``logical_specs``): a quantised
+payload lies as the dense leaf, its scale is whole on every rank and is
+the single-device scale (the per-head amax is a max over every rank that
+splits the head's leaf, its slots and heads gathered), so the stored
+bytes equal the single-device engine's; a page pool splits its page axis
+over "data" where it divides and is gathered around each decode and
+encode, the page table and lengths are whole on every rank; the health
+sweep ANDs each slot over "model" and gathers it over "data".
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -51,13 +62,19 @@ from repro_torch.backends.state import (
     QuantizedLeaf,
     dequantize_leaf,
     gather_pages,
+    leaf_amax,
+    quant_payload,
+    quant_scale,
     quantize_leaf,
     scatter_pages,
 )
 from repro_torch.core import TaylorState
 from repro_torch.device import resolve_device
+from repro_torch.distributed import api as dist_api
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.api import P
+from repro_torch.distributed.sharding import Placements, block_of, slot_cache_specs
 from repro_torch.models.config import ModelConfig, schedule_runs
-from repro_torch.models.lm import lm_init_caches
 from repro_torch.serve import slots as slots_mod
 from repro_torch.tree import tree_leaves
 
@@ -148,6 +165,9 @@ class StateCodec:
     max_slots: int
     n_max: int
     device: torch.device
+    # a mesh and its rules: every tree is then this rank's blocks
+    mesh: Any = dataclasses.field(default=None, compare=False)
+    rules: Any = dataclasses.field(default=None, compare=False)
 
     name = "base"
 
@@ -165,33 +185,80 @@ class StateCodec:
         raise NotImplementedError
 
     def _dense_zeros(self):
-        return lm_init_caches(self.cfg, self.max_slots, self.n_max, self.device)
+        return slots_mod.init_slot_caches(self.cfg, self.max_slots, self.n_max, self.device,
+                                          self.mesh, self.rules)
+
+    # -- placements on a mesh (None off one) ---------------------------------
+
+    @functools.cached_property
+    def _slotted(self) -> Placements:
+        return Placements(self.mesh, slot_cache_specs(self.cfg, self.max_slots, self.n_max,
+                                                      self.mesh, self.rules))
+
+    @functools.cached_property
+    def _request(self) -> Placements:
+        return Placements(self.mesh, slot_cache_specs(self.cfg, 1, self.n_max, self.mesh,
+                                                      self.rules))
+
+    @functools.cached_property
+    def _stored(self) -> Placements:
+        return Placements(self.mesh, slot_cache_specs(self.cfg, self.max_slots, self.n_max,
+                                                      self.mesh, self.rules, state=self))
+
+    def dense_placements(self, batch: Optional[int] = None) -> Optional[Placements]:
+        """Where the dense tree of the slots (or of a batch-1 request,
+        ``batch=1``) lies; None off a mesh."""
+        if self.mesh is None:
+            return None
+        return self._request if batch == 1 else self._slotted
+
+    def stored_placements(self) -> Optional[Placements]:
+        """Where the stored tree lies (the dense one's for the dense codec)."""
+        if self.mesh is None or self.name == "dense":
+            return self.dense_placements()
+        return self._stored
+
+    def _axis(self, logical: str, size: int):
+        """The physical axis of ``logical`` for a dim of ``size`` (None off a
+        mesh or where it does not divide)."""
+        if self.mesh is None:
+            return None
+        return dist_api.resolve_axes((logical,), (size,), self.mesh, self.rules)[0]
 
     # -- stored-tree slot ops ------------------------------------------------
 
     def write_impl(self, stored, dense_b1, slot: int):
         """Splice a batch-1 DENSE request cache into slot ``slot`` of the
         stored tree (generic: decode → splice → encode)."""
-        return self.encode(slots_mod.write_slot(self.decode(stored), dense_b1, slot), stored)
+        dense = slots_mod.write_slot(self.decode(stored), dense_b1, slot, self.dense_placements())
+        return self.encode(dense, stored)
 
     def clear_impl(self, stored, slot: int):
         """Zero one slot inside the stored tree (runs BEFORE any host page
         release, so freed pages are zeroed on the device)."""
-        return self.encode(slots_mod.clear_slot(self.decode(stored), slot), stored)
+        dense = slots_mod.clear_slot(self.decode(stored), slot, self.dense_placements())
+        return self.encode(dense, stored)
 
     def read_impl(self, stored, slot: int):
         """One slot as a batch-1 DENSE cache (the snapshot the scheduler
         saves on preemption and before a speculative verify)."""
-        return slots_mod.read_slot(self.decode(stored), slot)
+        return slots_mod.read_slot(self.decode(stored), slot, self.dense_placements())
 
     def corrupt_impl(self, stored, slot: int, fill: float):
         """Poison one slot's floating leaves with ``fill`` (fault injection;
         must stay visible to ``health_impl``)."""
-        return self.encode(slots_mod.corrupt_slot(self.decode(stored), slot, fill), stored)
+        dense = slots_mod.corrupt_slot(self.decode(stored), slot, fill, self.dense_placements())
+        return self.encode(dense, stored)
 
     def health_impl(self, stored) -> Tensor:
-        """Per-slot backend ``state_health`` of the decoded tree."""
+        """Per-slot backend ``state_health`` of the decoded tree (this rank's
+        slots on a mesh)."""
         return slots_mod.slot_health(self.decode(stored), self.cfg)
+
+    def logical_specs(self, logical):
+        """The dense logical spec tree (``slot_cache_specs``) mapped to the
+        stored tree's: the identity here."""
+        return logical
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,16 +278,16 @@ class DenseCodec(StateCodec):
         return self._dense_zeros()
 
     def write_impl(self, stored, dense_b1, slot: int):
-        return slots_mod.write_slot(stored, dense_b1, slot)
+        return slots_mod.write_slot(stored, dense_b1, slot, self.dense_placements())
 
     def clear_impl(self, stored, slot: int):
-        return slots_mod.clear_slot(stored, slot)
+        return slots_mod.clear_slot(stored, slot, self.dense_placements())
 
     def read_impl(self, stored, slot: int):
-        return slots_mod.read_slot(stored, slot)
+        return slots_mod.read_slot(stored, slot, self.dense_placements())
 
     def corrupt_impl(self, stored, slot: int, fill: float):
-        return slots_mod.corrupt_slot(stored, slot, fill)
+        return slots_mod.corrupt_slot(stored, slot, fill, self.dense_placements())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,37 +307,70 @@ class QuantizedCodec(StateCodec):
         """Representation name (the ``state_dtype`` value)."""
         return self.qdtype
 
-    def _q_node(self, node):
+    def _quantize(self, x: Tensor, spec, n_lead: int) -> QuantizedLeaf:
+        """One leaf (this rank's block with dense ``spec`` on a mesh): the
+        per-head amax is maxed over the ranks that split the head's leaf,
+        then gathered over those that split its slots and heads, so every
+        rank holds the whole scale, the single-device one."""
+        if self.mesh is None:
+            return quantize_leaf(x, n_lead, self.qdtype)
+        amax = leaf_amax(x, n_lead)
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                amax = col.gather_values(amax, dim, self.mesh, entry)
+                if dim >= n_lead:
+                    amax = amax.amax(dim=dim, keepdim=True)
+        scale = quant_scale(amax, self.qdtype)
+        return QuantizedLeaf(q=quant_payload(x, self._local_scale(scale, spec, n_lead),
+                                             self.qdtype), scale=scale)
+
+    def _local_scale(self, scale: Tensor, spec, n_lead: int) -> Tensor:
+        """This rank's rows of a whole scale: its slots and heads."""
+        if self.mesh is None:
+            return scale
+        return block_of(scale, P(*tuple(spec)[:n_lead]), self.mesh)
+
+    def _q_node(self, node, spec):
         if not isinstance(node, TaylorState):
             return node
         n_lead = node.n0.ndim  # through the kv-head axis
 
-        def q(x):
-            return None if x is None else quantize_leaf(x, n_lead, self.qdtype)
+        def q(x, s):
+            return None if x is None else self._quantize(x, s, n_lead)
 
-        return TaylorState(n0=node.n0, s0=q(node.s0), z1=q(node.z1),
-                           s1=q(node.s1), z2=q(node.z2), s2=q(node.s2))
+        return TaylorState(n0=node.n0, s0=q(node.s0, spec.s0), z1=q(node.z1, spec.z1),
+                           s1=q(node.s1, spec.s1), z2=q(node.z2, spec.z2),
+                           s2=q(node.s2, spec.s2))
 
-    def _dq_node(self, node):
+    def _dq_node(self, node, spec):
         if not (isinstance(node, TaylorState) and isinstance(node.s0, QuantizedLeaf)):
             return node
+        n_lead = node.n0.ndim
 
-        def d(leaf):
-            return None if leaf is None else dequantize_leaf(leaf)
+        def d(leaf, s):
+            if leaf is None:
+                return None
+            return dequantize_leaf(QuantizedLeaf(leaf.q, self._local_scale(leaf.scale, s, n_lead)))
 
-        return TaylorState(n0=node.n0, s0=d(node.s0), z1=d(node.z1),
-                           s1=d(node.s1), z2=d(node.z2), s2=d(node.s2))
+        return TaylorState(n0=node.n0, s0=d(node.s0, spec.s0), z1=d(node.z1, spec.z1),
+                           s1=d(node.s1, spec.s1), z2=d(node.z2, spec.z2),
+                           s2=d(node.s2, spec.s2))
 
-    def decode(self, stored):
+    def _node_specs(self, tree, batch: Optional[int]):
+        pl = self.dense_placements(batch)
+        return tree if pl is None else pl.specs  # off a mesh: unread
+
+    def decode(self, stored, batch: Optional[int] = None):
         """Dequantise every moment node back to dense float32 (``q *
-        scale`` per leaf); works on slotted and batch-1 trees alike."""
-        return _map_state_nodes(self.cfg, self._dq_node, stored)
+        scale`` per leaf); a slotted tree, or one of ``batch`` rows."""
+        return _map_state_nodes(self.cfg, self._dq_node, stored,
+                                self._node_specs(stored, batch))
 
-    def encode(self, dense, stored=None):
+    def encode(self, dense, stored=None, batch: Optional[int] = None):
         """Quantise every moment node (``stored`` is unused: the
         representation carries no metadata between calls)."""
         del stored
-        return _map_state_nodes(self.cfg, self._q_node, dense)
+        return _map_state_nodes(self.cfg, self._q_node, dense, self._node_specs(dense, batch))
 
     def init_stored(self):
         """Quantised zero cache (all-zero leaves get the minimum scale
@@ -282,19 +382,36 @@ class QuantizedCodec(StateCodec):
     # quantised leaves directly.
 
     def write_impl(self, stored, dense_b1, slot: int):
-        return slots_mod.write_slot(stored, self.encode(dense_b1), slot)
+        return slots_mod.write_slot(stored, self.encode(dense_b1, batch=1), slot,
+                                    self.stored_placements())
 
     def clear_impl(self, stored, slot: int):
-        return slots_mod.clear_slot(stored, slot)
+        return slots_mod.clear_slot(stored, slot, self.stored_placements())
 
     def read_impl(self, stored, slot: int):
-        return self.decode(slots_mod.read_slot(stored, slot))
+        return self.decode(slots_mod.read_slot(stored, slot, self.stored_placements()), batch=1)
 
     def corrupt_impl(self, stored, slot: int, fill: float):
         # Poisons scales and n0 (and the fp8 payload; int8 is integer and
         # skipped): q * NaN-scale decodes to NaN, so corruption survives the
         # representation and health_impl still flags the slot.
-        return slots_mod.corrupt_slot(stored, slot, fill)
+        return slots_mod.corrupt_slot(stored, slot, fill, self.stored_placements())
+
+    def logical_specs(self, logical):
+        """The stored tree's logical specs: each payload keeps its dense
+        leaf's spec, each scale replicates."""
+
+        def fn(node):
+            if not isinstance(node, TaylorState):
+                return node
+
+            def q(spec):
+                return None if spec is None else QuantizedLeaf(q=spec, scale=P())
+
+            return TaylorState(n0=node.n0, s0=q(node.s0), z1=q(node.z1), s1=q(node.s1),
+                               z2=q(node.z2), s2=q(node.s2))
+
+        return _map_state_nodes(self.cfg, fn, logical)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,22 +437,34 @@ class PagedKVCodec(StateCodec):
         """Table width: pages needed to back ``n_max`` tokens."""
         return -(-self.n_max // self.page_size)
 
+    def _whole(self, x: Tensor, dim: int, axis) -> Tensor:
+        return x if axis is None else col.gather_values(x, dim, self.mesh, axis)
+
+    def _block(self, x: Tensor, dim: int, axis) -> Tensor:
+        return x if axis is None else col.slice_values(x, dim, self.mesh, axis).contiguous()
+
     def decode(self, stored):
         """Gather every pool back to the dense ``[slots, n_max]`` layout
         (unallocated entries read as zeros); the ``"paged"`` key is dropped,
-        so the result is the tree the model functions expect."""
+        so the result is the tree the model functions expect.  On a mesh the
+        pool is gathered whole over its page axis, and this rank keeps its
+        slots."""
         meta = stored["paged"]
         rest = {k: v for k, v in stored.items() if k != "paged"}
+        pages, slots = self._axis("dp", self.total_pages), self._axis("dp", self.max_slots)
 
         def fn(node):
             if not isinstance(node, PagedKVCache):
                 return node
-            lead = node.k_pages.shape[:node.k_pages.ndim - 4]
-            return KVCache(
-                k=gather_pages(node.k_pages, meta.table, self.n_max),
-                v=gather_pages(node.v_pages, meta.table, self.n_max),
-                length=meta.length.expand(lead + (self.max_slots,)).clone(),
-            )
+            lead = node.k_pages.ndim - 4
+
+            def kv(pool):
+                dense = gather_pages(self._whole(pool, lead, pages), meta.table, self.n_max)
+                return self._block(dense, lead, slots)
+
+            length = meta.length.expand(node.k_pages.shape[:lead] + (self.max_slots,))
+            return KVCache(k=kv(node.k_pages), v=kv(node.v_pages),
+                           length=self._block(length, lead, slots).clone())
 
         return _map_state_nodes(self.cfg, fn, rest)
 
@@ -343,25 +472,45 @@ class PagedKVCodec(StateCodec):
         """Scatter every dense KV node into a copy of its pool along the
         CURRENT table; rows of unallocated entries are dropped.  The
         per-slot lengths come from the first KV node (every layer holds
-        the same)."""
+        the same).  On a mesh the dense slots and the pool are gathered
+        whole and this rank keeps its pages."""
         meta = stored["paged"]
         rest = {k: v for k, v in stored.items() if k != "paged"}
+        pages, slots = self._axis("dp", self.total_pages), self._axis("dp", self.max_slots)
         length: List[Optional[Tensor]] = [None]
 
         def fn(dnode, snode):
             if not isinstance(snode, PagedKVCache):
                 return dnode
+            lead = snode.k_pages.ndim - 4
             if length[0] is None:
                 n = dnode.length
-                length[0] = n.reshape(-1, n.shape[-1])[0].to(torch.int32)
-            return PagedKVCache(
-                k_pages=scatter_pages(dnode.k, snode.k_pages, meta.table),
-                v_pages=scatter_pages(dnode.v, snode.v_pages, meta.table),
-            )
+                length[0] = self._whole(n.reshape(-1, n.shape[-1])[0].to(torch.int32), 0, slots)
+
+            def kv(x, pool):
+                whole = scatter_pages(self._whole(x, lead, slots), self._whole(pool, lead, pages),
+                                      meta.table)
+                return self._block(whole, lead, pages)
+
+            return PagedKVCache(k_pages=kv(dnode.k, snode.k_pages),
+                                v_pages=kv(dnode.v, snode.v_pages))
 
         out = _map_state_nodes(self.cfg, fn, dense, rest)
         out["paged"] = PagedMeta(table=meta.table,
                                  length=meta.length if length[0] is None else length[0])
+        return out
+
+    def logical_specs(self, logical):
+        """Page pools reuse the dense K/V specs ("dp" lands on the page axis,
+        where it divides); the page table and lengths replicate."""
+
+        def fn(bk, node):
+            if not isinstance(node, KVCache) or not get_backend(bk).supports_paged_kv:
+                return node
+            return PagedKVCache(k_pages=node.k, v_pages=node.v)
+
+        out = _map_state_nodes(self.cfg, fn, logical, with_backend=True)
+        out["paged"] = PagedMeta(table=P(), length=P())
         return out
 
     def init_stored(self):
@@ -376,11 +525,13 @@ class PagedKVCodec(StateCodec):
                 return node
 
             def pool(x):
-                return x.new_zeros(x.shape[:-4] + (self.total_pages, x.shape[-3],
+                return x.new_zeros(x.shape[:-4] + (self.total_pages // split, x.shape[-3],
                                                    self.page_size, x.shape[-1]))
 
             return PagedKVCache(k_pages=pool(node.k), v_pages=pool(node.v))
 
+        pages = self._axis("dp", self.total_pages)
+        split = 1 if pages is None else dist_api.mesh_axis_size(self.mesh, pages)
         out = _map_state_nodes(self.cfg, fn, self._dense_zeros(), with_backend=True)
         out["paged"] = PagedMeta(
             table=torch.full((self.max_slots, self.pages_per_slot), -1, dtype=torch.int32,
@@ -411,7 +562,8 @@ class HybridCodec(PagedKVCodec):
 
     def _quant(self) -> QuantizedCodec:
         return QuantizedCodec(cfg=self.cfg, max_slots=self.max_slots, n_max=self.n_max,
-                              device=self.device, qdtype=self.qdtype)
+                              device=self.device, mesh=self.mesh, rules=self.rules,
+                              qdtype=self.qdtype)
 
     def decode(self, stored):
         """Gather KV pages AND dequantise moment nodes → dense tree."""
@@ -424,6 +576,11 @@ class HybridCodec(PagedKVCodec):
     def init_stored(self):
         """Zero pools, an all-free table and quantised zero moments."""
         return self._quant().encode(super().init_stored())
+
+    def logical_specs(self, logical):
+        """Both transforms: pools as the dense K/V, payloads as the dense
+        moments, scales and the page table replicated."""
+        return self._quant().logical_specs(super().logical_specs(logical))
 
 
 class PageAllocator:
@@ -511,19 +668,29 @@ class SlotStateStore:
     clears and health whatever the representation; ``codec`` is what the
     engine wraps its decode block and verify with.  As in ``serve/slots.py``,
     ``write_slot`` and ``clear_slot`` may update the stored tree in place
-    and return it.
+    and return it.  On a mesh (the codec's, or ``mesh=``/``rules=`` for the
+    default dense one) every tree it holds or hands out is this rank's
+    blocks: the stored tree as ``placements`` says, a batch-1 dense cache
+    (``write_slot``'s input, ``read_slot``'s output) whole over "data".
     """
 
     def __init__(self, cfg: ModelConfig, max_slots: int, n_max: int, device=None,
                  codec: Optional[StateCodec] = None,
-                 allocator: Optional[PageAllocator] = None):
+                 allocator: Optional[PageAllocator] = None, mesh=None, rules=None):
         self.cfg = cfg
         self.max_slots = max_slots
         self.n_max = n_max
         self.device = resolve_device(device)
         self.codec = codec if codec is not None else DenseCodec(
-            cfg=cfg, max_slots=max_slots, n_max=n_max, device=self.device)
+            cfg=cfg, max_slots=max_slots, n_max=n_max, device=self.device, mesh=mesh,
+            rules=rules)
+        self.mesh, self.rules = self.codec.mesh, self.codec.rules
         self.allocator = allocator
+
+    @property
+    def placements(self) -> Optional[Placements]:
+        """Where the stored tree's blocks lie (None off a mesh)."""
+        return self.codec.stored_placements()
 
     # -- representation queries ----------------------------------------------
 
@@ -582,8 +749,17 @@ class SlotStateStore:
 
     def health(self, caches) -> Tensor:
         """``[max_slots]`` bool: per-slot ``state_health`` of the decoded
-        cache."""
-        return self.codec.health_impl(caches)
+        cache.  On a mesh the same on every rank: a slot is healthy where
+        every "model" rank's block of it is (an AND over the axis), and the
+        "data" ranks' slots are gathered."""
+        ok = self.codec.health_impl(caches)
+        if self.mesh is None:
+            return ok
+        tp = self.rules.get("tp")
+        if tp is not None:
+            ok = col.gather_values(ok[None], 0, self.mesh, tp).all(dim=0)
+        slots = self.codec._axis("dp", self.max_slots)
+        return ok if slots is None else col.gather_values(ok, 0, self.mesh, slots)
 
     def ensure_tokens(self, caches, slot: int, n_tokens: int):
         """Guarantee slot ``slot`` has pages for ``n_tokens`` tokens (a no-op
@@ -621,8 +797,14 @@ class SlotStateStore:
             return node
 
         _map_state_nodes(self.cfg, fn, {k: v for k, v in caches.items() if k != "paged"})
-        per_page = pool_bytes // self.allocator.total_pages
-        return total - pool_bytes + self.allocator.used_pages * per_page
+        pages, used = self.allocator.total_pages, self.allocator.used_pages
+        axis = self.codec._axis("dp", pages)
+        if axis is not None:  # this rank's pages of the pool
+            pages //= dist_api.mesh_axis_size(self.mesh, axis)
+            lo = col.axis_rank(self.mesh, axis) * pages
+            table = self.allocator.table
+            used = int(((table >= lo) & (table < lo + pages)).sum())
+        return total - pool_bytes + used * (pool_bytes // pages)
 
     def slot_bytes(self, caches) -> int:
         """Live decode-state bytes per slot (``live_bytes / max_slots``;
@@ -632,7 +814,7 @@ class SlotStateStore:
 
 def make_state_store(cfg: ModelConfig, max_slots: int, n_max: int, device=None,
                      state_dtype: str = "dense", kv_page_size: Optional[int] = None,
-                     kv_pages: Optional[int] = None) -> SlotStateStore:
+                     kv_pages: Optional[int] = None, mesh=None, rules=None) -> SlotStateStore:
     """Build the slot-state store for an engine's representation choice.
 
     Validates the request against the backends' capability flags
@@ -653,6 +835,9 @@ def make_state_store(cfg: ModelConfig, max_slots: int, n_max: int, device=None,
       kv_pages: pool size in pages (default ``max_slots × ⌈n_max /
         page_size⌉``, which never runs out; smaller pools oversubscribe and
         may raise in ``ensure_tokens``).
+      mesh, rules: hold this rank's blocks of the stored tree
+        (``launch.mesh.make_serve_mesh``; ``rules`` default to
+        ``rules_for_mesh(mesh)``).
 
     Returns:
       A ``SlotStateStore``.
@@ -681,6 +866,8 @@ def make_state_store(cfg: ModelConfig, max_slots: int, n_max: int, device=None,
                 "backend"
             )
     device = resolve_device(device)
+    if mesh is not None and rules is None:
+        rules = dist_api.rules_for_mesh(mesh)
     codec: Optional[StateCodec] = None
     allocator: Optional[PageAllocator] = None
     if state_dtype != "dense" and not q_capable:
@@ -704,12 +891,13 @@ def make_state_store(cfg: ModelConfig, max_slots: int, n_max: int, device=None,
         if total < pages_per_slot:
             raise ValueError(
                 f"kv_pages={total} cannot back even one full slot ({pages_per_slot} pages)")
-        kw = dict(cfg=cfg, max_slots=max_slots, n_max=n_max, device=device,
-                  page_size=int(kv_page_size), total_pages=total)
+        kw = dict(cfg=cfg, max_slots=max_slots, n_max=n_max, device=device, mesh=mesh,
+                  rules=rules, page_size=int(kv_page_size), total_pages=total)
         codec = (HybridCodec(qdtype=state_dtype, **kw) if state_dtype != "dense"
                  else PagedKVCodec(**kw))
         allocator = PageAllocator(max_slots, pages_per_slot, total, int(kv_page_size), n_max)
     elif state_dtype != "dense":
         codec = QuantizedCodec(cfg=cfg, max_slots=max_slots, n_max=n_max, device=device,
-                               qdtype=state_dtype)
-    return SlotStateStore(cfg, max_slots, n_max, device, codec, allocator)
+                               mesh=mesh, rules=rules, qdtype=state_dtype)
+    return SlotStateStore(cfg, max_slots, n_max, device, codec, allocator, mesh=mesh,
+                          rules=rules)

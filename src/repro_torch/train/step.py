@@ -90,7 +90,7 @@ def check_mesh_ready(cfg: ModelConfig, optimizer: Optimizer) -> None:
     yet (MoE, the cross-attention families, Adafactor)."""
     spmd.check_supported(cfg)
     if optimizer.not_on_mesh:
-        raise NotImplementedError(f"{optimizer.not_on_mesh}: {spmd.NOT_PORTED}")
+        raise NotImplementedError(f"{optimizer.not_on_mesh}: {spmd.not_ported('6c')}")
 
 
 def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, rules,

@@ -32,6 +32,8 @@ from repro.configs import get_reduced as j_get_reduced
 from repro.models.lm import lm_init as j_lm_init
 from repro_torch.configs import get_reduced
 from repro_torch.core import TaylorConfig
+from repro_torch.distributed.api import rules_for_mesh
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import (
     DispatchFailure,
@@ -224,9 +226,12 @@ def test_submit_typed_rejections(served):
         eng.submit(Request(tokens=[], max_new_tokens=4))
 
 
+ONE_RANK = make_serve_mesh(1, 1, device="cpu")
+
+
 @pytest.mark.parametrize("where,kw", [
-    ("engine", dict(mesh=object())),
-    ("engine", dict(rules=object())),
+    ("engine", dict(mesh=ONE_RANK)),
+    ("engine", dict(mesh=ONE_RANK, rules=rules_for_mesh(ONE_RANK))),
     ("engine", dict(state_dtype="int8")),
     ("engine", dict(kv_page_size=16)),
     ("engine", dict(sched=SchedulerPolicy(speculative_k=2))),
@@ -236,20 +241,14 @@ def test_submit_typed_rejections(served):
 ], ids=["mesh", "rules", "state_dtype", "kv_page_size", "policy_speculative_k",
         "request_speculative_k", "draft", "extras"])
 def test_unported_features_raise(served, where, kw):
-    """Features of later slices raise, naming ROADMAP queue 1; none is
-    silently ignored.  The state representations, speculative decoding and
-    request extras are ported now (tests/test_torch_state_repr.py,
-    tests/test_torch_spec.py, tests/test_torch_cross.py): their knobs build
-    an engine that serves the request (a decoder-only model's prefill reads
-    no extras, as the JAX engine's does not)."""
+    """The knobs of the later slices are ported now, none silently ignored:
+    meshes (a one-rank mesh here; tests/test_torch_serve_mesh.py for
+    several ranks), the state representations, speculative decoding and
+    request extras (tests/test_torch_state_repr.py, tests/test_torch_spec.py,
+    tests/test_torch_cross.py) build an engine that serves the request (a
+    decoder-only model's prefill reads no extras, as the JAX engine's does
+    not)."""
     _, _, _, _, prompts, _ = served
-    if "mesh" in kw or "rules" in kw:
-        with pytest.raises(NotImplementedError, match="not yet ported.*ROADMAP queue 1"):
-            if where == "engine":
-                _engine(served, **kw)
-            else:
-                _engine(served).submit(Request(tokens=prompts[0], max_new_tokens=4, **kw))
-        return
     if where == "engine":
         if "kv_page_size" in kw:  # paging needs a KV backend
             jcfg, cfg, jp, tp, _, _ = served

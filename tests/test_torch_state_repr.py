@@ -42,6 +42,7 @@ from repro_torch.backends import available_backends
 from repro_torch.backends import state as tstate
 from repro_torch.configs import get_reduced
 from repro_torch.core import TaylorState
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import (
@@ -494,12 +495,13 @@ def test_make_state_store_raises_jax_errors(backend, kw):
 
 def test_engine_rejects_what_the_store_rejects():
     """The engine builds its store at construction, so an unsupported
-    representation is a config error there; meshes still raise."""
+    representation is a config error there, on a mesh too."""
     _, cfg, _, tp = _model("softmax")
     with pytest.raises(ValueError, match="state_dtype='int8' is not supported"):
         ServeEngine(tp, cfg, device="cpu", state_dtype="int8", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServeEngine(tp, cfg, device="cpu", mesh=object(), **ENGINE_KW)
+    with pytest.raises(ValueError, match="state_dtype='int8' is not supported"):
+        ServeEngine(tp, cfg, device="cpu", mesh=make_serve_mesh(1, 1, device="cpu"),
+                    state_dtype="int8", **ENGINE_KW)
 
 
 # ---------------------------------------------------------------------------

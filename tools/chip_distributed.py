@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Runs chip_smoke.py's phase 16 (distributed training) alone on the card.
+"""Runs chip_smoke.py's phases 16 (distributed training) and 17 (serving on
+a mesh) alone on the card.
 
 Builds the Taylor kernels from this checkout, then runs
 ``chip_smoke.phase_distributed``: the unsharded references in this
 process, then 2 ranks (``gloo`` sharing one card, or ``nccl`` one card a
-rank) for tp 1×2, dp × fsdp 2×1, Taylor and SSD context parallelism and
-the elastic restore, with every check of the full script.  Prints the
-card's name and power limit first and each kernel's launches per rank
-last; exits non-zero on a failed check or without a CUDA device.
+rank) for tp 1×2, dp × fsdp 2×1, Taylor and SSD context parallelism, the
+elastic restore, and the sharded serve engine's four parts, with every
+check of the full script.  Prints the card's name and power limit first
+and each kernel's launches per rank last; exits non-zero on a failed
+check or without a CUDA device.
 
     python3 tools/chip_distributed.py
 """
@@ -44,7 +46,9 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     out = chip_smoke.phase_distributed(torch, K)
-    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    print(f"phases 16 and 17 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
+          f"engines {out['serve_refs_s']:.1f} s of it)")
+    print(chip_smoke.serve_mesh_summary(out["serve"]))
     for name in ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"):
         print(name, chip_smoke.dist_launches(out, name))
     return 0
