@@ -30,11 +30,15 @@ share the one card over gloo, or one card a rank over nccl; qwen2-1.5b
 whole trained tensor-parallel on 1×2 and dp × fsdp on 2×1 through the
 kernels against an unsharded run, Taylor and SSD context parallelism on
 1×2 against unsharded forwards, the elastic restore of a sharded state),
-then serving on a mesh in the same ranks (phase 17: qwen2-1.5b whole on tp
-1×2 and dp 2×1, granite-20b's one kv head split by its d_v columns, int8
-moments with a NaN-poisoned slot, each against an unsharded engine), and
-prints one JSON line describing every ported kernel followed by the device
-line.
+then serving on a mesh in the same ranks (phase 17: qwen2-1.5b at a cut
+depth on tp 1×2 and dp 2×1, granite-20b's one kv head split by its d_v
+columns, int8 moments with a NaN-poisoned slot, each against an unsharded
+engine), then MoE on a mesh in the same ranks (phase 18: qwen2-moe-a2.7b
+trained with expert parallelism on 1×2 and dp × fsdp on 2×1, the int8
+all-to-all payload, kimi-k2-1t-a32b at published widths forwarding and
+serving with half its experts a rank, each against the unsharded run of
+the same function), and prints one JSON line describing every ported
+kernel followed by the device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -257,14 +261,17 @@ RESUME_FLOOR = 1e-5
 
 
 # Phase 16: distributed training on a mesh of 2 ranks (ranks share the one
-# card over gloo, or one card a rank over nccl): qwen2-1.5b whole in float32
-# through the kernels under tp (1×2) and dp × fsdp (2×1) against an unsharded
-# run of the same seed and batch, Taylor and SSD context parallelism (1×2),
-# and the elastic restore of a sharded state (qwen2-1.5b at a cut depth).
+# card over gloo, or one card a rank over nccl): qwen2-1.5b at published
+# widths in float32 through the kernels under tp (1×2) and dp × fsdp (2×1),
+# cut to ``ab_groups`` of its 28 layers, against an unsharded run of the
+# same seed, depth and batch, Taylor context parallelism (1×2, the forward
+# and training at that depth) and SSD's, and the elastic restore of a
+# sharded state (qwen2-1.5b at a cut depth).
 DIST = dict(
     world=2,
     device="cuda",
     arch="qwen2-1.5b",          # (a), (b), (c) at published widths
+    ab_groups=4,                # (a), (b) and (c): 4 of the 28 layers
     ssm_arch="mamba2-780m",     # (d)
     b=TRAIN["b"], n=TRAIN["n"], steps=2,
     cp_fwd=(1, 16384),          # (c)'s forward: (b, n)
@@ -276,14 +283,15 @@ DIST = dict(
 DIST_LOSS_TOL = 2e-3  # sharded vs unsharded losses (tests/test_distributed.py:127)
 CP_LOSS_TOL = 5e-3  # cp vs tp losses (tests/test_distributed.py:204)
 DIST_FWD_TOL = 1e-3  # f32 logits, rel (max|Δ|/max|ref|): phase 4's float32 tolerance
-# Phase 17: serving on a mesh, in phase 16's spawn of ranks: qwen2-1.5b whole
-# in float32 on tp 1×2 (a) and dp 2×1 (b), granite-20b at published width cut
-# to 2 of its 52 layers, as phase 12 cuts it, on tp 1×2 (c; its one kv head
-# cannot split: each rank holds the d_v columns of the value moments), and
-# (a) with int8 moments and a NaN poured into one slot (d); each against an
-# unsharded engine of the same weights run in the parent first.
+# Phase 17: serving on a mesh, in phase 16's spawn of ranks: qwen2-1.5b at
+# published widths cut to ``groups`` of its 28 layers in float32 on tp 1×2
+# (a) and dp 2×1 (b), granite-20b at published width cut to 2 of its 52
+# layers, as phase 12 cuts it, on tp 1×2 (c; its one kv head cannot split:
+# each rank holds the d_v columns of the value moments), and (a) with int8
+# moments and a NaN poured into one slot (d); each against an unsharded
+# engine of the same weights run in the parent first.
 SERVE_MESH = dict(
-    arch="qwen2-1.5b", mqa_arch="granite-20b", mqa_groups=2,
+    arch="qwen2-1.5b", groups=7, mqa_arch="granite-20b", mqa_groups=2,
     slots=4, n_max=N_MAX, decode_block=8, new=16,
     lens=(64, 128, 96, 112, 80, 400),  # the last `late` are submitted after the first step
     late=2, chunk=128,                 # prefill_chunk: only the 400-token prompt is chunked
@@ -298,6 +306,30 @@ SERVE_MESH_BYTES_TOL = 0.01  # (a): a rank's slot-cache bytes against half the u
 # eps (max|Δ| up to ~lr); a wrongly reduced gradient changes the update's
 # direction, ~1 on this scale.
 DIST_PARAM_TOL = 0.1
+# Phase 18: MoE on a mesh (ROADMAP queue 1 item 6b), in phase 16's spawn of
+# ranks; each part against the unsharded run whose MoE layers compute the
+# mesh's function on one device (``models/moe.py::_moe_ep_a2a_plain`` at the
+# mesh's dp × ep), run in the parent first.  (a) qwen2-moe-a2.7b at published
+# widths (60 experts top-4, capacity 1.25, ``impl="auto"``: ``ep_a2a`` on a
+# mesh), cut to phase 12's 2 of its 24 layers, f32, phase 16's AdamW and
+# batch, 2 steps on tp/ep 1×2 (30 experts and 8 heads a rank); (b) the same
+# on dp × fsdp 2×1 (an ep axis of one rank: the global capacity path, the
+# experts split over "data" and gathered per layer); (c) (a)'s layer-0 MoE
+# on its real input with the int8 all-to-all payload on 1×2; (d)
+# kimi-k2-1t-a32b at published widths, 1 of its 61 layers, bf16 params, 192
+# of its 384 experts a rank on 1×2: the forward at b = 1, n = 1024 and
+# serving 4 requests, both with float32 activations, held as phases 16 and
+# 17 hold them (in bf16 the sharded sums round otherwise and move routing
+# decisions, whose shifts decide which tokens overflow an expert: the bf16
+# forward's difference is reported, not gated).
+MOE_MESH = dict(
+    arch="qwen2-moe-a2.7b", groups=ZOO_DEPTH["qwen2-moe-a2.7b"],
+    kimi="kimi-k2-1t-a32b", kimi_groups=1, kimi_fwd=(1, 1024),
+    serve=dict(slots=4, n_max=512, decode_block=8, new=8, lens=(64, 128, 192, 256), late=0,
+               chunk=None),
+)
+MOE_INT8_TOL = 0.05  # (c): int8 payload vs exact, rel (tests/test_perf_features.py:94)
+MOE_GRAD_TOL = 1e-2  # (c): the mesh's gradients vs the plain version's (int8 both), rel
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -2906,12 +2938,14 @@ def phase_breadth(torch, K, qwen_adamw_peak_gib):
     return out
 
 
-def dist_cfg(torch, spec, key):
-    """The phase's config ``spec[key]`` in float32 (the reduced one in a
-    rehearsal)."""
+def dist_cfg(torch, spec, key, groups=None):
+    """The phase's config ``spec[key]`` in float32, cut to ``groups`` layer
+    groups (the reduced one, uncut, in a rehearsal)."""
     from repro_torch.configs import get_config, get_reduced
 
     cfg = (get_reduced if spec["reduced"] else get_config)(spec[key])
+    if groups and not spec["reduced"]:
+        cfg = cfg.replace(n_groups=groups)
     return cfg.replace(dtype="float32")
 
 
@@ -3075,10 +3109,11 @@ def dist_checksums(torch, tree, placements, dev):
     return sums
 
 
-def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None):
-    """One rank of phase 16 (a)-(e), then of phase 17 (``serve``) in the same
-    process group; returns its measurements (rank 0 prints each part's wall
-    time as it ends)."""
+def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None, moe=None,
+              moe_ref=None):
+    """One rank of phase 16 (a)-(e), then of phase 17 (``serve``) and phase
+    18 (``moe``) in the same process group; returns its measurements (rank 0
+    prints each part's wall time as it ends)."""
     import torch
 
     t_start = time.perf_counter()
@@ -3101,17 +3136,18 @@ def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None):
     out = dict(total_gib=(torch.cuda.get_device_properties(dev).total_memory / 2**30
                           if dev.type == "cuda" else 0.0))
     cfg = dist_cfg(torch, spec, "arch")
+    ab = dist_cfg(torch, spec, "arch", spec["ab_groups"])
     tp, dp = make_host_mesh(1, world, device=dev), make_host_mesh(world, 1, device=dev)
 
     # (a) tp 1×2
-    state, pl, out["a"] = dist_train(torch, K, spec, cfg, tp, dev)
-    out["a"]["param_err"] = dist_param_err(torch, state, pl, ref_dir, cfg, dev)
+    state, pl, out["a"] = dist_train(torch, K, spec, ab, tp, dev)
+    out["a"]["param_err"] = dist_param_err(torch, state, pl, ref_dir, ab, dev)
     del state
     done("(a)")
 
     # (b) dp × fsdp 2×1
-    state, pl2, out["b"] = dist_train(torch, K, spec, cfg, dp, dev)
-    out["b"]["param_err"] = dist_param_err(torch, state, pl2, ref_dir, cfg, dev)
+    state, pl2, out["b"] = dist_train(torch, K, spec, ab, dp, dev)
+    out["b"]["param_err"] = dist_param_err(torch, state, pl2, ref_dir, ab, dev)
     del state
     done("(b)")
 
@@ -3147,14 +3183,15 @@ def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None):
     out["e"].update(mismatches=bad, leaves=len(keys))
     done("(e)")
 
-    # (c) Taylor context parallelism: the forward, then training under cp
-    cp = cfg.replace(attn_sharding="cp")
+    # (c) Taylor context parallelism at (a)'s depth: the forward, then training
     b, n = spec["cp_fwd"]
     K.taylor_fwd.launches = 0
-    out["c_fwd"] = dist_forward(torch, spec, cp, tp, dist_tokens(torch, cfg.vocab, b, n), dev)
+    out["c_fwd"] = dist_forward(torch, spec, ab.replace(attn_sharding="cp"), tp,
+                                dist_tokens(torch, cfg.vocab, b, n), dev)
     out["c_fwd"]["launches"] = K.taylor_fwd.launches
     done("(c) forward")
-    state, _, out["c_train"] = dist_train(torch, K, spec, cp, tp, dev)
+    state, _, out["c_train"] = dist_train(torch, K, spec, ab.replace(attn_sharding="cp"), tp,
+                                          dev)
     del state
     done("(c) training")
 
@@ -3170,14 +3207,20 @@ def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         out["serve"] = serve_mesh_rank(torch, K, spec, serve, teach, dev, done)
+    if moe is not None:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["moe"] = moe_mesh_rank(torch, K, spec, moe, moe_ref, work, dev, done)
     return out
 
 
-def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH):
-    """Phases 16 and 17: the unsharded references in this process (freed
-    before the ranks start), then ``spec["world"]`` ranks run phase 16's
-    (a)-(e) and phase 17's (a)-(d) in one spawn.  Returns the summary
-    (phase 17's under "serve"); fails on any check."""
+def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH, moe=MOE_MESH):
+    """Phases 16, 17 and 18: the unsharded references in this process
+    (freed before the ranks start), then ``spec["world"]`` ranks run phase
+    16's (a)-(e), phase 17's (a)-(d) and phase 18's (a)-(d) in one spawn.
+    Returns the summary (phase 17's under "serve", phase 18's under "moe");
+    fails on any check."""
     import tempfile
 
     from repro_torch.checkpoint import save_checkpoint
@@ -3191,7 +3234,7 @@ def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH):
     world = spec["world"]
     backend = "nccl" if cards >= world else "gloo"
     print(f"[16] backend {backend} world_size {world} cards {cards}")
-    cfg = dist_cfg(torch, spec, "arch")
+    cfg = dist_cfg(torch, spec, "arch", spec["ab_groups"])
     steps = spec["steps"]
     expect = kernel_launches_per_step(torch, cfg)
     out = {}
@@ -3213,7 +3256,7 @@ def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH):
         fwd_ref = {}
         for part, key, (b, n) in (("c", "arch", spec["cp_fwd"]), ("d", "ssm_arch",
                                                                   spec["ssd_fwd"])):
-            c = dist_cfg(torch, spec, key)
+            c = dist_cfg(torch, spec, key, spec["ab_groups"] if part == "c" else None)
             params = lm_init(torch.Generator(device=dev).manual_seed(0), c, device=dev)
             tokens = dist_tokens(torch, c.vocab, b, n).to(dev)
             gc.collect()
@@ -3234,11 +3277,16 @@ def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH):
         out["serve_refs_s"] = time.perf_counter() - t0
         teach = {part: (r["tokens"][0], r["teacher_logits"]) for part, r in serve_refs.items()
                  if "teacher_logits" in r}
+        # phase 18's unsharded runs
+        t0 = time.perf_counter()
+        moe_refs = moe_mesh_refs(torch, K, spec, moe, work)
+        out["moe_refs_s"] = time.perf_counter() - t0
+        moe_ref = {"c": moe_refs["c"]["rank"], "d": moe_refs["d"]["rank"]}
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = run_ranks(dist_rank, world, backend=backend, init_file=f"{work}/store",
-                          args=(spec, f"{work}/ref", work, serve, teach))
+                          args=(spec, f"{work}/ref", work, serve, teach, moe, moe_ref))
         out["ranks_s"] = time.perf_counter() - t0
     total = ranks[0]["total_gib"]
     ref = out["ref"]
@@ -3267,7 +3315,7 @@ def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH):
         err = rel_err(torch, sample, fwd_ref[key]["sample"])
         peaks = [round(rk[part]["peak_gib"], 2) for rk in ranks]
         b, n = spec["cp_fwd"] if key == "c" else spec["ssd_fwd"]
-        name = cfg.name if key == "c" else spec["ssm_arch"]
+        name = f"{cfg.name} x{cfg.n_layers}" if key == "c" else spec["ssm_arch"]
         print(f"[16{key}] {name} cp 1x2 f32 forward b={b} n={n}: logits at every "
               f"{spec['stride']}th position vs unsharded attn_impl='torch': rel_err "
               f"{err:.3e} (tol {DIST_FWD_TOL}); ms per rank "
@@ -3304,6 +3352,7 @@ def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH):
     out.update({part: [rk[part] for rk in ranks] for part in ("a", "b", "c_train")})
     out["total_gib"] = total
     out["serve"] = serve_mesh_report(torch, spec, serve, serve_refs, [rk["serve"] for rk in ranks])
+    out["moe"] = moe_mesh_report(torch, K, spec, moe, moe_refs, [rk["moe"] for rk in ranks])
     return out
 
 
@@ -3323,6 +3372,13 @@ def dist_launches(dist, name):
     for part, path in SERVE_MESH_PATHS.items():  # phase 17: serving reaches no kernel
         for r, rk in enumerate(dist["serve"]["ranks"]):
             out[f"{path}_rank{r}"] = rk[part]["launches"][i]
+    for part, path in MOE_MESH_PATHS.items():  # phase 18
+        for r, rk in enumerate(dist["moe"]["ranks"]):
+            launches = rk[part]["launches"]
+            if part in ("a", "b"):
+                out[f"{path}_rank{r}_{len(launches)}_steps"] = sum(x[i] for x in launches)
+            else:
+                out[f"{path}_rank{r}"] = launches[i]
     return out
 
 
@@ -3335,14 +3391,15 @@ SERVE_MESH_PATHS = {"a": "qwen2-1.5b_serve_tp_1x2", "b": "qwen2-1.5b_serve_dp_2x
 
 
 def serve_mesh_cfg(torch, spec, sm, mqa=False):
-    """Phase 17's config in float32: qwen2-1.5b whole, or granite-20b cut to
-    ``sm["mqa_groups"]`` layers (the reduced ones in a rehearsal)."""
+    """Phase 17's config in float32: qwen2-1.5b cut to ``sm["groups"]``
+    layers, or granite-20b to ``sm["mqa_groups"]`` (the reduced ones in a
+    rehearsal)."""
     from repro_torch.configs import get_config, get_reduced
 
     arch = sm["mqa_arch"] if mqa else sm["arch"]
     cfg = (get_reduced if spec["reduced"] else get_config)(arch).replace(dtype="float32")
-    if mqa and not spec["reduced"]:
-        cfg = cfg.replace(n_groups=sm["mqa_groups"])
+    if not spec["reduced"]:
+        cfg = cfg.replace(n_groups=sm["mqa_groups"] if mqa else sm["groups"])
     return cfg
 
 
@@ -3353,11 +3410,12 @@ def serve_mesh_prompts(cfg, sm):
     return [torch.randint(0, cfg.vocab, (n,), generator=gen).numpy() for n in sm["lens"]]
 
 
-def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, **engine_kw):
+def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, engine=None,
+                    **engine_kw):
     """Phase 17's requests through one engine (``mesh=None``: unsharded):
     the first requests, one step, the late ones, ``run``.  The weights come
     from ``make_params`` and go to the engine alone (on a mesh it keeps
-    this rank's blocks).  ``teacher`` = (tokens of request 0 from the
+    this rank's blocks), or ``engine`` is one built already.  ``teacher`` = (tokens of request 0 from the
     unsharded engine, their unsharded logits), or "self" on the unsharded
     engine: the engine's forward runs ``lm_prefill`` on request 0's prompt
     and ``lm_decode_step`` on those tokens (its own, for "self", whose
@@ -3368,9 +3426,10 @@ def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, **e
     from repro_torch.models.lm import lm_decode_step, lm_prefill
     from repro_torch.serve import Request, ServeEngine
 
-    eng = ServeEngine(make_params(), cfg, max_slots=sm["slots"], n_max=sm["n_max"],
-                      decode_block=sm["decode_block"], prefill_chunk=sm["chunk"], mesh=mesh,
-                      device=dev, **engine_kw)
+    eng = engine if engine is not None else ServeEngine(
+        make_params(), cfg, max_slots=sm["slots"], n_max=sm["n_max"],
+        decode_block=sm["decode_block"], prefill_chunk=sm["chunk"], mesh=mesh, device=dev,
+        **engine_kw)
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3561,6 +3620,513 @@ def serve_mesh_report(torch, spec, sm, refs, ranks):
         summary[part] = dict(tokens_equal=equal, ref_stats=st_ref,
                              ref_slot_bytes=ref["slot_bytes"], ref_peak_gib=ref["peak_gib"])
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: MoE on a mesh
+# ---------------------------------------------------------------------------
+
+MOE_MESH_PATHS = {"a": "qwen2-moe-a2.7b_x2_train_tp_ep_1x2",
+                  "b": "qwen2-moe-a2.7b_x2_train_dp_fsdp_2x1",
+                  "c": "qwen2-moe-a2.7b_layer0_int8_a2a_1x2",
+                  "d_fwd": "kimi-k2-1t-a32b_x1_lm_apply_f32_and_bf16_1x2",
+                  "d_serve": "kimi-k2-1t-a32b_x1_serve_1x2"}
+
+
+def moe_mesh_cfg(torch, spec, mm, kimi=False):
+    """Phase 18's config, ``impl="auto"`` at the published capacity 1.25:
+    qwen2-moe-a2.7b in float32 cut to ``mm["groups"]`` layers, or kimi-k2
+    with bf16 params and activations cut to ``mm["kimi_groups"]`` (the
+    reduced ones, uncut, in a rehearsal; ``kimi_f32_cfg`` gives kimi's
+    float32 activations)."""
+    from repro_torch.configs import get_config, get_reduced
+
+    cfg = (get_reduced if spec["reduced"] else get_config)(mm["kimi"] if kimi else mm["arch"])
+    if not spec["reduced"]:
+        cfg = cfg.replace(n_groups=mm["kimi_groups"] if kimi else mm["groups"])
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, impl="auto", capacity_factor=1.25))
+    dtype = "bfloat16" if kimi else "float32"
+    return cfg.replace(dtype=dtype, param_dtype=dtype)
+
+
+def kimi_f32_cfg(kcfg):
+    """(d)'s checked config: bf16 params, float32 activations."""
+    return kcfg.replace(dtype="float32")
+
+
+@contextlib.contextmanager
+def plain_moe(dp_size, ep_size, capture=None):
+    """The unsharded references' MoE layers: ``moe_apply`` with its routed
+    experts through ``_moe_ep_a2a_plain`` at ``dp_size`` × ``ep_size`` (the
+    mesh run's function on one device); ``capture`` (a list) receives the
+    first layer's input of the first call."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp_apply
+
+    real = moe.moe_apply
+
+    def apply(params, x, cfg):
+        if capture is not None and not capture:
+            capture.append(x.detach().clone())
+        routed = {"router": params["router"], "experts": params["experts"]}
+        y, aux = moe._moe_ep_a2a_plain(routed, x, cfg, dp_size, ep_size)
+        if cfg.moe.n_shared_experts:
+            y = y + mlp_apply(params["shared"], x, cfg.act)
+        return y, aux
+
+    moe.moe_apply = apply
+    try:
+        yield
+    finally:
+        moe.moe_apply = real
+
+
+def moe_expert_share(torch, params, specs, mesh):
+    """The bytes of the experts' leaves this rank holds, as a share of the
+    whole leaves' bytes."""
+    from repro_torch.distributed.sharding import global_shape
+
+    held = whole = 0
+    for blk, spec in zip(params["blocks"], specs["blocks"]):
+        if blk is None or "moe" not in blk:
+            continue
+        for k_, x in blk["moe"]["experts"].items():
+            held += x.numel() * x.element_size()
+            whole += math.prod(global_shape(x.shape, spec["moe"]["experts"][k_], mesh)) * \
+                x.element_size()
+    return held / whole
+
+
+def moe_layer_grads(torch, fn, routed, x, r):
+    """``fn(routed, x) -> (y, aux)``: y, aux and the gradients of ``Σ y·r + 3
+    aux`` (the router's and x's whole, the experts' as their sums of squares
+    per expert)."""
+    leaves = {"router": routed["router"]["w"].detach().requires_grad_(),
+              **{k_: v.detach().requires_grad_() for k_, v in routed["experts"].items()}}
+    xg = x.detach().requires_grad_()
+    y, aux = fn({"router": {"w": leaves["router"]},
+                 "experts": {k_: v for k_, v in leaves.items() if k_ != "router"}}, xg)
+    grads = torch.autograd.grad((y.float() * r).sum() + 3.0 * aux.float(),
+                                list(leaves.values()) + [xg])
+    out = dict(y=y.detach(), aux=float(aux), x=grads[-1])
+    for (k_, _), g in zip(leaves.items(), grads[:-1]):
+        out[k_] = g if k_ == "router" else g.float().square().sum(dim=(1, 2))
+    return out
+
+
+def moe_mesh_refs(torch, K, spec, mm, work):
+    """Phase 18's unsharded runs in this process: (a) and (b)'s training
+    (their params saved under ``work``) with the MoE layers at (a)'s and
+    (b)'s dp × ep, (c)'s layer-0 MoE on (a)'s real layer-0 input (saved for
+    the ranks), and kimi-k2's forward and engine (d)."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models import lm_init, moe
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train import make_train_step, train_state_init
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device(spec["device"])
+    world, steps = spec["world"], spec["steps"]
+    cfg = moe_mesh_cfg(torch, spec, mm)
+    batch = dist_batch(torch, spec, cfg, dev)
+    opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], steps))
+    init = lambda: train_state_init(torch.Generator(device=dev).manual_seed(0), cfg, opt,
+                                    device=dev)
+    out, seen = {}, []
+    for part, (dp, ep) in (("a", (1, world)), ("b", (world, 1))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with plain_moe(dp, ep, capture=seen):
+            state, losses, times, _, peak = train_steps(
+                torch, K, cfg, init, make_train_step(cfg, opt), batch, steps,
+                f"[18{part} unsharded]")
+        save_checkpoint(f"{work}/moe_{part}", steps, state.params)
+        out[part] = dict(losses=losses, step_ms=[t * 1e3 for t in times], peak_gib=peak / 2**30)
+        del state
+    # (c): layer 0's MoE on its real input (the step-1 forward's), the
+    # plain version with the int8 payload and without it
+    x0 = seen[0]
+    moe0 = lm_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)["blocks"][0]["moe"]
+    routed = {"router": moe0["router"], "experts": moe0["experts"]}
+    del moe0
+    for part, (dp, ep) in (("a", (1, world)), ("b", (world, 1))):
+        out[part]["drops"] = moe.ep_a2a_drops(routed, x0, cfg, dp, ep)
+    exact, c8 = moe_c_cfgs(cfg)
+    r = torch.randn(x0.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    plain8 = moe_layer_grads(torch, lambda p, x: moe._moe_ep_a2a_plain(p, x, c8, 1, world),
+                             routed, x0, r)
+    with torch.no_grad():
+        y_exact = moe._moe_ep_a2a_plain(routed, x0, exact, 1, world)[0]
+    torch.save(dict(x=x0, r=r, plain8=plain8, exact=y_exact), f"{work}/moe_c.pt")
+    out["c"] = dict(rank=f"{work}/moe_c.pt", int8_vs_exact=rel_err(torch, plain8["y"], y_exact))
+    del x0, r, plain8, y_exact, routed, seen
+    # (d): kimi-k2 at published widths, the forward and the engine
+    kcfg = moe_mesh_cfg(torch, spec, mm, kimi=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_peak(torch, dev, reset=True)
+    params = lm_init(torch.Generator(device=dev).manual_seed(0), kcfg, device=dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    seen = []
+    with plain_moe(1, world, capture=seen):
+        fwd = kimi_forwards(torch, K, spec, mm, params, kcfg, dev, contextlib.nullcontext)
+    blk = params["blocks"][0]["moe"]
+    d = dict(fwd=fwd, held_gib=held,
+             drops=moe.ep_a2a_drops({"router": blk["router"], "experts": blk["experts"]},
+                                    seen[0], kimi_f32_cfg(kcfg), 1, world),
+             expert_bytes=sum(x.numel() * x.element_size() for x in blk["experts"].values()),
+             params=sum(x.numel() for x in tree_leaves(params)))
+    del seen, blk
+    with plain_moe(1, world):
+        d["serve"] = serve_mesh_once(torch, K, lambda: params, kimi_f32_cfg(kcfg), None, dev,
+                                     mm["serve"], teacher="self")
+    d["peak_gib"] = dist_peak(torch, dev)
+    del params
+    d["rank"] = (d["serve"]["tokens"][0], d["serve"]["teacher_logits"])
+    out["d"] = d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kimi_forwards(torch, K, spec, mm, params, kcfg, dev, region):
+    """(d)'s forward at ``mm["kimi_fwd"]`` (inside ``region()``), with float32
+    activations (first: the checked one) and in bf16: per dtype the ms,
+    launches, finiteness and every ``spec["stride"]``-th position's logits."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.models import lm_apply
+
+    b, n = mm["kimi_fwd"]
+    tokens = dist_tokens(torch, kcfg.vocab, b, n).to(dev)
+    out = {}
+    for name, cfg in (("f32", kimi_f32_cfg(kcfg)), ("bf16", kcfg)):
+        K.taylor_fwd.launches = 0
+        a0 = col.calls["all_to_all"]
+        dist_peak(torch, dev, reset=True)
+        with torch.no_grad(), region():
+            dist_sync(torch, dev)
+            t0 = time.perf_counter()
+            logits, _ = lm_apply(params, {"tokens": tokens}, cfg)
+            dist_sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        out[name] = dict(ms=ms, launches=K.taylor_fwd.launches, peak_gib=dist_peak(torch, dev),
+                         a2a_calls=col.calls["all_to_all"] - a0,
+                         finite=bool(torch.isfinite(logits).all()),
+                         sample=logits[:, ::spec["stride"]].float().cpu().numpy())
+        del logits
+    return out
+
+
+def moe_c_cfgs(cfg):
+    """(c)'s layer configs: the routed experts alone, exact and with the int8
+    payload."""
+    routed = dataclasses.replace(cfg.moe, n_shared_experts=0, d_ff_shared=0)
+    return (cfg.replace(moe=routed),
+            cfg.replace(moe=dataclasses.replace(routed, a2a_quant="int8")))
+
+
+def moe_int8_rank(torch, K, spec, cfg, ref_path, mesh, dev):
+    """(c) on this rank: layer 0's MoE with the int8 payload inside
+    ``spmd.region`` on the rank's blocks, against the plain version's
+    forward (same quantisation) and gradients, and the exact path."""
+    from repro_torch.distributed import api as dist_api
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.api import P
+    from repro_torch.distributed.sharding import (Placements, block_of, distribute_tree,
+                                                  gather_leaf, param_specs)
+    from repro_torch.models import lm_init, moe
+
+    ref = torch.load(ref_path, map_location=dev)
+    _, c8 = moe_c_cfgs(cfg)
+    rules = dist_api.rules_for_mesh(mesh)
+    moe0 = lm_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)["blocks"][0]["moe"]
+    tree = {"moe": {"router": moe0["router"], "experts": moe0["experts"]}}
+    del moe0
+    specs = param_specs(tree, mesh, rules)
+    blocks = distribute_tree(tree, Placements(mesh, specs))
+    del tree
+    b, n, d = ref["x"].shape
+    lay = spmd.layout_for(mesh, rules, b, n, d)
+    stream = P(lay.dp, lay.sp, None)
+    xb = block_of(ref["x"], stream, mesh).contiguous()
+    rb = block_of(ref["r"], stream, mesh)
+    K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
+    a0, b0 = col.calls["all_to_all"], col.sent_bytes["all_to_all"]
+
+    def fn(p, x):
+        y, aux = moe.moe_apply(p, x, c8)
+        return y, aux
+
+    with spmd.region(lay, blocks, specs):
+        # the region's loss: Σ y·r over every rank's block, plus 3 aux
+        leaves = {"router": blocks["moe"]["router"]["w"].requires_grad_(),
+                  **{k_: v.requires_grad_() for k_, v in blocks["moe"]["experts"].items()}}
+        xg = xb.requires_grad_()
+        y, aux = fn(blocks["moe"], xg)
+        loss = (y.float() * rb).sum()
+        for axis in lay.dp_names + ((lay.sp,) if lay.sp else ()):
+            loss = col.all_reduce(loss, mesh, axis)
+        grads = torch.autograd.grad(loss + 3.0 * aux.float(), list(leaves.values()) + [xg])
+    calls = col.calls["all_to_all"] - a0
+    sent = col.sent_bytes["all_to_all"] - b0
+    y = gather_leaf(y.detach(), stream, mesh)
+    step = ref["plain8"]["y"].abs().amax(dim=-1, keepdim=True) / 127.0
+    excess = float((((y - ref["plain8"]["y"]).abs() - step).clamp(min=0)).max())
+    errs, finite, nonzero = {}, True, True
+    espec = specs["moe"]["experts"]
+    for (k_, _), g in zip(leaves.items(), grads[:-1]):
+        if k_ != "router":  # each expert's sum of squares, gathered over "ep"
+            g = gather_leaf(g.float().square().sum(dim=(1, 2)), P(espec[k_][0]), mesh)
+        errs[k_] = rel_err(torch, g, ref["plain8"][k_])
+        finite &= bool(torch.isfinite(g).all())
+        nonzero &= bool(g.abs().sum() > 0)
+    gx = gather_leaf(grads[-1], stream, mesh)
+    errs["x"] = rel_err(torch, gx, ref["plain8"]["x"])
+    return dict(step_excess=excess, vs_exact=rel_err(torch, y, ref["exact"]),
+                aux_err=abs(float(aux) - ref["plain8"]["aux"]) / max(abs(ref["plain8"]["aux"]),
+                                                                     1e-30),
+                grad_errs=errs,
+                grads_finite=finite and bool(torch.isfinite(gx).all()), grads_nonzero=nonzero,
+                a2a_calls=calls, a2a_bytes=sent, launches=taylor_counters(K))
+
+
+def moe_mesh_rank(torch, K, spec, mm, moe_ref, work, dev, done):
+    """One rank of phase 18 (a)-(d)."""
+    import torch.distributed as tdist
+
+    from repro_torch.distributed import collectives as col
+    from repro_torch.launch.mesh import make_host_mesh, make_serve_mesh
+    from repro_torch.models import lm_init
+    from repro_torch.models.lm import tree_to
+    from repro_torch.serve import ServeEngine
+
+    world, steps = spec["world"], spec["steps"]
+    cfg = moe_mesh_cfg(torch, spec, mm)
+    tp = make_host_mesh(1, world, device=dev)
+    out = {}
+    for part, mesh in (("a", tp), ("b", make_host_mesh(world, 1, device=dev))):
+        a0, b0 = col.calls["all_to_all"], col.sent_bytes["all_to_all"]
+        state, pl, o = dist_train(torch, K, spec, cfg, mesh, dev)
+        o["a2a_calls"] = (col.calls["all_to_all"] - a0) / steps
+        o["a2a_bytes"] = (col.sent_bytes["all_to_all"] - b0) / steps
+        o["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+        o["expert_share"] = moe_expert_share(torch, state.params, pl.specs.params, mesh)
+        o["param_err"] = dist_param_err(torch, state, pl, f"{work}/moe_{part}", cfg, dev)
+        del state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[part] = o
+        done(f"[18] ({part})")
+    out["c"] = moe_int8_rank(torch, K, spec, cfg, moe_ref["c"], tp, dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    done("[18] (c)")
+
+    # (d) kimi-k2: the ranks take turns to draw the whole weights on the card
+    # and build the engine, which keeps this rank's blocks; a later rank
+    # moves the tree to the host first (the engine then moves only its
+    # blocks back), as the whole tree and its blocks do not fit beside the
+    # earlier ranks' blocks
+    kcfg = moe_mesh_cfg(torch, spec, mm, kimi=True)
+    sm = mm["serve"]
+    smesh = make_serve_mesh(1, world, device=dev)
+    dist_peak(torch, dev, reset=True)
+    t0 = time.perf_counter()
+    eng = None
+    for turn in range(world):
+        if tdist.get_rank() == turn:
+            host = lm_init(torch.Generator(device=dev).manual_seed(0), kcfg, device=dev)
+            if turn:
+                host = tree_to(host, "cpu")
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            eng = ServeEngine(host, kimi_f32_cfg(kcfg), max_slots=sm["slots"],
+                              n_max=sm["n_max"],
+                              decode_block=sm["decode_block"], prefill_chunk=sm["chunk"],
+                              mesh=smesh, device=dev)
+            del host
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()  # the whole tree's memory, for the next rank
+        tdist.barrier()
+    d = dict(build_s=time.perf_counter() - t0, build_peak_gib=dist_peak(torch, dev),
+             held_gib=torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0,
+             expert_share=moe_expert_share(torch, eng.params, eng._param_specs, smesh))
+    done("[18] (d) engine built")
+    d["fwd"] = kimi_forwards(torch, K, spec, mm, eng.params, kcfg, dev,
+                             lambda: eng._on_mesh(slotted=False))
+    done("[18] (d) forward")
+    a0, b0 = col.calls["all_to_all"], col.sent_bytes["all_to_all"]
+    d["serve"] = serve_mesh_once(torch, K, None, kimi_f32_cfg(kcfg), smesh, dev, sm,
+                                 teacher=moe_ref["d"], engine=eng)
+    d["serve"].update(a2a_calls=col.calls["all_to_all"] - a0,
+                      a2a_bytes=col.sent_bytes["all_to_all"] - b0)
+    del eng
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["d"] = d
+    out["d_fwd"] = dict(launches=(d["fwd"]["f32"]["launches"] + d["fwd"]["bf16"]["launches"], 0,
+                                  0))
+    out["d_serve"] = dict(launches=d["serve"]["launches"])
+    done("[18] (d) serving")
+    return out
+
+
+def moe_mesh_report(torch, K, spec, mm, refs, ranks):
+    """Phase 18's gates over every rank's results; prints each rank's
+    numbers.  Returns the summary."""
+    card = "no card"  # a CPU rehearsal
+    if spec["device"] == "cuda":
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+    cfg = moe_mesh_cfg(torch, spec, mm)
+    expect = kernel_launches_per_step(torch, cfg)
+    world = spec["world"]
+    summary = {"ranks": ranks, "card": card, "refs": {k_: v for k_, v in refs.items()
+                                                     if k_ != "d"}}
+    for part, name in (("a", f"tp/ep 1x{world}"), ("b", f"dp x fsdp {world}x1")):
+        ref = refs[part]
+        dropped, routed = ref["drops"]
+        print(f"[18{part}] {cfg.name} x{cfg.n_layers} {name} ({card}): unsharded losses "
+              f"{[round(x, 6) for x in ref['losses']]}, {[round(x, 1) for x in ref['step_ms']]} "
+              f"ms/step, peak {ref['peak_gib']:.2f} GiB; layer 0 drops {dropped} of {routed} "
+              f"routed pairs ({dropped / routed:.4f}) at capacity "
+              f"{cfg.moe.capacity_factor}")
+        for r, rk in enumerate(ranks):
+            o = rk[part]
+            print(f"[18{part}] rank {r}: losses {[round(x, 6) for x in o['losses']]}, params "
+                  f"max|Δ| {o['param_err'][0]:.3e}, per-leaf RMS(Δ)/RMS(update) max "
+                  f"{o['param_err'][1]:.3e} (tol {DIST_PARAM_TOL}), "
+                  f"{[round(x, 1) for x in o['step_ms']]} ms/step, expert bytes held "
+                  f"{o['expert_share']:.4f} of unsharded, held {o['held_gib']:.2f} GiB, peak "
+                  f"{o['peak_gib']:.2f} GiB, all-to-all {o['a2a_calls']:.0f} calls and "
+                  f"{o['a2a_bytes'] / 1e6:.1f} MB sent per step, launches fwd,dq,dkv per step "
+                  f"{o['launches']}")
+            if any(abs(x - y) > DIST_LOSS_TOL for x, y in zip(o["losses"], ref["losses"])):
+                fail(f"[18{part}] rank {r}: losses {o['losses']} vs unsharded {ref['losses']}")
+            if not o["param_err"][1] <= DIST_PARAM_TOL:
+                fail(f"[18{part}] rank {r}: params differ from the unsharded run's: "
+                     f"{o['param_err']}")
+            if any(tuple(x) != expect for x in o["launches"]):
+                fail(f"[18{part}] rank {r}: launches per step {o['launches']}, expected {expect}")
+            if abs(o["expert_share"] - 1 / world) > 1e-9:
+                fail(f"[18{part}] rank {r}: holds {o['expert_share']} of the expert bytes")
+            if part == "a" and not o["a2a_calls"] > 0:
+                fail(f"[18a] rank {r}: no all-to-all ran")
+    print(f"[18c] layer 0's MoE, int8 payload, tp/ep 1x{world}: unsharded int8 vs exact rel_err "
+          f"{refs['c']['int8_vs_exact']:.3e}")
+    for r, rk in enumerate(ranks):
+        o = rk["c"]
+        errs = {k_: f"{v:.2e}" for k_, v in o["grad_errs"].items()}
+        print(f"[18c] rank {r}: y beyond one int8 step of the plain version's "
+              f"{o['step_excess']:.3e}, vs the exact path rel_err {o['vs_exact']:.3e} (tol "
+              f"{MOE_INT8_TOL}), aux rel_err {o['aux_err']:.2e}, gradients vs the plain "
+              f"version's rel {errs} (tol {MOE_GRAD_TOL}), finite {o['grads_finite']}, "
+              f"non-zero {o['grads_nonzero']}, all-to-all {o['a2a_calls']} calls "
+              f"{o['a2a_bytes'] / 1e6:.1f} MB")
+        if not (o["step_excess"] <= 1e-5 and o["vs_exact"] < MOE_INT8_TOL
+                and o["aux_err"] < 1e-5):
+            fail(f"[18c] rank {r}: the int8 payload's forward is off: {o}")
+        if not (o["grads_finite"] and o["grads_nonzero"]
+                and all(v < MOE_GRAD_TOL for v in o["grad_errs"].values())):
+            fail(f"[18c] rank {r}: the int8 payload's gradients are off: {o['grad_errs']}")
+        if any(o["launches"]):
+            fail(f"[18c] rank {r}: the MoE layer launched a kernel: {o['launches']}")
+    # (d)
+    kcfg = moe_mesh_cfg(torch, spec, mm, kimi=True)
+    d = refs["d"]
+    dropped, routed = d["drops"]
+    st_ref = d["serve"]["stats"]
+    fwd = {k_: f"{v['ms']:.1f} ms ({v['launches']} launches)" for k_, v in d["fwd"].items()}
+    print(f"[18d] {kcfg.name} x{kcfg.n_layers} bf16 params ({d['params']:,}, experts "
+          f"{d['expert_bytes'] / 1e9:.2f} GB) unsharded ({card}): held {d['held_gib']:.2f} GiB, "
+          f"peak {d['peak_gib']:.2f} GiB, forward b={mm['kimi_fwd'][0]} n={mm['kimi_fwd'][1]} "
+          f"{fwd}, layer 0 drops {dropped} of {routed} routed pairs ({dropped / routed:.4f}); "
+          f"f32 serving prefill {st_ref['prefill_seconds']:.3f} s, decode "
+          f"{st_ref['decode_tokens'] / st_ref['decode_seconds']:.1f} tokens/s")
+    for r, rk in enumerate(ranks):
+        o = rk["d"]
+        s_, st = o["serve"], o["serve"]["stats"]
+        errs = {k_: rel_err(torch, torch.as_tensor(v["sample"]), torch.as_tensor(
+            d["fwd"][k_]["sample"])) for k_, v in o["fwd"].items()}
+        o["fwd_rel_err"] = errs
+        fwd = {k_: f"{v['ms']:.1f} ms, peak {v['peak_gib']:.2f} GiB, {v['launches']} launches, "
+                   f"{v['a2a_calls']} all-to-alls, rel_err {errs[k_]:.3e}"
+               for k_, v in o["fwd"].items()}
+        print(f"[18d] rank {r}: built in {o['build_s']:.1f} s (peak {o['build_peak_gib']:.2f} "
+              f"GiB), expert bytes held {o['expert_share']:.4f} of unsharded, held "
+              f"{o['held_gib']:.2f} GiB; forward, logits at every {spec['stride']}th position "
+              f"against the unsharded run's {fwd} (f32 tol {DIST_FWD_TOL}; bf16 reported); f32 "
+              f"serving prefill {st['prefill_seconds']:.3f} s, decode "
+              f"{st['decode_tokens'] / st['decode_seconds']:.1f} tokens/s, "
+              f"{st['decode_collectives'] / st['decode_tokens']:.1f} collectives per decode "
+              f"token, all-to-all {s_['a2a_calls']} calls {s_['a2a_bytes'] / 1e6:.1f} MB over "
+              f"the run ({s_['a2a_calls'] / st['decode_tokens']:.1f} per decode token), peak "
+              f"{s_['peak_gib']:.2f} GiB, teacher-forced logits rel_err "
+              f"{s_['teacher_rel_err']:.3e} (tol {SERVE_MESH_LOGIT_TOL}), launches "
+              f"{s_['launches']}, statuses {s_['status']}")
+        if abs(o["expert_share"] - 1 / world) > 1e-9:
+            fail(f"[18d] rank {r}: holds {o['expert_share']} of the expert bytes")
+        if not (errs["f32"] < DIST_FWD_TOL and all(v["finite"] for v in o["fwd"].values())):
+            fail(f"[18d] rank {r}: the forward disagrees with the unsharded one: {errs}")
+        for k_, v in o["fwd"].items():
+            if v["launches"] != kernel_layers(torch, kcfg) or not v["a2a_calls"]:
+                fail(f"[18d] rank {r}: the {k_} forward launched {v['launches']}, "
+                     f"{v['a2a_calls']} all-to-alls")
+        if not s_["teacher_rel_err"] < SERVE_MESH_LOGIT_TOL:
+            fail(f"[18d] rank {r}: teacher-forced logits rel_err {s_['teacher_rel_err']}")
+        if s_["tokens"] != ranks[0]["d"]["serve"]["tokens"]:
+            fail(f"[18d] rank {r} emitted other tokens than rank 0")
+        if any(s_["launches"]) or any(x != "ok" for x in s_["status"]):
+            fail(f"[18d] rank {r}: launches {s_['launches']}, statuses {s_['status']}")
+    prompts = serve_mesh_prompts(kcfg, mm["serve"])
+    got = ranks[0]["d"]["serve"]["tokens"]
+    for i, (p, w, g) in enumerate(zip(prompts, d["serve"]["tokens"], got)):
+        if w == g:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(w, g)) if x != y)
+        with plain_moe(1, world):
+            gap, rms = serve_mesh_gap(torch, spec, mm["serve"], kimi_f32_cfg(kcfg), p, w, t)
+        print(f"[18d] request {i} first differs at token {t}: unsharded top-2 gap {gap:.3e} "
+              f"(limit {SERVE_MESH_TIE} x RMS {rms:.3e})")
+        if not gap < SERVE_MESH_TIE * rms:
+            fail(f"[18d] request {i} differs from the unsharded engine's tokens")
+    summary["d"] = dict(ref={k_: v for k_, v in d.items() if k_ != "rank"},
+                        tokens_equal=got == d["serve"]["tokens"])
+    return summary
+
+
+def moe_mesh_summary(mo) -> str:
+    """Phase 18's summary line."""
+    ranks = mo["ranks"]
+
+    def tps(st):
+        return round(st["decode_tokens"] / st["decode_seconds"], 1)
+
+    def step_ms(o):  # after the first step
+        return round(sum(o["step_ms"][1:]) / max(len(o["step_ms"]) - 1, 1), 1)
+
+    ab = "; ".join(
+        f"{MOE_MESH_PATHS[p_]}: ms/step per rank {[step_ms(rk[p_]) for rk in ranks]} "
+        f"(unsharded {step_ms(mo['refs'][p_])}), peak GiB "
+        f"{[round(rk[p_]['peak_gib'], 2) for rk in ranks]} (unsharded "
+        f"{mo['refs'][p_]['peak_gib']:.2f})" for p_ in ("a", "b"))
+    d = mo["d"]["ref"]
+    return (f"[18] summary ({mo['card']}; {len(ranks)} ranks): {ab}; kimi-k2 x1 bf16 on 1x"
+            f"{len(ranks)}: expert share per rank "
+            f"{[round(rk['d']['expert_share'], 4) for rk in ranks]}, "
+            f"held GiB {[round(rk['d']['held_gib'], 2) for rk in ranks]} (unsharded "
+            f"{d['held_gib']:.2f}), f32 forward ms "
+            f"{[round(rk['d']['fwd']['f32']['ms'], 1) for rk in ranks]} (unsharded "
+            f"{d['fwd']['f32']['ms']:.1f}), f32 decode tokens/s per rank "
+            f"{[tps(rk['d']['serve']['stats']) for rk in ranks]} (unsharded "
+            f"{tps(d['serve']['stats'])}), tokens equal {mo['d']['tokens_equal']}")
 
 
 def breadth_launches(br, name):
@@ -3884,9 +4450,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dist = phase_distributed(torch, K)
     a0, c0 = dist["a"][0], dist["c_train"][0]
-    print(f"[16] phases 16 and 17 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
-          f"engines {dist['serve_refs_s']:.1f} s of it)")
-    print(f"[16] summary (qwen2-1.5b whole, f32, b={DIST['b']} n={DIST['n']} remat full, "
+    print(f"[16] phases 16-18 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
+          f"engines {dist['serve_refs_s']:.1f} s, phase 18's unsharded runs "
+          f"{dist['moe_refs_s']:.1f} s of it)")
+    print(f"[16] summary (qwen2-1.5b x{DIST['ab_groups']} of 28, f32, b={DIST['b']} "
+          f"n={DIST['n']} remat full, "
           f"AdamW; {DIST['world']} ranks): tp 1x2 {sum(a0['step_ms'][1:]) / max(len(a0['step_ms']) - 1, 1):.1f} ms/step "
           f"(rank 0), peak per rank {[round(x['peak_gib'], 2) for x in dist['a']]} GiB vs "
           f"unsharded {dist['ref']['peak_gib']:.2f} GiB at "
@@ -3900,7 +4468,10 @@ def main() -> int:
     # ---- 17. serving on a mesh (run in phase 16's spawn) ----
     print(serve_mesh_summary(dist["serve"]))
 
-    # ---- 18. kernels line ----
+    # ---- 18. MoE on a mesh (run in phase 16's spawn) ----
+    print(moe_mesh_summary(dist["moe"]))
+
+    # ---- 19. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -3966,7 +4537,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 19. device line ----
+    # ---- 20. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,9 @@ Mapping notes: all 61 blocks are MoE (the released model's single leading
 dense block is folded into the pattern); 1 shared expert (d_ff 2048) as in
 the release; head_dim=128 explicit (the release uses MLA — out of scope;
 GQA kv=8).  One full-width block holds 384 × 3 × 7168 × 2048 ≈ 16.9 B
-expert params, more than one card holds: the full width needs expert and
-FSDP sharding, which the port does not have yet; ``reduced()`` runs on one
-device.
+expert params (33.8 GB in bf16): at full width the experts split over the
+mesh's "model" axis (``impl="auto"`` runs ``ep_a2a`` on a mesh);
+``reduced()`` runs on one device.
 """
 
 from repro_torch.models.config import ModelConfig, MoEConfig

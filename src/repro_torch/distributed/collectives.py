@@ -18,10 +18,18 @@ is an autograd function whose backward is the collective's transpose:
     over the axis (a replicated tensor entering per-rank work).
   * ``scatter``         — a replicated tensor -> the rank's block.
     Backward: an all-gather.
+  * ``all_to_all``      — ``jax.lax.all_to_all(..., tiled=True)``: ``x``
+    split along one dim into a piece per rank, piece j sent to rank j, the
+    pieces received concatenated along another dim in rank order.
+    Backward: the same exchange with the two dims swapped.
+  * ``scale_grad``      — identity forward; backward multiplies the
+    gradient by a constant.
 
-They use ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
-``all_reduce`` of ``torch.distributed`` (c10d), which ``gloo`` carries for
-CPU and CUDA tensors and ``nccl`` for CUDA ones.  (The functional
+They use ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_reduce`` and ``all_to_all_single`` of ``torch.distributed`` (c10d),
+which ``gloo`` carries for CPU and CUDA tensors and ``nccl`` for CUDA ones.
+An all-to-all moves its payload as bytes (a ``uint8`` view), so one call
+carries bf16, int8 and float32 alike on either backend.  (The functional
 collectives' all-gather, which DTensor's redistribution calls, crashes
 under ``gloo`` with CUDA tensors.)  An axis of size 1 makes every call the
 identity.
@@ -29,7 +37,7 @@ identity.
 A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` or the
 single-rank ``launch.mesh.SingleMesh``.  ``calls`` counts the c10d calls
 this process made, by kind (the serve engine reports collectives per
-token from it).
+token from it); ``sent_bytes`` the bytes each all-to-all sent, by kind.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ Tensor = torch.Tensor
 Axis = Union[str, Tuple[str, ...]]
 
 calls: Counter = Counter()
+sent_bytes: Counter = Counter()
 
 
 def _names(axis: Axis) -> Tuple[str, ...]:
@@ -100,6 +109,23 @@ def _all_reduce(x: Tensor, mesh, axis: Axis) -> Tensor:
     return x
 
 
+def _all_to_all(x: Tensor, split_dim: int, concat_dim: int, mesh, axis: Axis) -> Tensor:
+    n = axis_size(mesh, axis)
+    xt = x.movedim(split_dim, 0)
+    pieces = xt.reshape((n, xt.shape[0] // n) + xt.shape[1:]).contiguous()
+    out = torch.empty_like(pieces)
+    calls["all_to_all"] += 1
+    sent_bytes["all_to_all"] += pieces.numel() * pieces.element_size()
+    dist.all_to_all_single(out.view(torch.uint8), pieces.view(torch.uint8),
+                           group=axis_group(mesh, axis))
+    # out[j] is rank j's piece for this rank: put the pieces side by side
+    # along ``concat_dim`` in rank order
+    out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)
+    shape = list(out.shape)
+    shape[concat_dim:concat_dim + 2] = [shape[concat_dim] * shape[concat_dim + 1]]
+    return out.reshape(shape)
+
+
 def _slice(x: Tensor, dim: int, mesh, axis: Axis) -> Tensor:
     n = axis_size(mesh, axis)
     return x.chunk(n, dim=dim)[axis_rank(mesh, axis)]
@@ -153,6 +179,29 @@ class _SumGrad(torch.autograd.Function):
         return _all_reduce(g, mesh, axis), None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, mesh, axis):
+        ctx.args = (split_dim, concat_dim, mesh, axis)
+        return _all_to_all(x, split_dim, concat_dim, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, mesh, axis = ctx.args
+        return _all_to_all(g, concat_dim, split_dim, mesh, axis), None, None, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh, axis):
@@ -189,6 +238,21 @@ def sum_grad(x: Tensor, mesh, axis: Axis) -> Tensor:
 
 def scatter(x: Tensor, dim: int, mesh, axis: Axis) -> Tensor:
     return x if _trivial(mesh, axis) else _Scatter.apply(x, dim, mesh, axis)
+
+
+def all_to_all(x: Tensor, split_dim: int, concat_dim: int, mesh, axis: Axis) -> Tensor:
+    return (x if _trivial(mesh, axis) else
+            _AllToAll.apply(x, split_dim, concat_dim, mesh, axis))
+
+
+def all_to_all_values(x: Tensor, split_dim: int, concat_dim: int, mesh, axis: Axis) -> Tensor:
+    """``all_to_all`` outside autograd."""
+    return x if _trivial(mesh, axis) else _all_to_all(x.detach(), split_dim, concat_dim, mesh,
+                                                      axis)
+
+
+def scale_grad(x: Tensor, factor: float) -> Tensor:
+    return x if factor == 1 else _ScaleGrad.apply(x, factor)
 
 
 def all_reduce_values(x: Tensor, mesh, axis: Axis) -> Tensor:

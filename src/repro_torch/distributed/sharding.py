@@ -379,14 +379,17 @@ def serve_param_specs(params: Any, cfg, mesh, rules: Rules) -> Any:
     weights in their ``param_specs`` "model" blocks where its site keeps
     them split (``spmd.attn_mode`` "heads", ``d_ff`` dividing), the value
     projection's columns and the output projection's rows under "dv" (the
-    kv heads do not divide, MQA), everything else whole.  A decode step
-    reads every weight, so a block gathered over "data" (fsdp) would move
-    the whole model per token: the engine's weights replicate over "data",
-    and every collective of a step moves activations or state."""
+    kv heads do not divide, MQA), a MoE block's experts over "ep" along the
+    expert dim where it divides (``ep_a2a`` pads and cuts them otherwise)
+    and its shared experts' ``d_ff`` as an MLP's, everything else whole.
+    A decode step reads every weight, so a block gathered over "data"
+    (fsdp) would move the whole model per token: the engine's weights
+    replicate over "data", and every collective of a step moves
+    activations or state."""
     from repro_torch.distributed import spmd  # noqa: PLC0415 (cycle)
     from repro_torch.models.lm import _layers  # noqa: PLC0415 (cycle)
 
-    tp = rules.get("tp")
+    tp, ep = rules.get("tp"), rules.get("ep")
     size = mesh_axis_size(mesh, tp) if tp is not None else 1
     tp_rules = {"tp": tp}
     whole = lambda tree: tree_map(lambda _: P(), tree)  # noqa: E731
@@ -407,6 +410,13 @@ def serve_param_specs(params: Any, cfg, mesh, rules: Rules) -> Any:
                 spec["attn"]["wo"] = {"w": P(None, tp, None)}
         if "mlp" in p and lcfg.d_ff % size == 0:
             spec["mlp"] = {k: split({k: v})[k] for k, v in p["mlp"].items()}
+        if "moe" in p:
+            # experts over "ep" along the expert dim, the router whole, the
+            # shared experts' d_ff over "model" where it divides (their site's split)
+            spec["moe"]["experts"] = param_specs({"experts": p["moe"]["experts"]}, mesh,
+                                                 {"ep": ep})["experts"]
+            if "shared" in p["moe"] and lcfg.moe.d_ff_shared % size == 0:
+                spec["moe"]["shared"] = split(p["moe"]["shared"])
         return spec
 
     blocks, shared = [], None

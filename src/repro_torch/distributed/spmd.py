@@ -66,8 +66,27 @@ but the compute runs whole (the key moments under "dv", the SSD heads and
 conv channels of a mamba block) is gathered before the step and cut back
 to its block after it.
 
-Not ported on a mesh yet: MoE blocks (``ep_a2a``, ROADMAP queue 1 item
-6b) and the cross-attention families (item 6c).
+MoE blocks (``models/moe.py::moe_apply``): the shared experts run as a
+block's MLP (``site("mlp")``, their ``d_ff`` over "tp"); the routed
+experts take one of two hooks.  ``moe_rows`` is the reference's
+``ep_a2a`` shard_map (``moe.py:176-283`` of the reference): the sequence
+is gathered to the rows of this rank's "data" shard (input ``P(dp, None,
+None)``), so every rank of "model" routes the same tokens; the router is
+gathered whole, the experts keep their blocks over "ep" (padded and cut
+there where the expert count does not divide) and are gathered over
+"fsdp"; the output is cut back to the stream's block.  Each expert then
+receives ep copies of each routed token, one from each rank of "model":
+the reference's transpose (``check_vma=False``) divides the cotangent of
+the output by ep and sums the input cotangents over ep, which leaves each
+expert's gradient counted once; here the experts' gradient is scaled by
+1/ep (``collectives.scale_grad``), and the inputs' are already counted
+once.  ``moe_whole`` runs the dense and capacity paths (and ``ep_a2a``
+over an ep axis of one rank) on the whole batch on every rank, as GSPMD
+gives the single-device numbers: global capacity and positions, the aux
+loss from global means.
+
+Not ported on a mesh yet: the cross-attention families (ROADMAP queue 1
+item 6c).
 """
 
 from __future__ import annotations
@@ -165,10 +184,7 @@ def attn_mode(cfg, size: int) -> str:
 
 def check_supported(cfg) -> None:
     """Raise for the models whose sharded path is not ported yet."""
-    kinds = set(cfg.pattern + cfg.tail)
-    if "moe" in kinds:
-        raise NotImplementedError(f"MoE blocks (moe.impl 'ep_a2a') are {not_ported('6b')}")
-    if "cross" in kinds or cfg.family in ("vlm", "encdec"):
+    if "cross" in cfg.pattern + cfg.tail or cfg.family in ("vlm", "encdec"):
         raise NotImplementedError(f"the cross-attention families are {not_ported('6c')}")
 
 
@@ -197,6 +213,17 @@ def region(lay: Layout, params, specs):
             yield lay
         finally:
             _REGION.reset(token)
+
+
+def in_region() -> bool:
+    return _REGION.get() is not None
+
+
+def axis_size(logical: str) -> int:
+    """The size of the region's physical axis for ``logical`` (1 outside a
+    region or where the rules leave it off)."""
+    r = _REGION.get()
+    return 1 if r is None else r.lay.size(r.lay.rules.get(logical))
 
 
 def local_batch(batch: Dict[str, Tensor], lay: Layout) -> Dict[str, Tensor]:
@@ -398,3 +425,50 @@ def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = No
     if held is not None:
         state = _reblock(state, held, lay, keep, gather=False)
     return _exit(y, lay, split is not None), state
+
+
+def moe_rows(fn, params, h: Tensor, pad):
+    """A MoE block's routed experts under expert parallelism, on the normed
+    residual's block ``h``: ``fn(params, x, mesh, dp, ep)`` runs on this
+    rank's "data" shard ``x`` [b_loc, n, d] (every rank of "model" the
+    same rows), the router whole and this rank's experts over "ep"
+    (``pad`` gives an expert leaf whole over "ep" its padded rows before it
+    is cut), and returns (y [b_loc, n, d], aux).  Returns the stream's
+    block of y, and aux."""
+    r = _REGION.get()
+    lay = r.lay
+    ep = lay.rules.get("ep")
+    size = lay.size(ep)
+    x = col.all_gather(h, 1, lay.mesh, lay.sp, grad="slice") if lay.sp else h
+    experts = {}
+    for name, leaf in params["experts"].items():
+        spec = r.specs[id(leaf)]
+        w = use_param(leaf, spec, lay, keep=(ep,), split=lay.dp_names)
+        if not (len(spec) and spec[0] == ep):
+            w = col.scatter(pad({name: w})[name], 0, lay.mesh, ep)
+        experts[name] = col.scale_grad(w, 1.0 / size)
+    w = {"router": _use_tree(r, params["router"], split=lay.dp_names), "experts": experts}
+    y, aux = fn(w, x, lay.mesh, lay.dp, ep)
+    return (col.scatter(y, 1, lay.mesh, lay.sp) if lay.sp else y), aux
+
+
+def moe_whole(fn, params, h: Tensor):
+    """A MoE block's routed experts on the whole batch: the stream's blocks
+    gathered into ``x`` [b, n, d] on every rank, ``fn(params, x)`` with every
+    parameter whole (-> (y, aux), y of x's size), y cut back to this rank's
+    block.  Every rank computes the same function, so every gradient comes
+    out whole and counted once."""
+    r = _REGION.get()
+    lay = r.lay
+    x = h
+    if lay.sp:
+        x = col.all_gather(x, 1, lay.mesh, lay.sp, grad="slice")
+    if lay.dp:
+        x = col.all_gather(x, 0, lay.mesh, lay.dp, grad="slice")
+    y, aux = fn(_use_tree(r, params), x)
+    y = y.reshape(x.shape)
+    if lay.dp:
+        y = col.scatter(y, 0, lay.mesh, lay.dp)
+    if lay.sp:
+        y = col.scatter(y, 1, lay.mesh, lay.sp)
+    return y, aux

@@ -17,8 +17,10 @@ ranks that share a card or the CPU) or a process group the caller set up.
 ``--mesh-data``/``--mesh-model`` make a host mesh over the ranks
 (``launch.mesh.make_host_mesh``: one process shrinks to 1×1 and trains on
 one device); ``--production-mesh`` (``--multi-pod``) asks for 256 (512)
-ranks and raises with fewer.  MoE models, the cross-attention families and
-Adafactor raise on a mesh of more than one rank (not ported yet).
+ranks and raises with fewer.  MoE models train on a mesh with AdamW and
+SGD-momentum (their experts over "model", the reference's ``ep_a2a``); the
+cross-attention families and Adafactor raise on a mesh of more than one
+rank (not ported yet, ROADMAP queue 1 item 6c).
 """
 
 from __future__ import annotations

@@ -1,13 +1,29 @@
 """Mixture-of-Experts FFN (the JAX package's ``models/moe.py``).
 
-Two single-device dispatch paths behind one API:
+Three dispatch paths behind one API:
 
-  * ``dense`` — every expert sees every token, combined through one-hot
+  * ``dense``  — every expert sees every token, combined through one-hot
     gate weights: exact but O(tokens · E · d · ff); the oracle.
-  * ``ep``    — fixed expert capacity (GShard-style, sort-free: a cumsum of
-    one-hots gives each routed (token, k) its place in its expert's
+  * ``ep``     — fixed expert capacity (GShard-style, sort-free: a cumsum
+    of one-hots gives each routed (token, k) its place in its expert's
     buffer), dispatch and combine as einsums; routed pairs past the
     capacity are dropped.  O(tokens · top_k · capacity_factor · d · ff).
+  * ``ep_a2a`` — expert parallelism on a mesh (``_moe_ep_a2a``): each
+    "data" shard routes its tokens, chunk by chunk, into per-expert
+    buffers by sort-based positions, an all-to-all over "ep" (= "model")
+    hands each rank its experts' buffers (optionally as an int8 payload),
+    the experts run there, and the reverse all-to-all brings the outputs
+    back to be combined.  Experts are zero-padded to a multiple of the ep
+    axis (padded experts are never routed to).  ``_moe_ep_a2a_plain``
+    computes the same function on one device without collectives (the
+    tests' and ``chip_smoke.py``'s reference for a mesh run).
+
+``moe_apply`` picks the path as the JAX package does: ``"auto"`` runs
+``ep_a2a`` on a mesh (inside ``distributed.spmd.region`` or an
+``api.sharding_rules`` context) and ``dense`` off one; ``"ep_a2a"`` off a
+mesh runs ``ep``.  Inside a region ``dense`` and ``ep`` (and ``ep_a2a`` over
+an ep axis of one rank) give the single-device numbers over the whole
+batch: global capacity and positions, the aux loss from global means.
 
 Routing: softmax of the f32 router logits, top-k with renormalised gates,
 lower expert index first on ties (``jax.lax.top_k``'s order); optional
@@ -22,11 +38,16 @@ Params: ``{"router": {"w": [d, E] f32}, "experts": {leaf: [E, ...]},
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import api as dist
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import spmd
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init
 
@@ -36,10 +57,13 @@ Tensor = torch.Tensor
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
     m = cfg.moe
     d = cfg.d_model
-    experts = [mlp_init(gen, d, m.d_ff_expert, cfg.act, dtype) for _ in range(m.n_experts)]
+    experts = {}
+    for e in range(m.n_experts):  # drawn expert by expert into the stacked leaves
+        for k, v in mlp_init(gen, d, m.d_ff_expert, cfg.act, dtype).items():
+            experts.setdefault(k, v.new_empty((m.n_experts,) + v.shape))[e] = v
     params = {
         "router": dense_init(gen, (d, m.n_experts), dtype=torch.float32),
-        "experts": {k: torch.stack([e[k] for e in experts]) for k in experts[0]},
+        "experts": experts,
     }
     if m.n_shared_experts:
         params["shared"] = mlp_init(gen, d, m.d_ff_shared, cfg.act, dtype)
@@ -121,22 +145,258 @@ def _moe_ep_capacity(params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tenso
     return y.to(x.dtype), aux
 
 
+# ---------------------------------------------------------------------------
+# Expert parallelism: sort-based dispatch and an all-to-all over "ep"
+# ---------------------------------------------------------------------------
+
+
+def _sort_positions(e_flat: Tensor, n_experts: int) -> Tensor:
+    """Position (int32) of each routed (token, k) inside its expert's buffer:
+    a stable argsort by expert, each expert's start an exclusive prefix of
+    the counts (O(t·K log) time and O(t·K) memory, against the one-hot
+    cumsum's O(t·K·E))."""
+    tk = e_flat.shape[0]
+    order = torch.sort(e_flat, stable=True).indices
+    counts = torch.bincount(e_flat, minlength=n_experts)
+    starts = counts.cumsum(0) - counts
+    pos_sorted = torch.arange(tk, device=e_flat.device) - starts[e_flat[order]]
+    pos = torch.empty(tk, dtype=torch.int32, device=e_flat.device)
+    pos[order] = pos_sorted.to(torch.int32)
+    return pos
+
+
+def _quantize_rows(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """int8 payload and scales of ``x``: per row (last dim) absmax / 127 +
+    1e-8 in x's dtype, rounded half to even, clipped to ±127."""
+    scale = x.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
+class _A2AInt8(torch.autograd.Function):
+    """The all-to-all with an int8 payload and float32 scales beside it,
+    dequantised into x's dtype; straight-through gradients, the backward
+    exchange at full precision."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        q, scale = _quantize_rows(x)
+        qr = col.all_to_all_values(q, split_dim, concat_dim, mesh, axis)
+        sr = col.all_to_all_values(scale.float(), split_dim, concat_dim, mesh, axis)
+        return qr.to(x.dtype) * sr.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return (col.all_to_all_values(g, concat_dim, split_dim, mesh, axis),
+                None, None, None, None)
+
+
+class _Int8RoundTrip(torch.autograd.Function):
+    """``_A2AInt8`` without the exchange: what a row reads after it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        q, scale = _quantize_rows(x)
+        return q.to(x.dtype) * scale.float().to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _a2a_maybe_quant(x: Tensor, mesh, axis, split_dim: int, concat_dim: int,
+                     quant: str) -> Tensor:
+    """``collectives.all_to_all`` over ``axis``, with an int8 payload under
+    ``quant="int8"`` (per-row absmax scales, straight-through gradients)."""
+    if quant != "int8":
+        return col.all_to_all(x, split_dim, concat_dim, mesh, axis)
+    return _A2AInt8.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+def _e_pad(m: MoEConfig, ep_size: int) -> int:
+    """The expert count padded to a multiple of the ep axis."""
+    return -(-m.n_experts // ep_size) * ep_size
+
+
+def _ep_plan(m: MoEConfig, tokens: int, d: int, ep_size: int) -> Tuple[int, int, int]:
+    """(e_pad, chunks, capacity) for ``tokens`` local tokens: experts padded
+    to a multiple of ``ep_size``; chunks so that a chunk's dispatch buffer
+    (t_c · K · d floats) stays near 256 MB; the capacity of a chunk's
+    tokens."""
+    e_pad = _e_pad(m, ep_size)
+    target = max(1, int(256e6 // (m.top_k * d * 4)))
+    n_chunks = 1
+    while tokens // n_chunks > target or tokens % n_chunks:
+        n_chunks += 1
+    return e_pad, n_chunks, _capacity(m, tokens // n_chunks, e_pad)
+
+
+def _pad_experts(experts, e_pad: int):
+    """Zero experts appended up to ``e_pad`` (never routed to)."""
+    return {k: F.pad(v, (0, 0) * (v.dim() - 1) + (0, e_pad - v.shape[0])) if v.shape[0] < e_pad
+            else v for k, v in experts.items()}
+
+
+def _ep_chunk(x_c, idx_c, gates_c, experts, cfg, e_pad, cap, send, back):
+    """One chunk: positions, the [e_pad, cap, d] buffers, ``send`` (to the
+    ranks that hold the experts), the experts, ``back``, the gated combine
+    in x's dtype."""
+    k = cfg.moe.top_k
+    tc, d = x_c.shape
+    e_flat = idx_c.reshape(-1)
+    pos = _sort_positions(e_flat, e_pad).long()
+    keep = (pos < cap).to(x_c.dtype)
+    pos_c = pos.clamp(max=cap - 1)
+    src = x_c.repeat_interleave(k, dim=0) * keep[:, None]
+    buf = torch.zeros((e_pad, cap, d), dtype=x_c.dtype, device=x_c.device)
+    buf = buf.index_put((e_flat, pos_c), src, accumulate=True)
+    h = _experts_apply(experts, send(buf), cfg.act)
+    taken = back(h)[e_flat, pos_c] * (keep * gates_c.reshape(-1).to(x_c.dtype))[:, None]
+    return taken.reshape(tc, k, d).sum(dim=1)
+
+
+def _ep_rows(params, x: Tensor, cfg: ModelConfig, e_pad: int, n_chunks: int, cap: int,
+             send, back) -> Tuple[Tensor, Tensor]:
+    """One "data" shard's rows ``x`` [b, n, d]: route, then the chunk loop
+    (each chunk recomputed in the backward, not saved).  ``params["experts"]``
+    are the experts that ``send`` hands their buffers to.  Returns (y, the
+    shard's aux loss)."""
+    b, n, d = x.shape
+    xf = x.reshape(-1, d)
+    gates, idx, aux = _route(params, xf, cfg.moe)
+    body = functools.partial(_ep_chunk, experts=params["experts"], cfg=cfg, e_pad=e_pad,
+                             cap=cap, send=send, back=back)
+    ys = []
+    for x_c, i_c, g_c in zip(xf.chunk(n_chunks), idx.chunk(n_chunks), gates.chunk(n_chunks)):
+        if torch.is_grad_enabled():
+            ys.append(checkpoint(body, x_c, i_c, g_c, use_reentrant=False))
+        else:
+            ys.append(body(x_c, i_c, g_c))
+    return torch.cat(ys).reshape(b, n, d), aux
+
+
+def _moe_ep_a2a(params, x: Tensor, cfg: ModelConfig, mesh, dp, ep) -> Tuple[Tensor, Tensor]:
+    """Expert parallelism on this rank's blocks (``distributed.spmd.moe_rows``
+    gives them): ``x`` [b_loc, n, d] this "data" shard's rows (the same on
+    every rank of ``ep``), ``params["router"]`` whole, ``params["experts"]``
+    this rank's e_pad / ep experts, whole along the other dims.  Route,
+    then per chunk: sort-based positions, [e_pad, cap, d] buffers, an
+    all-to-all over ``ep`` (each rank keeps its experts' buffers from every
+    rank: [e_loc, ep·cap, d]), the experts, the reverse all-to-all and the
+    gated combine.  The aux loss is the shard's, averaged over ``dp``.
+    Returns (y [b_loc, n, d], aux)."""
+    m = cfg.moe
+    b, n, d = x.shape
+    e_pad, n_chunks, cap = _ep_plan(m, b * n, d, col.axis_size(mesh, ep))
+    y, aux = _ep_rows(
+        params, x, cfg, e_pad, n_chunks, cap,
+        send=lambda buf: _a2a_maybe_quant(buf, mesh, ep, 0, 1, m.a2a_quant),
+        back=lambda h: _a2a_maybe_quant(h, mesh, ep, 1, 0, m.a2a_quant))
+    if dp:
+        aux = col.all_reduce(aux, mesh, dp) / col.axis_size(mesh, dp)
+    return y, aux
+
+
+def _moe_ep_a2a_plain(params, x: Tensor, cfg: ModelConfig, dp_size: int,
+                      ep_size: int) -> Tuple[Tensor, Tensor]:
+    """The function ``_moe_ep_a2a`` computes on a mesh of ``dp_size`` ×
+    ``ep_size``, on one device without collectives: whole ``x`` [b, n, d]
+    and params; the same "data" shards (none where b does not divide),
+    chunks, capacities, padding, int8 rounding and aux (each shard's,
+    averaged); an ep axis of one rank is the global capacity path, as in
+    the JAX package.  Returns (y, aux)."""
+    m = cfg.moe
+    b, n, d = x.shape
+    if ep_size == 1:
+        y, aux = _moe_ep_capacity(params, x.reshape(b * n, d), cfg)
+        return y.reshape(b, n, d), aux
+    if b % dp_size:
+        dp_size = 1
+    e_pad, n_chunks, cap = _ep_plan(m, (b // dp_size) * n, d, ep_size)
+    trip = _Int8RoundTrip.apply if m.a2a_quant == "int8" else (lambda t: t)
+    padded = dict(params, experts=_pad_experts(params["experts"], e_pad))
+    ys, auxes = zip(*(_ep_rows(padded, xs, cfg, e_pad, n_chunks, cap, send=trip, back=trip)
+                      for xs in x.chunk(dp_size)))
+    return torch.cat(ys), torch.stack(auxes).mean()
+
+
+def ep_a2a_drops(params, x: Tensor, cfg: ModelConfig, dp_size: int,
+                 ep_size: int) -> Tuple[int, int]:
+    """(routed pairs dropped, routed pairs) when ``_moe_ep_a2a`` on a mesh of
+    ``dp_size`` × ``ep_size`` routes the whole ``x`` [b, n, d]: each "data"
+    shard's chunks at their capacity (a host sync; for reports and tests)."""
+    m = cfg.moe
+    b, n, d = x.shape
+    if b % dp_size or ep_size == 1:  # ep of one rank: the global capacity path
+        dp_size = 1
+    e_pad, n_chunks, cap = _ep_plan(m, (b // dp_size) * n, d, ep_size)
+    if ep_size == 1:
+        n_chunks, cap = 1, _capacity(m, b * n, m.n_experts)
+    dropped = 0
+    for xs in x.chunk(dp_size):
+        _, idx, _ = _route(params, xs.reshape(-1, d), m)
+        for ic in idx.chunk(n_chunks):
+            dropped += int((_sort_positions(ic.reshape(-1), e_pad) >= cap).sum())
+    return dropped, b * n * m.top_k
+
+
+def _on_mesh() -> bool:
+    return dist.active() is not None
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared experts' MLP view of ``cfg`` (its hidden size as ``d_ff``)."""
+    return cfg.replace(d_ff=cfg.moe.d_ff_shared)
+
+
+def _mlp(p, h: Tensor, cfg: ModelConfig, positions) -> Tensor:
+    return mlp_apply(p, h, cfg.act)
+
+
+_WHOLE = {"dense": _moe_dense, "ep": _moe_ep_capacity, "ep_a2a": _moe_ep_capacity}
+
+
 def moe_apply(params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """x: [b, n, d] -> (y [b, n, d], aux loss scalar).
 
-    ``cfg.moe.impl``: "dense" (the oracle), "ep" (capacity dispatch), and
-    without a mesh — the only case ported — "auto" runs "dense" and
-    "ep_a2a" runs "ep", as in the JAX package."""
+    ``cfg.moe.impl``: "dense" (the oracle), "ep" (capacity dispatch),
+    "ep_a2a" (expert parallelism on a mesh; "ep" off one) and "auto"
+    ("ep_a2a" on a mesh, "dense" off one), as in the JAX package.  Inside a
+    ``distributed.spmd.region`` ``x`` is the residual stream's block:
+    ``ep_a2a`` runs on the rank's rows and experts (``spmd.moe_rows``), the
+    others on the whole batch (``spmd.moe_whole``); under an
+    ``api.sharding_rules`` context alone the tensors are whole on every
+    rank, and ``ep_a2a`` computes the mesh's function whole
+    (``_moe_ep_a2a_plain``).  The shared experts run as a block's MLP
+    (``spmd.site("mlp")``: their ``d_ff`` over "tp")."""
     m = cfg.moe
     b, n, d = x.shape
-    impl = {"auto": "dense", "ep_a2a": "ep"}.get(m.impl, m.impl)
-    if impl == "dense":
-        y, aux = _moe_dense(params, x.reshape(b * n, d), cfg)
-    elif impl == "ep":
-        y, aux = _moe_ep_capacity(params, x.reshape(b * n, d), cfg)
-    else:
+    impl = m.impl
+    if impl == "auto":
+        impl = "ep_a2a" if _on_mesh() else "dense"
+    if impl == "ep_a2a" and not _on_mesh():
+        impl = "ep"
+    if impl not in _WHOLE:
         raise ValueError(f"unknown moe impl {m.impl!r}")
-    y = y.reshape(b, n, d)
+    routed = {"router": params["router"], "experts": params["experts"]}
+    if spmd.in_region():
+        ep_size = spmd.axis_size("ep")
+        if impl == "ep_a2a" and ep_size > 1:
+            y, aux = spmd.moe_rows(
+                lambda p, xr, mesh, dp, ep: _moe_ep_a2a(p, xr, cfg, mesh, dp, ep), routed, x,
+                functools.partial(_pad_experts, e_pad=_e_pad(m, ep_size)))
+        else:
+            y, aux = spmd.moe_whole(
+                lambda p, xa: _WHOLE[impl](p, xa.reshape(-1, d), cfg), routed, x)
+    elif impl == "ep_a2a":
+        mesh, rules = dist.active()
+        y, aux = _moe_ep_a2a_plain(routed, x, cfg, dist.mesh_axis_size(mesh, rules.get("dp")),
+                                   dist.mesh_axis_size(mesh, rules.get("ep")))
+    else:
+        y, aux = _WHOLE[impl](routed, x.reshape(b * n, d), cfg)
+    y = y.reshape(x.shape)
     if m.n_shared_experts:
-        y = y + mlp_apply(params["shared"], x, cfg.act)
+        y = y + spmd.site("mlp", _mlp, params["shared"], x, _shared_cfg(cfg))
     return y, aux

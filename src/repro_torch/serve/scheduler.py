@@ -57,8 +57,9 @@ host scheduler decides alike on every rank: its clock reads rank 0's time
 sampling draws from the gathered logits with one generator.  The
 resilience boundary recovers failures that every rank sees alike (the
 fault plan's); a rank that fails alone leaves the others waiting in a
-collective.  MoE blocks (ROADMAP queue 1 item 6b) and the
-cross-attention families (item 6c) raise on a mesh.
+collective.  A MoE block's experts lie over "model" along the expert dim
+and run as the reference's ``ep_a2a`` (``models/moe.py``); the
+cross-attention families (ROADMAP queue 1 item 6c) raise on a mesh.
 """
 
 from __future__ import annotations
@@ -86,6 +87,13 @@ from repro_torch.serve import speculative as spec_mod
 from repro_torch.serve.engine import decode_scan, prefill, sample_tokens
 from repro_torch.serve.state_repr import make_state_store
 from repro_torch.tree import tree_map
+
+
+def _own_block(device):
+    def own(x, spec):
+        y = x.to(device)
+        return y.clone() if y is x and any(spec) else y
+    return own
 
 
 class _MeshClock:
@@ -403,7 +411,9 @@ class ServeEngine:
         """Builds the engine and allocates the slotted cache.
 
         Args:
-          params: model params (moved to ``device`` if elsewhere).
+          params: model params (moved to ``device`` if elsewhere; on a
+            mesh each leaf is cut to this rank's block first, so whole
+            weights may stay on the host).
           cfg: model config.
           max_slots: concurrent requests held on the device.
           n_max: per-request context capacity (prompt + generated tokens);
@@ -468,16 +478,18 @@ class ServeEngine:
         self._clock = clock if clock is not None else time.monotonic
         self.mesh = mesh
         self.rules = None
-        self.params = tree_to(params, self.device)
         self._param_specs = None
-        if mesh is not None:
+        if mesh is None:
+            self.params = tree_to(params, self.device)
+        else:
             spmd.check_supported(cfg)
             self.rules = rules if rules is not None else dist_api.rules_for_mesh(mesh)
-            self._param_specs = serve_param_specs(self.params, cfg, mesh, self.rules)
-            blocks = distribute_tree(self.params, Placements(mesh, self._param_specs))
-            # a block cut along dim 0 is a view: copy it, so the whole leaf can go
-            self.params = tree_map(lambda x, spec: x.clone() if any(spec) else x, blocks,
-                                   self._param_specs)
+            self._param_specs = serve_param_specs(params, cfg, mesh, self.rules)
+            blocks = distribute_tree(params, Placements(mesh, self._param_specs))
+            # each leaf is cut before it moves, so whole weights on the host
+            # never reach the card; a block already there that was cut along
+            # dim 0 is a view: copy it, so the whole leaf can go
+            self.params = tree_map(_own_block(self.device), blocks, self._param_specs)
             self._clock = _MeshClock(self._clock, mesh, self.device)
         # The store owns the slot cache's storage representation (dense,
         # quantised moments or paged KV) and validates it against the

@@ -87,7 +87,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, aux_weight: float = 
 
 def check_mesh_ready(cfg: ModelConfig, optimizer: Optimizer) -> None:
     """Raise for a model or an optimizer whose sharded path is not ported
-    yet (MoE, the cross-attention families, Adafactor)."""
+    yet (the cross-attention families, Adafactor)."""
     spmd.check_supported(cfg)
     if optimizer.not_on_mesh:
         raise NotImplementedError(f"{optimizer.not_on_mesh}: {spmd.not_ported('6c')}")

@@ -57,7 +57,9 @@ def test_training_modules_stand_alone():
             "repro_torch.backends.ssm", "repro_torch.configs.mamba2_780m",
             "repro_torch.configs.zamba2_7b", "repro_torch.configs.whisper_medium",
             "repro_torch.configs.llama_3_2_vision_11b", "repro_torch.launch.train",
-            "repro_torch.checkpoint.from_jax"} <= mods
+            "repro_torch.checkpoint.from_jax", "repro_torch.distributed.spmd",
+            "repro_torch.distributed.collectives", "repro_torch.distributed.sharding",
+            "repro_torch.serve.scheduler"} <= mods
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
