@@ -271,7 +271,7 @@ DIST = dict(
     world=2,
     device="cuda",
     arch="qwen2-1.5b",          # (a), (b), (c) at published widths
-    ab_groups=4,                # (a), (b) and (c): 4 of the 28 layers
+    ab_groups=2,                # (a), (b) and (c): 2 of the 28 layers
     ssm_arch="mamba2-780m",     # (d)
     b=TRAIN["b"], n=TRAIN["n"], steps=2,
     cp_fwd=(1, 16384),          # (c)'s forward: (b, n)
@@ -291,7 +291,7 @@ DIST_FWD_TOL = 1e-3  # f32 logits, rel (max|Δ|/max|ref|): phase 4's float32 tol
 # moments and a NaN poured into one slot (d); each against an unsharded
 # engine of the same weights run in the parent first.
 SERVE_MESH = dict(
-    arch="qwen2-1.5b", groups=7, mqa_arch="granite-20b", mqa_groups=2,
+    arch="qwen2-1.5b", groups=4, mqa_arch="granite-20b", mqa_groups=2,
     slots=4, n_max=N_MAX, decode_block=8, new=16,
     lens=(64, 128, 96, 112, 80, 400),  # the last `late` are submitted after the first step
     late=2, chunk=128,                 # prefill_chunk: only the 400-token prompt is chunked
@@ -311,7 +311,7 @@ DIST_PARAM_TOL = 0.1
 # mesh's function on one device (``models/moe.py::_moe_ep_a2a_plain`` at the
 # mesh's dp × ep), run in the parent first.  (a) qwen2-moe-a2.7b at published
 # widths (60 experts top-4, capacity 1.25, ``impl="auto"``: ``ep_a2a`` on a
-# mesh), cut to phase 12's 2 of its 24 layers, f32, phase 16's AdamW and
+# mesh), cut to 1 of its 24 layers, f32, phase 16's AdamW and
 # batch, 2 steps on tp/ep 1×2 (30 experts and 8 heads a rank); (b) the same
 # on dp × fsdp 2×1 (an ep axis of one rank: the global capacity path, the
 # experts split over "data" and gathered per layer); (c) (a)'s layer-0 MoE
@@ -323,13 +323,40 @@ DIST_PARAM_TOL = 0.1
 # decisions, whose shifts decide which tokens overflow an expert: the bf16
 # forward's difference is reported, not gated).
 MOE_MESH = dict(
-    arch="qwen2-moe-a2.7b", groups=ZOO_DEPTH["qwen2-moe-a2.7b"],
+    arch="qwen2-moe-a2.7b", groups=1,
     kimi="kimi-k2-1t-a32b", kimi_groups=1, kimi_fwd=(1, 1024),
     serve=dict(slots=4, n_max=512, decode_block=8, new=8, lens=(64, 128, 192, 256), late=0,
                chunk=None),
 )
 MOE_INT8_TOL = 0.05  # (c): int8 payload vs exact, rel (tests/test_perf_features.py:94)
 MOE_GRAD_TOL = 1e-2  # (c): the mesh's gradients vs the plain version's (int8 both), rel
+# Phase 19: the cross-attention families and Adafactor on a mesh (ROADMAP
+# queue 1 item 6c), in phase 16's spawn of ranks, each part against an
+# unsharded run of the same seed run in the parent first.  (a)
+# whisper-medium at published widths (d_model 1024, 16/16 heads, frames
+# [b, 1500, 1024]) cut to ``groups`` of its 24 encoder and 24 decoder
+# groups, f32, phase 16's AdamW and batch, 2 steps on tp 1×2; (b) the same
+# with Adafactor on dp × fsdp 2×1 (params and the factored row/col
+# statistics); (c) llama-3.2-vision-11b at ``vlm_groups`` of its 8 groups
+# (4 self layers and 1 cross layer), bf16 params, float32 activations, on
+# tp 1×2: the forward at ``vlm_fwd`` with images [b, 1600, 1280], then 2
+# requests served with their images; (d) (a)'s whisper served on dp 2×1, 4
+# requests each with its own frames (each slot's owner holds its
+# ``kv_src`` row).  No cross model reaches a kernel (the envelope, as the
+# reference's): every part launches 0.
+CROSS_MESH = dict(
+    whisper="whisper-medium", groups=4,
+    vlm="llama-3.2-vision-11b", vlm_groups=1, vlm_fwd=(1, 1024),
+    vlm_serve=dict(slots=2, n_max=512, decode_block=8, new=8, lens=(96, 160), late=0,
+                   chunk=None),
+    whisper_serve=dict(slots=4, n_max=512, decode_block=8, new=16, lens=(64, 128, 96, 80),
+                       late=1, chunk=None),  # 16 > 1 + 8: mid-flight after the first step
+)
+# (b): each row/col statistic's RMS(sharded - unsharded) / RMS(unsharded).
+# The statistics are means of g²: the sharded gradients sum in another
+# order (~1e-6), while a mean taken over one rank's block of a split axis
+# is off by O(1)
+CROSS_STAT_TOL = 1e-3
 
 
 def ptxas_summary(log: str, head_dim: int = 64):
@@ -2964,25 +2991,38 @@ def dist_peak(torch, dev, reset=False) -> float:
 
 
 def dist_batch(torch, spec, cfg, dev):
+    """Phase 16's batch (a cross family's with its source from seed 0)."""
     from repro_torch.data import make_task
 
     task = make_task("bigram", cfg.vocab, spec["n"], spec["b"], seed=0)
-    return {k_: torch.from_numpy(x).to(dev) for k_, x in task.batch_at(0).items()}
+    batch = {k_: torch.from_numpy(x).to(dev) for k_, x in task.batch_at(0).items()}
+    if cfg.family != "lm":
+        batch.update(source_extras(torch, cfg, spec["b"], 0, device=dev))
+    return batch
 
 
 def dist_tokens(torch, vocab, b, n):
     return torch.randint(0, vocab, (b, n), generator=torch.Generator().manual_seed(0))
 
 
-def dist_state(torch, spec, cfg, mesh, dev):
-    """``make_sharded_state_and_step`` at the phase's batch and AdamW from
-    seed 0: (state, step, placements, whole batch)."""
+def dist_opt(spec, cfg, name="adamw"):
+    """The phase's optimizer: AdamW (or Adafactor, over ``cfg``'s stacking)
+    under phase 7's warmup over ``spec["steps"]``."""
+    from repro_torch.optim import adafactor, adamw, cosine_warmup
+
+    schedule = cosine_warmup(TRAIN["lr"], TRAIN["warmup"], spec["steps"])
+    return adamw(schedule) if name == "adamw" else adafactor(schedule, cfg=cfg)
+
+
+def dist_state(torch, spec, cfg, mesh, dev, opt=None):
+    """``make_sharded_state_and_step`` at the phase's batch and ``opt``
+    (AdamW by default) from seed 0: (state, step, placements, whole
+    batch)."""
     from repro_torch.distributed import api as dist_api
     from repro_torch.launch.train import make_sharded_state_and_step
-    from repro_torch.optim import adamw, cosine_warmup
 
     batch = dist_batch(torch, spec, cfg, dev)
-    opt = adamw(cosine_warmup(TRAIN["lr"], TRAIN["warmup"], spec["steps"]))
+    opt = opt or dist_opt(spec, cfg)
     shapes = {k_: torch.empty_like(x, device="meta") for k_, x in batch.items()}
     state, step, pl, _ = make_sharded_state_and_step(cfg, opt, mesh,
                                                      dist_api.rules_for_mesh(mesh), shapes,
@@ -2990,12 +3030,14 @@ def dist_state(torch, spec, cfg, mesh, dev):
     return state, step, pl, batch
 
 
-def dist_train(torch, K, spec, cfg, mesh, dev):
-    """``spec["steps"]`` sharded AdamW steps from ``dist_state``, the
-    kernels' counts set to 0 just before.  Returns the state, placements
-    and a summary (losses, ms and launches per step, peak GiB)."""
+def dist_train(torch, K, spec, cfg, mesh, dev, opt=None):
+    """``spec["steps"]`` sharded steps of ``opt`` (AdamW by default) from
+    ``dist_state``, the kernels' counts set to 0 just before.  Returns the
+    state, placements and a summary (losses, ms and launches per step, GiB
+    held after the state is built and peak GiB)."""
     dist_peak(torch, dev, reset=True)
-    state, step, pl, batch = dist_state(torch, spec, cfg, mesh, dev)
+    state, step, pl, batch = dist_state(torch, spec, cfg, mesh, dev, opt)
+    held = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
     K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
     losses, times, per_step = [], [], []
     for _ in range(spec["steps"]):
@@ -3008,7 +3050,7 @@ def dist_train(torch, K, spec, cfg, mesh, dev):
         times.append(time.perf_counter() - t0)
         per_step.append(tuple(a - b for a, b in zip(taylor_counters(K), c0)))
     out = dict(losses=losses, step_ms=[t * 1e3 for t in times], launches=per_step,
-               peak_gib=dist_peak(torch, dev))
+               held_gib=held, peak_gib=dist_peak(torch, dev))
     return state, pl, out
 
 
@@ -3040,11 +3082,11 @@ def dist_param_err(torch, state, pl, ref_dir, cfg, dev):
     return mx, worst
 
 
-def dist_forward(torch, spec, cfg, mesh, tokens, dev):
+def dist_forward(torch, spec, cfg, mesh, tokens, dev, extras=None):
     """The model's forward (``lm_apply`` inside ``spmd.region``) of whole
-    ``tokens`` from the seed-0 weights on ``mesh``: this rank's logits at
-    every ``stride``-th position of its sequence block, the block's start,
-    ms and peak GiB."""
+    ``tokens`` (and a cross family's source ``extras``) from the seed-0
+    weights on ``mesh``: this rank's logits at every ``stride``-th position
+    of its sequence block, the block's start, ms and peak GiB."""
     from repro_torch.distributed import api as dist_api
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import spmd
@@ -3061,7 +3103,8 @@ def dist_forward(torch, spec, cfg, mesh, tokens, dev):
     with torch.no_grad(), spmd.region(lay, params, specs):
         dist_sync(torch, dev)
         t0 = time.perf_counter()
-        logits, _ = lm_apply(params, spmd.local_batch({"tokens": tokens.to(dev)}, lay), cfg)
+        batch = {"tokens": tokens.to(dev), **(extras or {})}
+        logits, _ = lm_apply(params, spmd.local_batch(batch, lay), cfg)
         dist_sync(torch, dev)
         ms = (time.perf_counter() - t0) * 1e3
     start = col.axis_rank(mesh, lay.sp) * logits.shape[1] if lay.sp else 0
@@ -3110,10 +3153,10 @@ def dist_checksums(torch, tree, placements, dev):
 
 
 def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None, moe=None,
-              moe_ref=None):
-    """One rank of phase 16 (a)-(e), then of phase 17 (``serve``) and phase
-    18 (``moe``) in the same process group; returns its measurements (rank 0
-    prints each part's wall time as it ends)."""
+              moe_ref=None, cross=None, cross_teach=None):
+    """One rank of phase 16 (a)-(e), then of phase 17 (``serve``), phase 18
+    (``moe``) and phase 19 (``cross``) in the same process group; returns
+    its measurements (rank 0 prints each part's wall time as it ends)."""
     import torch
 
     t_start = time.perf_counter()
@@ -3212,15 +3255,20 @@ def dist_rank(rank, world, spec, ref_dir, work, serve=None, teach=None, moe=None
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         out["moe"] = moe_mesh_rank(torch, K, spec, moe, moe_ref, work, dev, done)
+    if cross is not None:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["cross"] = cross_mesh_rank(torch, K, spec, cross, cross_teach, work, dev, done)
     return out
 
 
-def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH, moe=MOE_MESH):
-    """Phases 16, 17 and 18: the unsharded references in this process
+def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH, moe=MOE_MESH, cross=CROSS_MESH):
+    """Phases 16, 17, 18 and 19: the unsharded references in this process
     (freed before the ranks start), then ``spec["world"]`` ranks run phase
-    16's (a)-(e), phase 17's (a)-(d) and phase 18's (a)-(d) in one spawn.
-    Returns the summary (phase 17's under "serve", phase 18's under "moe");
-    fails on any check."""
+    16's (a)-(e), phase 17's (a)-(d), phase 18's (a)-(d) and phase 19's
+    (a)-(d) in one spawn.  Returns the summary (phase 17's under "serve",
+    18's under "moe", 19's under "cross"); fails on any check."""
     import tempfile
 
     from repro_torch.checkpoint import save_checkpoint
@@ -3282,11 +3330,18 @@ def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH, moe=MOE_MESH):
         moe_refs = moe_mesh_refs(torch, K, spec, moe, work)
         out["moe_refs_s"] = time.perf_counter() - t0
         moe_ref = {"c": moe_refs["c"]["rank"], "d": moe_refs["d"]["rank"]}
+        # phase 19's unsharded runs
+        t0 = time.perf_counter()
+        cross_refs = cross_mesh_refs(torch, K, spec, cross, work)
+        out["cross_refs_s"] = time.perf_counter() - t0
+        cross_teach = {part: (cross_refs[part]["tokens"][0], cross_refs[part]["teacher_logits"])
+                       for part in ("c_serve", "d")}
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = run_ranks(dist_rank, world, backend=backend, init_file=f"{work}/store",
-                          args=(spec, f"{work}/ref", work, serve, teach, moe, moe_ref))
+                          args=(spec, f"{work}/ref", work, serve, teach, moe, moe_ref, cross,
+                                cross_teach))
         out["ranks_s"] = time.perf_counter() - t0
     total = ranks[0]["total_gib"]
     ref = out["ref"]
@@ -3353,6 +3408,8 @@ def phase_distributed(torch, K, spec=DIST, serve=SERVE_MESH, moe=MOE_MESH):
     out["total_gib"] = total
     out["serve"] = serve_mesh_report(torch, spec, serve, serve_refs, [rk["serve"] for rk in ranks])
     out["moe"] = moe_mesh_report(torch, K, spec, moe, moe_refs, [rk["moe"] for rk in ranks])
+    out["cross"] = cross_mesh_report(torch, spec, cross, cross_refs,
+                                     [rk["cross"] for rk in ranks])
     return out
 
 
@@ -3372,13 +3429,14 @@ def dist_launches(dist, name):
     for part, path in SERVE_MESH_PATHS.items():  # phase 17: serving reaches no kernel
         for r, rk in enumerate(dist["serve"]["ranks"]):
             out[f"{path}_rank{r}"] = rk[part]["launches"][i]
-    for part, path in MOE_MESH_PATHS.items():  # phase 18
-        for r, rk in enumerate(dist["moe"]["ranks"]):
-            launches = rk[part]["launches"]
-            if part in ("a", "b"):
-                out[f"{path}_rank{r}_{len(launches)}_steps"] = sum(x[i] for x in launches)
-            else:
-                out[f"{path}_rank{r}"] = launches[i]
+    for paths, key in ((MOE_MESH_PATHS, "moe"), (CROSS_MESH_PATHS, "cross")):  # 18, 19
+        for part, path in paths.items():
+            for r, rk in enumerate(dist[key]["ranks"]):
+                launches = rk[part]["launches"]
+                if part in ("a", "b"):
+                    out[f"{path}_rank{r}_{len(launches)}_steps"] = sum(x[i] for x in launches)
+                else:
+                    out[f"{path}_rank{r}"] = launches[i]
     return out
 
 
@@ -3411,7 +3469,7 @@ def serve_mesh_prompts(cfg, sm):
 
 
 def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, engine=None,
-                    **engine_kw):
+                    extras=None, probe=None, **engine_kw):
     """Phase 17's requests through one engine (``mesh=None``: unsharded):
     the first requests, one step, the late ones, ``run``.  The weights come
     from ``make_params`` and go to the engine alone (on a mesh it keeps
@@ -3420,8 +3478,10 @@ def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, eng
     engine: the engine's forward runs ``lm_prefill`` on request 0's prompt
     and ``lm_decode_step`` on those tokens (its own, for "self", whose
     logits are returned), and the relative error against the given logits
-    is measured.  Returns the tokens, statuses, stats, bytes, GiB, launches
-    and collectives."""
+    is measured.  ``extras``: each request's source (a cross family's), the
+    first one's read by the teacher-forced prefill too; ``probe(eng)`` runs
+    after the first step, its result under "probe".  Returns the tokens,
+    statuses, stats, bytes, GiB, launches and collectives."""
     from repro_torch.distributed import collectives as col
     from repro_torch.models.lm import lm_decode_step, lm_prefill
     from repro_torch.serve import Request, ServeEngine
@@ -3436,13 +3496,15 @@ def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, eng
     held = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
     dist_peak(torch, dev, reset=True)
     prompts = serve_mesh_prompts(cfg, sm)
-    reqs = [Request(tokens=p, max_new_tokens=sm["new"]) for p in prompts]
+    reqs = [Request(tokens=p, max_new_tokens=sm["new"], extras=extras[i] if extras else {})
+            for i, p in enumerate(prompts)]
     first = len(reqs) - sm["late"]
     c0, n0 = taylor_counters(K), sum(col.calls.values())
     dist_sync(torch, dev)
     t0 = time.perf_counter()
     rids = [eng.submit(r) for r in reqs[:first]]
     eng.step()  # the first requests mid-flight: the rest are late admissions
+    probed = probe(eng) if probe is not None else None
     rids += [eng.submit(r) for r in reqs[first:]]
     res = eng.run(return_results=True)
     dist_sync(torch, dev)
@@ -3451,13 +3513,14 @@ def serve_mesh_once(torch, K, make_params, cfg, mesh, dev, sm, teacher=None, eng
                status=[res[r].status.value for r in rids], stats=eng.stats(),
                slot_bytes=eng.live_state_bytes,
                launches=tuple(a - b for a, b in zip(taylor_counters(K), c0)),
-               collectives=sum(col.calls.values()) - n0)
+               collectives=sum(col.calls.values()) - n0, probe=probed)
     if teacher is not None:
         toks, ref = (out["tokens"][0], None) if teacher == "self" else teacher
         ctx = eng._on_mesh(slotted=False)  # a request's batch: whole on every "data" rank
         with torch.no_grad(), ctx:
             p0 = torch.as_tensor(prompts[0], device=dev)[None].long()
-            lg, caches = lm_prefill(eng.params, {"tokens": p0}, cfg, sm["n_max"])
+            src = {k: torch.as_tensor(v, device=dev) for k, v in (extras or [{}])[0].items()}
+            lg, caches = lm_prefill(eng.params, {"tokens": p0, **src}, cfg, sm["n_max"])
             steps = [lg[0]]
             for t in range(len(toks) - 1):
                 tok = torch.tensor([toks[t]], device=dev)
@@ -3536,16 +3599,18 @@ def serve_mesh_summary(sv) -> str:
                 for part, path in SERVE_MESH_PATHS.items()))
 
 
-def serve_mesh_gap(torch, spec, sm, cfg, prompt, want, t):
+def serve_mesh_gap(torch, spec, sm, cfg, prompt, want, t, extras=None):
     """The unsharded model's top-2 logit gap, and its logits' RMS, at the
-    position of ``want[t]`` (prompt + ``want[:t]`` through ``lm_prefill``)."""
+    position of ``want[t]`` (prompt + ``want[:t]``, and the request's source
+    ``extras``, through ``lm_prefill``)."""
     from repro_torch.models.lm import lm_prefill
 
     dev = torch.device(spec["device"])
     params = serve_mesh_params(torch, cfg, dev)()
     seq = torch.cat([torch.as_tensor(prompt), torch.as_tensor(want[:t])]).long().to(dev)[None]
+    src = {k: torch.as_tensor(v, device=dev) for k, v in (extras or {}).items()}
     with torch.no_grad():
-        lg = lm_prefill(params, {"tokens": seq}, cfg, sm["n_max"])[0][0].float()
+        lg = lm_prefill(params, {"tokens": seq, **src}, cfg, sm["n_max"])[0][0].float()
     top = lg.topk(2).values
     del params
     return float(top[0] - top[1]), float(lg.square().mean().sqrt())
@@ -3626,8 +3691,8 @@ def serve_mesh_report(torch, spec, sm, refs, ranks):
 # Phase 18: MoE on a mesh
 # ---------------------------------------------------------------------------
 
-MOE_MESH_PATHS = {"a": "qwen2-moe-a2.7b_x2_train_tp_ep_1x2",
-                  "b": "qwen2-moe-a2.7b_x2_train_dp_fsdp_2x1",
+MOE_MESH_PATHS = {"a": "qwen2-moe-a2.7b_x1_train_tp_ep_1x2",
+                  "b": "qwen2-moe-a2.7b_x1_train_dp_fsdp_2x1",
                   "c": "qwen2-moe-a2.7b_layer0_int8_a2a_1x2",
                   "d_fwd": "kimi-k2-1t-a32b_x1_lm_apply_f32_and_bf16_1x2",
                   "d_serve": "kimi-k2-1t-a32b_x1_serve_1x2"}
@@ -4129,6 +4194,322 @@ def moe_mesh_summary(mo) -> str:
             f"{tps(d['serve']['stats'])}), tokens equal {mo['d']['tokens_equal']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the cross-attention families and Adafactor on a mesh
+# ---------------------------------------------------------------------------
+
+CROSS_MESH_PATHS = {"a": "whisper-medium_x4_train_tp_1x2",
+                    "b": "whisper-medium_x4_train_adafactor_dp_fsdp_2x1",
+                    "c_fwd": "llama-3.2-vision-11b_x1_lm_apply_1x2",
+                    "c_serve": "llama-3.2-vision-11b_x1_serve_1x2",
+                    "d": "whisper-medium_x4_serve_dp_2x1"}
+
+
+def cross_mesh_cfg(torch, spec, cm, vlm=False):
+    """Phase 19's config, float32 activations: whisper-medium cut to
+    ``cm["groups"]`` encoder and decoder groups (f32 params), or the VLM to
+    ``cm["vlm_groups"]`` (bf16 params); the reduced ones, uncut, in a
+    rehearsal."""
+    from repro_torch.configs import get_config, get_reduced
+
+    cfg = (get_reduced if spec["reduced"] else get_config)(cm["vlm"] if vlm else cm["whisper"])
+    if not spec["reduced"]:
+        cfg = (cfg.replace(n_groups=cm["vlm_groups"]) if vlm else
+               cfg.replace(n_groups=cm["groups"], n_encoder_groups=cm["groups"]))
+    return cfg.replace(dtype="float32", param_dtype="bfloat16" if vlm else "float32")
+
+
+def kv_src_probe(eng):
+    """After admission: this rank's block of the slot cache's ``kv_src``
+    (on the host), the first slot it holds and the occupied slots."""
+    from repro_torch.distributed import collectives as col
+
+    kv = eng.caches["kv_src"]
+    entry = None
+    if eng.mesh is not None:
+        spec = eng.state_store.placements.specs["kv_src"]
+        entry = spec[0] if len(spec) else None
+    lo = col.axis_rank(eng.mesh, entry) * kv.shape[0] if entry else 0
+    return dict(kv=kv.float().cpu(), lo=lo,
+                occupied=[i for i, st in enumerate(eng._slots) if st.rid is not None])
+
+
+def cross_stat_err(torch, state, pl, ref_dir):
+    """(b)'s Adafactor statistics against the unsharded run's: the largest
+    over the row/col leaves of RMS(Δ) / RMS(ref), each leaf's sums summed
+    over its blocks."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import Placements
+    from repro_torch.tree import tree_items, tree_leaves
+
+    v, specs = state.opt_state.v, pl.specs.opt_state.v
+    ref = restore_checkpoint(ref_dir, v, placements=Placements(pl.mesh, specs))
+    worst, leaves = 0.0, 0
+    for (path, x), r_, spec in zip(tree_items(v), tree_leaves(ref), tree_leaves(specs)):
+        if path.endswith(".full") or tuple(x.shape) == (1,):
+            continue  # a placeholder (the leaf factors) or an unfactored leaf's full
+        d, r2 = x.double() - r_.double(), r_.double()
+        sums = torch.stack([d.square().sum(), r2.square().sum()])
+        for entry in spec:
+            if entry:
+                sums = col.all_reduce_values(sums, pl.mesh, entry)
+        worst = max(worst, math.sqrt(float(sums[0]) / max(float(sums[1]), 1e-300)))
+        leaves += 1
+    return worst, leaves
+
+
+def cross_mesh_refs(torch, K, spec, cm, work):
+    """Phase 19's unsharded runs in this process: whisper's AdamW (a) and
+    Adafactor (b) training (params, and (b)'s statistics, saved under
+    ``work``), the VLM's forward and engine (c), whisper's engine (d; its
+    ``kv_src`` after admission saved for the ranks)."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models import lm_apply, lm_init
+    from repro_torch.train import make_train_step, train_state_init
+
+    dev = torch.device(spec["device"])
+    steps = spec["steps"]
+    wcfg = cross_mesh_cfg(torch, spec, cm)
+    batch = dist_batch(torch, spec, wcfg, dev)
+    out = {}
+    for part, name in (("a", "adamw"), ("b", "adafactor")):
+        opt = dist_opt(spec, wcfg, name)
+        init = lambda: train_state_init(torch.Generator(device=dev).manual_seed(0), wcfg,  # noqa: B023
+                                        opt, device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, losses, times, _, peak = train_steps(
+            torch, K, wcfg, init, make_train_step(wcfg, opt), batch, steps,
+            f"[19{part} unsharded]")
+        save_checkpoint(f"{work}/cross_{part}", steps, state.params)
+        if part == "b":
+            save_checkpoint(f"{work}/cross_b_v", steps, state.opt_state.v)
+        out[part] = dict(losses=losses, step_ms=[t * 1e3 for t in times], peak_gib=peak / 2**30)
+        del state
+    del batch
+    # (c): the VLM's forward (float32 activations, bf16 params) and engine
+    vcfg = cross_mesh_cfg(torch, spec, cm, vlm=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_peak(torch, dev, reset=True)
+    params = lm_init(torch.Generator(device=dev).manual_seed(0), vcfg, device=dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+    b, n = cm["vlm_fwd"]
+    fwd_batch = {"tokens": dist_tokens(torch, vcfg.vocab, b, n).to(dev),
+                 **source_extras(torch, vcfg, b, 5, device=dev)}
+    dist_sync(torch, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = lm_apply(params, fwd_batch, vcfg)
+    dist_sync(torch, dev)
+    out["c_fwd"] = dict(sample=logits[:, ::spec["stride"]].float().cpu(),
+                        ms=(time.perf_counter() - t0) * 1e3, held_gib=held,
+                        peak_gib=dist_peak(torch, dev))
+    del logits, fwd_batch
+    sv = cm["vlm_serve"]
+    out["c_serve"] = serve_mesh_once(torch, K, lambda: params, vcfg, None, dev, sv,
+                                     teacher="self",
+                                     extras=request_extras(torch, vcfg, len(sv["lens"]), 6))
+    del params
+    # (d): whisper's engine
+    sw = cm["whisper_serve"]
+    out["d"] = serve_mesh_once(torch, K, serve_mesh_params(torch, wcfg, dev), wcfg, None, dev,
+                               sw, teacher="self",
+                               extras=request_extras(torch, wcfg, len(sw["lens"]), 7),
+                               probe=kv_src_probe)
+    torch.save(out["d"]["probe"], f"{work}/cross_d_probe.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cross_mesh_rank(torch, K, spec, cm, teach, work, dev, done):
+    """One rank of phase 19 (a)-(d)."""
+    from repro_torch.launch.mesh import make_host_mesh, make_serve_mesh
+
+    world = spec["world"]
+    wcfg, vcfg = cross_mesh_cfg(torch, spec, cm), cross_mesh_cfg(torch, spec, cm, vlm=True)
+    out = {}
+    for part, mesh, name in (("a", make_host_mesh(1, world, device=dev), "adamw"),
+                             ("b", make_host_mesh(world, 1, device=dev), "adafactor")):
+        state, pl, o = dist_train(torch, K, spec, wcfg, mesh, dev,
+                                  opt=dist_opt(spec, wcfg, name))
+        o["param_err"] = dist_param_err(torch, state, pl, f"{work}/cross_{part}", wcfg, dev)
+        if part == "b":
+            o["stat_err"] = cross_stat_err(torch, state, pl, f"{work}/cross_b_v")
+        del state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[part] = o
+        done(f"[19] ({part})")
+    tp = make_host_mesh(1, world, device=dev)
+    b, n = cm["vlm_fwd"]
+    K.taylor_fwd.launches = 0
+    out["c_fwd"] = dist_forward(torch, spec, vcfg, tp, dist_tokens(torch, vcfg.vocab, b, n), dev,
+                                extras=source_extras(torch, vcfg, b, 5, device=dev))
+    out["c_fwd"]["launches"] = (K.taylor_fwd.launches, 0, 0)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    done("[19] (c) forward")
+    sv, sw = cm["vlm_serve"], cm["whisper_serve"]
+    out["c_serve"] = serve_mesh_once(torch, K, serve_mesh_params(torch, vcfg, dev), vcfg,
+                                     make_serve_mesh(1, world, device=dev), dev, sv,
+                                     teacher=teach["c_serve"],
+                                     extras=request_extras(torch, vcfg, len(sv["lens"]), 6))
+    done("[19] (c) serving")
+    out["d"] = serve_mesh_once(torch, K, serve_mesh_params(torch, wcfg, dev), wcfg,
+                               make_serve_mesh(world, 1, device=dev), dev, sw,
+                               teacher=teach["d"],
+                               extras=request_extras(torch, wcfg, len(sw["lens"]), 7),
+                               probe=kv_src_probe)
+    ref = torch.load(f"{work}/cross_d_probe.pt")
+    p = out["d"].pop("probe")
+    rows = ref["kv"][p["lo"]:p["lo"] + p["kv"].shape[0]]
+    out["d"]["kv_src"] = dict(rel_err=rel_err(torch, p["kv"], rows), lo=p["lo"],
+                              rows=p["kv"].shape[0], occupied=p["occupied"],
+                              ref_occupied=ref["occupied"])
+    done("[19] (d)")
+    return out
+
+
+def cross_mesh_report(torch, spec, cm, refs, ranks):
+    """Phase 19's gates over every rank's results; prints each rank's
+    numbers.  Returns the summary."""
+    card = "no card"  # a CPU rehearsal
+    if spec["device"] == "cuda":
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+    wcfg, vcfg = cross_mesh_cfg(torch, spec, cm), cross_mesh_cfg(torch, spec, cm, vlm=True)
+    summary = {"ranks": ranks, "card": card}
+    for part, name in (("a", f"{wcfg.name} x{wcfg.n_groups}+{wcfg.n_encoder_groups} AdamW tp "
+                             f"1x2"),
+                       ("b", f"{wcfg.name} x{wcfg.n_groups}+{wcfg.n_encoder_groups} Adafactor "
+                             f"dp x fsdp 2x1")):
+        ref = refs[part]
+        for r, rk in enumerate(ranks):
+            o = rk[part]
+            print(f"[19{part}] {name} ({card}) rank {r}: losses "
+                  f"{[round(x, 6) for x in o['losses']]} (unsharded "
+                  f"{[round(x, 6) for x in ref['losses']]}), params per-leaf RMS(Δ)/RMS(update) "
+                  f"max {o['param_err'][1]:.3e} (tol {DIST_PARAM_TOL})"
+                  + (f", row/col statistics RMS(Δ)/RMS(ref) max {o['stat_err'][0]:.3e} over "
+                     f"{o['stat_err'][1]} leaves (tol {CROSS_STAT_TOL})" if part == "b" else "")
+                  + f", {[round(x, 1) for x in o['step_ms']]} ms/step (unsharded "
+                  f"{[round(x, 1) for x in ref['step_ms']]}), held {o['held_gib']:.2f} GiB, peak "
+                  f"{o['peak_gib']:.2f} GiB (unsharded peak {ref['peak_gib']:.2f}), launches "
+                  f"fwd,dq,dkv per step {o['launches']}")
+            if any(abs(x - y) > DIST_LOSS_TOL for x, y in zip(o["losses"], ref["losses"])):
+                fail(f"[19{part}] rank {r}: losses {o['losses']} vs unsharded {ref['losses']}")
+            if not o["param_err"][1] <= DIST_PARAM_TOL:
+                fail(f"[19{part}] rank {r}: params differ from the unsharded run's: "
+                     f"{o['param_err']}")
+            if part == "b" and not (o["stat_err"][1] and o["stat_err"][0] <= CROSS_STAT_TOL):
+                fail(f"[19b] rank {r}: the Adafactor statistics differ: {o['stat_err']}")
+            if any(any(x) for x in o["launches"]):
+                fail(f"[19{part}] rank {r}: a cross model launched a kernel: {o['launches']}")
+    sample = torch.cat([torch.from_numpy(rk["c_fwd"]["sample"]) for rk in ranks], dim=1)
+    err = rel_err(torch, sample, refs["c_fwd"]["sample"])
+    b, n = cm["vlm_fwd"]
+    print(f"[19c] {vcfg.name} x{vcfg.n_groups} bf16 params f32 forward tp 1x2 b={b} n={n} "
+          f"images {vcfg.n_image_tokens}x{vcfg.vision_dim} ({card}): logits at every "
+          f"{spec['stride']}th position vs unsharded rel_err {err:.3e} (tol {DIST_FWD_TOL}); ms "
+          f"per rank {[round(rk['c_fwd']['ms'], 1) for rk in ranks]} (unsharded "
+          f"{refs['c_fwd']['ms']:.1f}); peak per rank "
+          f"{[round(rk['c_fwd']['peak_gib'], 2) for rk in ranks]} GiB (unsharded held "
+          f"{refs['c_fwd']['held_gib']:.2f}, peak {refs['c_fwd']['peak_gib']:.2f}); taylor_fwd "
+          f"launches per rank {[rk['c_fwd']['launches'][0] for rk in ranks]}")
+    if not (err < DIST_FWD_TOL and all(rk["c_fwd"]["finite"] for rk in ranks)):
+        fail(f"[19c] the sharded VLM forward disagrees with the unsharded one: {err}")
+    if any(rk["c_fwd"]["launches"][0] for rk in ranks):
+        fail("[19c] the VLM forward launched a kernel")
+    summary["c_fwd"] = dict(rel_err=err, ref_ms=refs["c_fwd"]["ms"])
+    for part, name, sm, cfg, seed in (
+            ("c_serve", f"{vcfg.name} x{vcfg.n_groups} tp 1x2", cm["vlm_serve"], vcfg, 6),
+            ("d", f"{wcfg.name} x{wcfg.n_groups}+{wcfg.n_encoder_groups} dp 2x1",
+             cm["whisper_serve"], wcfg, 7)):
+        ref, st_ref = refs[part], refs[part]["stats"]
+        print(f"[19{part}] {name} ({card}): unsharded prefill {st_ref['prefill_seconds']:.3f} s, "
+              f"decode {st_ref['decode_tokens'] / st_ref['decode_seconds']:.1f} tokens/s, "
+              f"{ref['slot_bytes']} slot-cache bytes, held {ref['held_gib']:.2f} GiB, peak "
+              f"{ref['peak_gib']:.2f} GiB")
+        for r, rk in enumerate(ranks):
+            o, st = rk[part], rk[part]["stats"]
+            share = o["slot_bytes"] / ref["slot_bytes"]
+            print(f"[19{part}] rank {r}: prefill {st['prefill_seconds']:.3f} s, decode "
+                  f"{st['decode_tokens'] / st['decode_seconds']:.1f} tokens/s, "
+                  f"{o['slot_bytes']} slot-cache bytes ({share:.4f} of unsharded), held "
+                  f"{o['held_gib']:.2f} GiB, peak {o['peak_gib']:.2f} GiB, "
+                  f"{st['decode_collectives'] / st['decode_tokens']:.1f} collectives per decode "
+                  f"token ({o['collectives']} in all), wall {o['wall_s']:.1f} s, launches "
+                  f"fwd,dq,dkv {o['launches']}, statuses {o['status']}, teacher-forced logits "
+                  f"rel_err {o['teacher_rel_err']:.3e} (tol {SERVE_MESH_LOGIT_TOL})"
+                  + (f", kv_src rows {o['kv_src']['lo']}..{o['kv_src']['lo'] + o['kv_src']['rows'] - 1}"
+                     f" vs unsharded rel_err {o['kv_src']['rel_err']:.3e} (occupied "
+                     f"{o['kv_src']['occupied']})" if "kv_src" in o else ""))
+            if o["tokens"] != ranks[0][part]["tokens"]:
+                fail(f"[19{part}] rank {r} emitted other tokens than rank 0")
+            if any(o["launches"]):
+                fail(f"[19{part}] rank {r}: serving launched a kernel: {o['launches']}")
+            if not o["teacher_rel_err"] < SERVE_MESH_LOGIT_TOL:
+                fail(f"[19{part}] rank {r}: teacher-forced logits rel_err {o['teacher_rel_err']}")
+            if any(s_ != "ok" for s_ in o["status"]):
+                fail(f"[19{part}] rank {r}: statuses {o['status']}")
+            if part == "c_serve" and not 0.5 <= share < 1.0:
+                fail(f"[19c] rank {r}: {share:.4f} of the slot-cache bytes")
+            if part == "d":
+                kv = o["kv_src"]
+                if o["slot_bytes"] * sm["slots"] != ref["slot_bytes"] * (sm["slots"] //
+                                                                         spec["world"]):
+                    fail(f"[19d] rank {r}: {o['slot_bytes']} bytes, not "
+                         f"{sm['slots'] // spec['world']} of {sm['slots']} slots")
+                if not (kv["rel_err"] < SERVE_MESH_LOGIT_TOL and kv["occupied"] ==
+                        kv["ref_occupied"] and kv["occupied"]):
+                    fail(f"[19d] rank {r}: its kv_src block is not the unsharded engine's rows "
+                         f"{kv}")
+        prompts = serve_mesh_prompts(cfg, sm)
+        exs = request_extras(torch, cfg, len(sm["lens"]), seed)
+        for i, (p, w, g) in enumerate(zip(prompts, ref["tokens"], ranks[0][part]["tokens"])):
+            if w == g:
+                continue
+            t = next(j for j, (x, y) in enumerate(zip(w, g)) if x != y)
+            gap, rms = serve_mesh_gap(torch, spec, sm, cfg, p, w, t, exs[i])
+            print(f"[19{part}] request {i} first differs at token {t}: unsharded top-2 gap "
+                  f"{gap:.3e} (limit {SERVE_MESH_TIE} x RMS {rms:.3e})")
+            if not gap < SERVE_MESH_TIE * rms:
+                fail(f"[19{part}] request {i} differs from the unsharded engine's tokens")
+        summary[part] = dict(tokens_equal=ref["tokens"] == ranks[0][part]["tokens"],
+                             ref_stats=st_ref, ref_slot_bytes=ref["slot_bytes"])
+    summary["refs"] = {k: refs[k] for k in ("a", "b")}
+    return summary
+
+
+def cross_mesh_summary(cx) -> str:
+    """Phase 19's summary line."""
+    def tps(st):
+        return round(st["decode_tokens"] / st["decode_seconds"], 1)
+
+    ranks = cx["ranks"]
+    return (f"[19] summary ({cx['card']}; {len(ranks)} ranks, f32 activations): whisper-medium "
+            f"x{CROSS_MESH['groups']}+{CROSS_MESH['groups']} AdamW tp 1x2 ms/step per rank "
+            f"{[round(rk['a']['step_ms'][-1], 1) for rk in ranks]} (unsharded "
+            f"{round(cx['refs']['a']['step_ms'][-1], 1)}), peak per rank "
+            f"{[round(rk['a']['peak_gib'], 2) for rk in ranks]} GiB (unsharded "
+            f"{cx['refs']['a']['peak_gib']:.2f}); Adafactor dp x fsdp 2x1 ms/step "
+            f"{[round(rk['b']['step_ms'][-1], 1) for rk in ranks]} (unsharded "
+            f"{round(cx['refs']['b']['step_ms'][-1], 1)}), peak "
+            f"{[round(rk['b']['peak_gib'], 2) for rk in ranks]} GiB (unsharded "
+            f"{cx['refs']['b']['peak_gib']:.2f}); VLM x{CROSS_MESH['vlm_groups']} forward rel_err "
+            f"{cx['c_fwd']['rel_err']:.2e}; decode tokens/s per rank: VLM tp 1x2 "
+            f"{[tps(rk['c_serve']['stats']) for rk in ranks]} (unsharded "
+            f"{tps(cx['c_serve']['ref_stats'])}), whisper dp 2x1 "
+            f"{[tps(rk['d']['stats']) for rk in ranks]} (unsharded {tps(cx['d']['ref_stats'])}); "
+            f"tokens equal {cx['c_serve']['tokens_equal']} / {cx['d']['tokens_equal']}")
+
+
 def breadth_launches(br, name):
     """Phase 15's launches of kernel ``name`` by path, for the kernels line."""
     i = ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv").index(name)
@@ -4450,9 +4831,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dist = phase_distributed(torch, K)
     a0, c0 = dist["a"][0], dist["c_train"][0]
-    print(f"[16] phases 16-18 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
+    print(f"[16] phases 16-19 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
           f"engines {dist['serve_refs_s']:.1f} s, phase 18's unsharded runs "
-          f"{dist['moe_refs_s']:.1f} s of it)")
+          f"{dist['moe_refs_s']:.1f} s, phase 19's {dist['cross_refs_s']:.1f} s of it)")
     print(f"[16] summary (qwen2-1.5b x{DIST['ab_groups']} of 28, f32, b={DIST['b']} "
           f"n={DIST['n']} remat full, "
           f"AdamW; {DIST['world']} ranks): tp 1x2 {sum(a0['step_ms'][1:]) / max(len(a0['step_ms']) - 1, 1):.1f} ms/step "
@@ -4471,7 +4852,10 @@ def main() -> int:
     # ---- 18. MoE on a mesh (run in phase 16's spawn) ----
     print(moe_mesh_summary(dist["moe"]))
 
-    # ---- 19. kernels line ----
+    # ---- 19. the cross families and Adafactor on a mesh (phase 16's spawn) ----
+    print(cross_mesh_summary(dist["cross"]))
+
+    # ---- 20. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -4537,7 +4921,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 20. device line ----
+    # ---- 21. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -375,13 +375,15 @@ def cache_specs(cache_shapes: Any, mesh, rules: Rules, batch: int) -> Any:
 
 
 def serve_param_specs(params: Any, cfg, mesh, rules: Rules) -> Any:
-    """Where the serve engine holds each weight: a layer's attention and MLP
-    weights in their ``param_specs`` "model" blocks where its site keeps
-    them split (``spmd.attn_mode`` "heads", ``d_ff`` dividing), the value
-    projection's columns and the output projection's rows under "dv" (the
-    kv heads do not divide, MQA), a MoE block's experts over "ep" along the
-    expert dim where it divides (``ep_a2a`` pads and cuts them otherwise)
-    and its shared experts' ``d_ff`` as an MLP's, everything else whole.
+    """Where the serve engine holds each weight: a layer's attention (and
+    cross-attention) and MLP weights in their ``param_specs`` "model" blocks
+    where its site keeps them split (``spmd.attn_mode`` "heads", ``d_ff``
+    dividing), the value projection's columns and the output projection's
+    rows under "dv" (the kv heads do not divide, MQA), a MoE block's experts
+    over "ep" along the expert dim where it divides (``ep_a2a`` pads and
+    cuts them otherwise) and its shared experts' ``d_ff`` as an MLP's, an
+    encoder block's heads and ``d_ff`` where they divide (its sites carry
+    no state, so they never take "dv"), everything else whole.
     A decode step reads every weight, so a block gathered over "data"
     (fsdp) would move the whole model per token: the engine's weights
     replicate over "data", and every collective of a step moves
@@ -396,18 +398,20 @@ def serve_param_specs(params: Any, cfg, mesh, rules: Rules) -> Any:
     split = lambda tree: param_specs(tree, mesh, tp_rules)  # noqa: E731
     out = whole(params)
 
-    def block(p, kind, lcfg):
+    def block(p, kind, lcfg, dv=True):
         spec = whole(p)
         if size == 1:
             return spec
-        if "attn" in p and kind != "mamba":
+        for key in ("attn", "cross"):
+            if key not in p or kind == "mamba":
+                continue
             mode = spmd.attn_mode(lcfg, size)
             if mode == "heads":
-                spec["attn"] = {k: split({k: v})[k] for k, v in p["attn"].items()}
-            elif mode == "dv":
-                spec["attn"]["wv"] = {k: P(*([None] * (v.ndim - 1)), tp)
-                                      for k, v in p["attn"]["wv"].items()}
-                spec["attn"]["wo"] = {"w": P(None, tp, None)}
+                spec[key] = {k: split({k: v})[k] for k, v in p[key].items()}
+            elif mode == "dv" and dv:
+                spec[key]["wv"] = {k: P(*([None] * (v.ndim - 1)), tp)
+                                   for k, v in p[key]["wv"].items()}
+                spec[key]["wo"] = {"w": P(None, tp, None)}
         if "mlp" in p and lcfg.d_ff % size == 0:
             spec["mlp"] = {k: split({k: v})[k] for k, v in p["mlp"].items()}
         if "moe" in p:
@@ -429,4 +433,8 @@ def serve_param_specs(params: Any, cfg, mesh, rules: Rules) -> Any:
     out["blocks"] = blocks
     if shared is not None:
         out["shared"] = shared
+    if "encoder" in params:
+        out["encoder"]["blocks"] = [block(p, kind, cfg, dv=False) for kind, p in
+                                    zip(cfg.encoder_pattern * cfg.n_encoder_groups,
+                                        params["encoder"]["blocks"])]
     return out

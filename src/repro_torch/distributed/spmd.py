@@ -22,14 +22,31 @@ the reference names at each site with the differentiable collectives of
     axis runs all heads (the reference's divisibility fallback replicates
     the kv heads; the port replicates the query heads with them, which
     gives the same numbers);
+  * ``site(kind="cross")`` is ``"attn"`` with k and v from the source
+    ``kv_src`` [b_loc, m, d] (``attention.py:122-126``): q from the gathered
+    stream, the source whole along its own sequence on this rank's "dp"
+    rows, the same head split, no RoPE on k/v and ``causal=False``.  Where
+    the heads split, each rank projects the source with its own heads'
+    ``wk``/``wv`` only, so the source's cotangent is a partial sum over
+    "tp": the site sums it over "tp" in the backward (as ``use_param``'s
+    ``split`` does for a parameter), and the encoder's and ``vision_proj``'s
+    gradients come out whole;
+  * the encoder (``sequence``) is a residual stream of its own length
+    (``lm.py:220-232`` of the reference): its "sp" resolves against that
+    length, its blocks run the same sites non-causally, and
+    ``from_stream`` gathers its output whole along the sequence for the
+    cross sites;
   * ``site(kind="mlp")`` splits ``d_ff`` over "tp" where it divides, the
     same way (under cp too: gathering the sequence moves fewer bytes than
     gathering its weights); its output bias is added by "tp" rank 0 only,
     so that the reduction adds it once;
-  * under ``attn_sharding="cp"`` attention keeps its sequence block
-    (``attention.py:78``): the Taylor backend exchanges one moment state
-    (``core/context_parallel.py``) and a mamba block one SSD state
-    (``ssm.py:185-200``); no kernel runs there;
+  * under ``attn_sharding="cp"`` causal self-attention keeps its sequence
+    block (``attention.py:78``): the Taylor backend exchanges one moment
+    state (``core/context_parallel.py``) and a mamba block one SSD state
+    (``ssm.py:185-200``); no kernel runs there.  The non-causal encoder and
+    the cross sites take the "tp" way instead: the reference's non-causal
+    Taylor ``apply`` exchanges no state (``backends/taylor.py:172-174``),
+    and the gathered sequence gives the same numbers;
   * ``site(kind="mamba")`` under "tp" runs the block whole on every rank of
     the axis (its in_proj splits z|x|B|C|dt along one dim, which the port
     does not cut);
@@ -57,8 +74,9 @@ block of its layer's decode state (``site(..., state=)``), as
 stays whole (no "sp"); the slotted batch splits over "dp" (``rows`` /
 ``all_rows`` move per-slot vectors between the whole and the rank's
 rows), a request's batch runs whole on every "data" rank.  Attention
-splits over "model" by ``attn_mode``: its heads where the kv heads divide
-("heads"), else the value columns d_v where the spec puts "tp" on them
+(and a cross block's read state, ``site("cross", ..., state=)``, which
+the prefill builds from the source and decode only reads) splits over
+"model" by ``attn_mode``: its heads where the kv heads divide ("heads"), else the value columns d_v where the spec puts "tp" on them
 ("dv", MQA: each rank computes its d_v columns of the numerator over the
 whole denominator, and the output projection runs row-split with a sum),
 else whole; a mamba block runs whole.  A state leaf that the spec splits
@@ -84,9 +102,6 @@ once.  ``moe_whole`` runs the dense and capacity paths (and ``ep_a2a``
 over an ep axis of one rank) on the whole batch on every rank, as GSPMD
 gives the single-device numbers: global capacity and positions, the aux
 loss from global means.
-
-Not ported on a mesh yet: the cross-attention families (ROADMAP queue 1
-item 6c).
 """
 
 from __future__ import annotations
@@ -103,11 +118,6 @@ from repro_torch.distributed import collectives as col
 from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
-
-
-def not_ported(item: str) -> str:
-    """The error text of a path whose mesh form waits for queue 1 ``item``."""
-    return f"not yet ported to torch on a mesh (ROADMAP queue 1 item {item})"
 
 
 class Layout(NamedTuple):
@@ -180,12 +190,6 @@ def attn_mode(cfg, size: int) -> str:
     if cfg.n_heads % size == 0 and cfg.n_kv_heads % size == 0:
         return "heads"
     return "dv" if cfg.resolved_head_dim % size == 0 else "whole"
-
-
-def check_supported(cfg) -> None:
-    """Raise for the models whose sharded path is not ported yet."""
-    if "cross" in cfg.pattern + cfg.tail or cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(f"the cross-attention families are {not_ported('6c')}")
 
 
 class _Region(NamedTuple):
@@ -286,6 +290,36 @@ def to_stream(x: Tensor) -> Tensor:
     return col.scatter(x, 1, r.lay.mesh, r.lay.sp)
 
 
+@contextlib.contextmanager
+def sequence(n: int):
+    """Within it, the residual stream is a sequence of ``n`` positions of its
+    own (the encoder's): "sp" resolves against ``n``, and the stream stays
+    whole where ``n`` does not divide.  A serving layout (its stream whole,
+    ``n`` 0) stays as it is."""
+    r = _REGION.get()
+    if r is None or not r.lay.n:
+        yield
+        return
+    lay = r.lay
+    sp = dist.resolve_axes(("dp", "sp", None), (lay.b, n, 1), lay.mesh, lay.rules)[1]
+    token = _REGION.set(r._replace(lay=lay._replace(sp=sp, n=n)))
+    try:
+        yield
+    finally:
+        _REGION.reset(token)
+
+
+def from_stream(x: Tensor) -> Tensor:
+    """The stream's blocks -> its whole sequence on this rank's rows (the
+    encoder's output, which every cross site reads whole).  Each rank's
+    cotangent is then the whole one (a cross site sums its partial sums
+    over "tp"), so the backward keeps this rank's block of it."""
+    r = _REGION.get()
+    if r is None or not r.lay.sp:
+        return x
+    return col.all_gather(x, 1, r.lay.mesh, r.lay.sp, grad="slice")
+
+
 def stream_block(x: Tensor) -> Tensor:
     """This rank's sequence block of a per-position tensor of its rows
     (the labels), outside autograd."""
@@ -329,7 +363,8 @@ def _tp_axis(kind: str, cfg, lay: Layout):
     if lay.tp is None:
         return None
     size = lay.size(lay.tp)
-    if kind == "attn" and cfg.n_heads % size == 0 and cfg.n_kv_heads % size == 0:
+    if (kind in ("attn", "cross") and cfg.n_heads % size == 0
+            and cfg.n_kv_heads % size == 0):
         return lay.tp
     if kind == "mlp" and cfg.d_ff % size == 0:
         return lay.tp
@@ -375,21 +410,25 @@ def _reblock(state, held, lay: Layout, keep, gather: bool):
 
 
 def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = None,
-         state=_NO_STATE):
-    """``fn(params, h, cfg, positions)``: a block's ``"attn"``, ``"mlp"`` or
-    ``"mamba"`` compute on the normed residual ``h``.  In a region ``h`` is
-    the stream's blocks and so is the output; ``positions`` are the whole
-    sequence's.  With ``state`` (a layer's decode cache, or None for a
-    prefill) ``fn`` takes it as a fifth argument and returns ``(y, new
-    state)``, the state being this rank's block of it (see the module
-    docstring for how serving splits each site)."""
+         state=_NO_STATE, causal: bool = True):
+    """``fn(params, h, cfg, positions)``: a block's ``"attn"``, ``"cross"``,
+    ``"mlp"`` or ``"mamba"`` compute on the normed residual ``h``.  In a
+    region ``h`` is the stream's blocks and so is the output; ``positions``
+    are the whole sequence's, and for ``"cross"`` the source ``kv_src``
+    [b, m, d] (this rank's rows, its whole sequence; None where only the
+    state is read).  With ``state`` (a layer's decode cache or cross read
+    state, or None for a prefill) ``fn`` takes it as a fifth argument and
+    returns ``(y, new state)``, the state being this rank's block of it (see
+    the module docstring for how serving splits each site).  ``causal`` is
+    False for the encoder's self-attention, which never takes the
+    context-parallel way."""
     carry = state is not _NO_STATE
     r = _REGION.get()
     if r is None:
         return fn(params, h, cfg, positions, state) if carry else fn(params, h, cfg, positions)
     lay = r.lay
-    if (kind != "mlp" and cfg.attn_sharding == "cp" and lay.sp is not None
-            and (lay.n // lay.size(lay.sp)) % cfg.attn_chunk == 0):
+    if (kind in ("attn", "mamba") and causal and cfg.attn_sharding == "cp"
+            and lay.sp is not None and (lay.n // lay.size(lay.sp)) % cfg.attn_chunk == 0):
         # context parallel: the sequence blocks stay, one state is exchanged
         w = _use_tree(r, params, split=_split_axes(lay, True))
         if positions is not None:
@@ -399,10 +438,13 @@ def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = No
         cfg = cfg.replace(attn_sharding="tp")
     tp = _tp_axis(kind, cfg, lay)
     mode = "heads" if tp else "whole"
-    if carry and kind == "attn" and not tp and lay.tp:
+    if carry and kind in ("attn", "cross") and not tp and lay.tp:
         mode = attn_mode(cfg, lay.size(lay.tp))
     split = tp or (lay.tp if mode == "dv" else None)
     hf = _enter(h, lay, split is not None)
+    if kind == "cross" and tp and positions is not None:
+        # every rank's heads read the whole source: sum its cotangent's shares
+        positions = col.sum_grad(positions, lay.mesh, tp)
     w = _use_tree(r, params, keep=(split,) if split else (), split=_split_axes(lay, False))
     held, keep = None, ()
     if carry and kind != "mlp" and lay.tp and mode != "heads":
@@ -412,7 +454,7 @@ def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = No
         held = _model_specs(kind, cfg, lay.tp, sizes)
         keep = state_backend(kind, cfg).value_leaves if mode == "dv" else ()
         state = _reblock(state, held, lay, keep, gather=True)
-    if tp and kind == "attn":
+    if tp and kind in ("attn", "cross"):
         size = lay.size(tp)
         cfg = cfg.replace(n_heads=cfg.n_heads // size, n_kv_heads=cfg.n_kv_heads // size,
                           head_dim=cfg.resolved_head_dim)

@@ -17,10 +17,10 @@ ranks that share a card or the CPU) or a process group the caller set up.
 ``--mesh-data``/``--mesh-model`` make a host mesh over the ranks
 (``launch.mesh.make_host_mesh``: one process shrinks to 1×1 and trains on
 one device); ``--production-mesh`` (``--multi-pod``) asks for 256 (512)
-ranks and raises with fewer.  MoE models train on a mesh with AdamW and
-SGD-momentum (their experts over "model", the reference's ``ep_a2a``); the
-cross-attention families and Adafactor raise on a mesh of more than one
-rank (not ported yet, ROADMAP queue 1 item 6c).
+ranks and raises with fewer.  Every model and optimizer trains on a mesh:
+MoE experts over "model" (the reference's ``ep_a2a``), the cross-attention
+families with their encoder or projector, and Adafactor with its
+statistics over the global stacked leaves.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from repro_torch.distributed.api import P
 from repro_torch.distributed.sharding import (
     Placements,
     batch_specs,
+    block_shape,
     distribute_tree,
     opt_state_specs,
     param_specs,
@@ -55,7 +56,7 @@ from repro_torch.models import lm_init
 from repro_torch.models.config import ModelConfig, count_params
 from repro_torch.optim import cosine_warmup, make_optimizer
 from repro_torch.train import TrainLoopConfig, make_train_step, run_training, train_state_init
-from repro_torch.train.step import TrainState, check_mesh_ready, make_sharded_train_step
+from repro_torch.train.step import TrainState, make_sharded_train_step
 from repro_torch.tree import tree_map
 
 
@@ -72,8 +73,13 @@ def make_sharded_state_and_step(cfg: ModelConfig, optimizer, mesh, rules, batch_
     Every rank draws the same whole params from ``seed`` on ``device`` (a
     CUDA generator on a card), so a sharded run starts from the weights of
     an unsharded run of the same seed; each rank keeps its blocks
-    (``param_specs``) and inits the optimizer state on them
-    (``opt_state_specs``).
+    (``param_specs``) and its blocks of a fresh optimizer state: the whole
+    state's shapes (``optimizer.init`` of the whole params on the meta
+    device) cut by ``opt_state_specs``, matched against the tree the state
+    follows (``optimizer.state_layout``: Adafactor's stacked one).  A fresh
+    state is zeros, and its blocks follow the whole leaves' shapes, so
+    Adafactor's factored statistics are the whole leaf's even where a
+    block's dim is 1.
 
     Returns:
       ``(state, step_fn, state_placements, batch_placements)``:
@@ -82,19 +88,23 @@ def make_sharded_state_and_step(cfg: ModelConfig, optimizer, mesh, rules, batch_
       ``distributed.sharding.Placements`` of the ``TrainState`` and of
       ``batch_shapes``.
     """
-    check_mesh_ready(cfg, optimizer)
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=device).manual_seed(seed)
     params = lm_init(gen, cfg, device=device)
     pspecs = param_specs(params, mesh, rules)
-    oshapes = optimizer.init(tree_map(lambda p: torch.empty_like(p, device="meta"), params))
-    ospecs = opt_state_specs(oshapes, pspecs, params, mesh, rules)
+    meta = tree_map(lambda p: torch.empty_like(p, device="meta"), params)
+    oshapes = optimizer.init(meta)
+    like = optimizer.state_layout(meta)
+    ospecs = opt_state_specs(oshapes, param_specs(like, mesh, rules), like, mesh, rules)
     local = distribute_tree(params, Placements(mesh, pspecs))
     del params
+    opt_state = tree_map(lambda x, spec: torch.zeros(block_shape(x.shape, spec, mesh),
+                                                     dtype=x.dtype, device=device),
+                         oshapes, ospecs)
     state = TrainState(step=torch.zeros((), dtype=torch.int32, device=device), params=local,
-                       opt_state=optimizer.init(local))
+                       opt_state=opt_state)
     placements = Placements(mesh, TrainState(step=P(), params=pspecs, opt_state=ospecs))
     batch_placements = Placements(mesh, batch_specs(batch_shapes, mesh, rules))
     return (state, make_sharded_train_step(cfg, optimizer, placements, rules), placements,

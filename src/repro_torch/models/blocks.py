@@ -9,7 +9,9 @@ backend of the registry) and ``"cross"`` (pre-norm self-attention, then
 pre-norm cross-attention to the source ``kv_src``, then the MLP; its decode
 cache is the pair ``(self cache, CrossCache)``, the second fixed at
 prefill).  Only ``block_apply`` returns the MoE load-balance loss; the
-serving paths drop it, as in the JAX package.
+serving paths drop it, as in the JAX package.  On a mesh the cross
+attention runs through ``spmd.site("cross")``, which reads the source
+whole and carries the read state's block in serving.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.backends import get_backend
+from repro_torch.backends.state import CrossCache
 from repro_torch.distributed import spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -65,6 +68,25 @@ def _mamba(p, h: Tensor, cfg: ModelConfig, positions) -> Tensor:
     return get_backend("ssm").apply(p, h, cfg)
 
 
+def _cross(p, h: Tensor, cfg: ModelConfig, src: Tensor) -> Tensor:
+    return attn.attention_apply(p, h, cfg, kv_src=src)
+
+
+def _cross_prefill(p, h: Tensor, cfg: ModelConfig, src: Tensor, state):
+    """The cross read of ``h`` and the source's read state (the backend's,
+    unwrapped: the site cuts it to this rank's block)."""
+    return _cross(p, h, cfg, src), attn.cross_prefill(p, src, cfg).kv
+
+
+def _cross_read(p, h: Tensor, cfg: ModelConfig, src, state):
+    """Each token of ``h`` [b, c, d] reads the fixed state; it comes back
+    as it was."""
+    cache = CrossCache(kv=state)
+    y = torch.stack([attn.cross_decode(p, h[:, i], cache, cfg) for i in range(h.shape[1])],
+                    dim=1)
+    return y, state
+
+
 def block_apply(
     params, kind: str, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor] = None,
     kv_src: Optional[Tensor] = None, causal: bool = True,
@@ -80,10 +102,10 @@ def block_apply(
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + spmd.site("mamba", _mamba, params["mamba"], h, cfg), aux
     x = x + spmd.site("attn", lambda p, h, c, pos: attn.attention_apply(p, h, c, pos, causal),
-                      params["attn"], h, cfg, positions)
+                      params["attn"], h, cfg, positions, causal=causal)
     if kind == "cross":
-        h = norm_apply(params["norm_c"], x, cfg.norm, eps)
-        x = x + attn.attention_apply(params["cross"], h, cfg, kv_src=kv_src)
+        h = norm_apply(spmd.on_stream(params["norm_c"]), x, cfg.norm, eps)
+        x = x + spmd.site("cross", _cross, params["cross"], h, cfg, kv_src)
     h = norm_apply(spmd.on_stream(params["norm2"]), x, cfg.norm, eps)
     y, aux = _ffn(params, kind, h, cfg)
     if aux is None:
@@ -125,9 +147,11 @@ def block_prefill(
         params["attn"], h, cfg, positions, state=None)
     x = x + y
     if kind == "cross":
-        hc = norm_apply(params["norm_c"], x, cfg.norm, eps)
-        x = x + attn.attention_apply(params["cross"], hc, cfg, kv_src=kv_src)
-        cache = (cache, attn.cross_prefill(params["cross"], kv_src, cfg))
+        hc = norm_apply(spmd.on_stream(params["norm_c"]), x, cfg.norm, eps)
+        y, kv = spmd.site("cross", _cross_prefill, params["cross"], hc, cfg, kv_src,
+                          state=None)
+        x = x + y
+        cache = (cache, CrossCache(kv=kv))
     h2 = norm_apply(spmd.on_stream(params["norm2"]), x, cfg.norm, eps)
     return x + _ffn(params, kind, h2, cfg)[0], cache
 
@@ -149,9 +173,11 @@ def block_decode(params, kind: str, x_t: Tensor, cache, cfg: ModelConfig, pos):
         params["attn"], h, cfg, pos, state=cache)
     x_t = x_t + y
     if kind == "cross":
-        hc = norm_apply(params["norm_c"], x_t, cfg.norm, eps)
-        x_t = x_t + attn.cross_decode(params["cross"], hc, ccache, cfg)
-        cache = (cache, ccache)
+        hc = norm_apply(spmd.on_stream(params["norm_c"]), x_t, cfg.norm, eps)
+        y, kv = spmd.site("cross", _cross_read, params["cross"], hc[:, None], cfg,
+                          state=ccache.kv)
+        x_t = x_t + y[:, 0]
+        cache = (cache, CrossCache(kv=kv))
     h2 = norm_apply(spmd.on_stream(params["norm2"]), x_t, cfg.norm, eps)
     # the FFN sees the token as a length-1 sequence [b, 1, d]
     return x_t + _ffn(params, kind, h2[:, None, :], cfg)[0][:, 0, :], cache
@@ -190,9 +216,9 @@ def block_prefill_chunk(params, kind: str, x: Tensor, cache, cfg: ModelConfig,
         params["attn"], h, cfg, positions, state=cache)
     x = x + y
     if kind == "cross":
-        hc = norm_apply(params["norm_c"], x, cfg.norm, eps)
-        x = x + torch.stack([attn.cross_decode(params["cross"], hc[:, i], ccache, cfg)
-                             for i in range(hc.shape[1])], dim=1)
-        cache = (cache, ccache)
+        hc = norm_apply(spmd.on_stream(params["norm_c"]), x, cfg.norm, eps)
+        y, kv = spmd.site("cross", _cross_read, params["cross"], hc, cfg, state=ccache.kv)
+        x = x + y
+        cache = (cache, CrossCache(kv=kv))
     h2 = norm_apply(spmd.on_stream(params["norm2"]), x, cfg.norm, eps)
     return x + _ffn(params, kind, h2, cfg)[0], cache

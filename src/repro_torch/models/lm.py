@@ -193,19 +193,24 @@ def _embed_tokens(params, tokens: Tensor, cfg: ModelConfig,
 
 def _encode(params, frames: Tensor, cfg: ModelConfig) -> Tensor:
     """Whisper-style encoder over (stubbed) conv front-end frames: position
-    embeddings, the non-causal encoder blocks, the encoder's final norm."""
+    embeddings, the non-causal encoder blocks, the encoder's final norm.
+    Inside a mesh's region the encoder is a residual stream of its own
+    length (``spmd.sequence``), and its output comes back whole along the
+    sequence on this rank's rows."""
     dtype = torch_dtype(cfg.dtype)
     enc = params["encoder"]
     m = frames.shape[1]
     if cfg.pos == "learned":
-        pe = enc["pos_embed"][:m]
+        pe = spmd.on_rows(enc["pos_embed"])[:m]
     else:
         pe = sinusoidal_pos(torch.arange(m, device=frames.device), cfg.d_model)
-    x = frames.to(dtype) + pe.to(dtype)[None]
     block = _remat(block_apply, cfg)
-    for kind, p in zip(_encoder_kinds(cfg), enc["blocks"]):
-        x, _ = block(p, kind, x, cfg, None, None, False)
-    return norm_apply(enc["final_norm"], x, cfg.norm, cfg.norm_eps)
+    with spmd.sequence(m):  # on a mesh: the encoder's stream, "sp" against m
+        x = spmd.to_stream(frames.to(dtype) + pe.to(dtype)[None])
+        for kind, p in zip(_encoder_kinds(cfg), enc["blocks"]):
+            x, _ = block(p, kind, x, cfg, None, None, False)
+        x = norm_apply(spmd.on_stream(enc["final_norm"]), x, cfg.norm, cfg.norm_eps)
+        return spmd.from_stream(x)
 
 
 def _kv_source(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Optional[Tensor]:
@@ -213,7 +218,7 @@ def _kv_source(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Optional[T
     (vlm), the encoder's output (encdec), ``None`` for a decoder-only model."""
     if cfg.family == "vlm":
         img = batch["image_embeds"].to(torch_dtype(cfg.dtype))
-        return img @ params["vision_proj"]["w"].to(img.dtype)
+        return img @ spmd.on_rows(params["vision_proj"])["w"].to(img.dtype)
     if cfg.family == "encdec":
         return _encode(params, batch["audio_frames"], cfg)
     return None

@@ -11,7 +11,8 @@ call returns new tensors.  The suite is the JAX package's:
     without momentum.  Its statistics and its RMS update clip are taken
     over the JAX package's *stacked* leaves (block leaves stacked over
     ``[n_groups, run_len]``), so it takes the model's config and keeps its
-    state in that layout (see ``adafactor``).
+    state in that layout (see ``adafactor``); on a mesh they are the
+    global stacked leaf's, summed over the leaf's blocks.
   * sgdm       — momentum baseline.
 
 All fold in global-norm gradient clipping (``clip_norm``) and a
@@ -26,6 +27,8 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding
 from repro_torch.models.convert import to_jax_layout
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -33,15 +36,24 @@ Tensor = torch.Tensor
 Schedule = Callable[[Tensor], Tensor]
 
 
+def _same(params):
+    return params
+
+
 class Optimizer(NamedTuple):
-    """``update(grads, state, params, norm=global_norm)``: ``norm`` measures
-    the gradient tree for the clip (a mesh's step passes one that sums each
-    leaf over its blocks).  ``not_on_mesh``: why the optimizer cannot run
-    on a mesh's blocks yet (None: it can)."""
+    """``init(params) -> state`` (a fresh state is zeros, its step too) and
+    ``update(grads, state, params, placements=None) -> (updates, state)``.
+    On a mesh ``params`` and ``grads`` are this rank's blocks and
+    ``placements`` (a ``distributed.sharding.Placements`` of the params)
+    says how each leaf splits, so that the clip norm (and Adafactor's
+    statistics) sum each leaf over its blocks.  ``state_layout(params)`` is
+    the tree whose paths and shapes the state's leaves follow: the params
+    themselves, or Adafactor's stacked tree; a mesh takes the state's specs
+    from it (``launch.train.make_sharded_state_and_step``)."""
 
     init: Callable[[Any], Any]
     update: Callable[..., tuple]
-    not_on_mesh: Optional[str] = None
+    state_layout: Callable[[Any], Any] = _same
 
 
 def global_norm(tree) -> Tensor:
@@ -50,15 +62,22 @@ def global_norm(tree) -> Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
-def _clip_scale(grads, clip_norm: Optional[float], norm=global_norm) -> Optional[Tensor]:
-    """min(1, clip_norm / norm(grads)) (float32 0-d), or None without clipping."""
+def _clip_scale(grads, clip_norm: Optional[float], placements=None) -> Optional[Tensor]:
+    """min(1, clip_norm / the global norm of grads) (float32 0-d), or None
+    without clipping; on a mesh each leaf's sum of squares is summed over
+    its blocks."""
     if clip_norm is None:
         return None
-    return torch.clamp(clip_norm / torch.clamp(norm(grads), min=1e-9), max=1.0)
+    if placements is None:
+        norm = global_norm(grads)
+    else:
+        norm = sharding.global_norm(tree_leaves(grads), tree_leaves(placements.specs),
+                                    placements.mesh)
+    return torch.clamp(clip_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
-def _clip_by_global_norm(grads, clip_norm: Optional[float], norm=global_norm):
-    scale = _clip_scale(grads, clip_norm, norm)
+def _clip_by_global_norm(grads, clip_norm: Optional[float], placements=None):
+    scale = _clip_scale(grads, clip_norm, placements)
     if scale is None:
         return grads
     return tree_map(lambda g: g * scale.to(g.dtype), grads)
@@ -113,8 +132,8 @@ def adamw(
         return AdamState(step=_step0(params), m=_zeros_like_tree(params, state_dtype),
                          v=_zeros_like_tree(params, state_dtype))
 
-    def update(grads, state, params, norm=global_norm):
-        grads = _clip_by_global_norm(grads, clip_norm, norm)
+    def update(grads, state, params, placements=None):
+        grads = _clip_by_global_norm(grads, clip_norm, placements)
         step = state.step + 1
         lr = schedule(step)
         s = step.to(torch.float32)
@@ -198,7 +217,18 @@ def adafactor(
     tree's paths and shapes, so a JAX checkpoint's state loads as it is.
     Statistics of ≥2-D leaves factor per layer (their means run over each
     layer's last two axes) and only the RMS sums over the layers; the
-    smaller leaves are stacked with ``torch.stack`` and computed whole."""
+    smaller leaves are stacked with ``torch.stack`` and computed whole.
+
+    On a mesh (``update(..., placements=)``) each rank holds its blocks of
+    the params and of the stacked state (the stacked leaf's spec is the
+    layer's behind ``[None, None]``; ``row``/``col`` take it less its last /
+    second-to-last entry, ``distributed.sharding.opt_state_specs``), and
+    every statistic is the global stacked leaf's: a mean over a split axis
+    sums its partial sums over that axis's ranks and divides by the whole
+    length, the RMS clip sums over every axis that splits the leaf and
+    divides by the whole leaf's size.  Factorability follows the whole
+    leaf's shape, so a mesh's state is cut from the whole params' (a local
+    block's dim of 1 would not factor)."""
 
     def init(params):
         leaves = tree_leaves(params)
@@ -226,46 +256,66 @@ def adafactor(
         return AdafactorState(step=_step0(params), m=tree_map(mom, layout),
                               v=tree_map(fv, layout))
 
-    def update(grads, state, params, norm=global_norm):
+    def update(grads, state, params, placements=None):
         g_leaves, p_leaves = tree_leaves(grads), tree_leaves(params)
-        scale = _clip_scale(g_leaves, clip_norm, norm)
+        scale = _clip_scale(g_leaves, clip_norm, placements)
         step = state.step + 1
         lr = schedule(step)
         vs = tree_leaves(state.v)
+        specs = None if placements is None else tree_leaves(placements.specs)
+        mesh = None if placements is None else placements.mesh
         updates: List[Optional[Tensor]] = [None] * len(p_leaves)
         new_m, new_v = [], []
         for idx, m, v in zip(tree_leaves(_stacking(params, cfg)), tree_leaves(state.m),
                              zip(vs[0::3], vs[1::3], vs[2::3])):
+            spec = () if specs is None else tuple(specs[int(idx.flat[0])])
             m, v = _adafactor_leaf(idx, g_leaves, p_leaves, m, FactoredV(*v), scale, lr,
                                    updates, decay, eps, momentum, momentum_dtype,
-                                   weight_decay)
+                                   weight_decay, spec, mesh)
             new_m.append(m)
             new_v.extend(v)
         return tree_unflatten(params, updates), AdafactorState(
             step=step, m=tree_unflatten(state.m, new_m), v=tree_unflatten(state.v, new_v))
 
-    return Optimizer(init=init, update=update, not_on_mesh=(
-        "adafactor: its statistics run over the reference's stacked leaves, which a mesh "
-        "splits"))
+    def state_layout(params):
+        return params if cfg is None else to_jax_layout(
+            params, cfg, lambda rows: torch.stack([torch.stack(r) for r in rows]))
+
+    return Optimizer(init=init, update=update, state_layout=state_layout)
 
 
 def _adafactor_leaf(idx, g_leaves, p_leaves, m, v: FactoredV, scale, lr, updates,
-                    decay, eps, momentum, momentum_dtype, weight_decay):
+                    decay, eps, momentum, momentum_dtype, weight_decay, spec=(), mesh=None):
     """One stacked leaf's update, written into ``updates`` at the port's
-    leaf indices ``idx``; returns its new momentum and statistics.
+    leaf indices ``idx``; returns its new momentum and statistics.  ``spec``
+    is the layer's spec on ``mesh`` (``()``: whole leaves): the statistics
+    are the global stacked leaf's.
 
     Pieces ``(pos, port leaf indices, gradient)``: each layer of a ≥2-D
     leaf on its own at its position ``pos`` in the stack (an unstacked leaf
     is one such piece, pos ``()``); a smaller stacked leaf whole (pos ``()``,
     its gradient a ``torch.stack`` of its layers')."""
-    shape = idx.shape + p_leaves[int(idx.flat[0])].shape
+    local = tuple(p_leaves[int(idx.flat[0])].shape)
+    whole = sharding.global_shape(local, spec, mesh) if spec else local
+    shape = idx.shape + whole
+    # the mesh axis of each dim of the stacked leaf (None: whole)
+    entries = (None,) * idx.ndim + spec + (None,) * (len(whole) - len(spec))
     factored = _factorable(shape)
+
+    def mean(x, dim, of, keepdim=False):
+        """The mean of ``x`` over its axis ``dim``, the stacked leaf's axis
+        ``of``: where a mesh splits that axis, the partial sums summed over
+        its ranks over the whole length."""
+        if entries[of] is None:
+            return x.mean(dim, keepdim=keepdim)
+        return col.all_reduce_values(x.sum(dim, keepdim=keepdim), mesh, entries[of]) / shape[of]
+
     if len(shape) - idx.ndim >= 2 or idx.ndim == 0:
         pieces = [(pos, [int(idx[pos])], g_leaves[int(idx[pos])])
                   for pos in np.ndindex(idx.shape)]
     else:
         ids = [int(i) for i in idx.flat]
-        pieces = [((), ids, torch.stack([g_leaves[i] for i in ids]).reshape(shape))]
+        pieces = [((), ids, torch.stack([g_leaves[i] for i in ids]).reshape(idx.shape + local))]
     stats = (v.row, v.col) if factored else (v.full,)
     new_stats = [torch.empty_like(t) for t in stats]
     us, sq = [], torch.zeros((), dtype=torch.float32, device=v.row.device)
@@ -273,11 +323,12 @@ def _adafactor_leaf(idx, g_leaves, p_leaves, m, v: FactoredV, scale, lr, updates
         g32 = (g if scale is None else g * scale.to(g.dtype)).float()
         g2 = g32.square() + eps
         if factored:
-            row = decay * v.row[pos] + (1 - decay) * g2.mean(-1)
-            col = decay * v.col[pos] + (1 - decay) * g2.mean(-2)
-            rmean = row.mean(-1, keepdim=True)
-            vhat = row[..., :, None] * col[..., None, :] / torch.clamp(rmean[..., None], min=eps)
-            new_stats[0][pos], new_stats[1][pos] = row, col
+            row = decay * v.row[pos] + (1 - decay) * mean(g2, -1, -1)
+            col_ = decay * v.col[pos] + (1 - decay) * mean(g2, -2, -2)
+            rmean = mean(row, -1, -2, keepdim=True)  # row's last axis is the leaf's -2
+            vhat = row[..., :, None] * col_[..., None, :] / torch.clamp(rmean[..., None],
+                                                                        min=eps)
+            new_stats[0][pos], new_stats[1][pos] = row, col_
         else:
             vhat = decay * v.full[pos] + (1 - decay) * g2
             new_stats[0][pos] = vhat
@@ -285,6 +336,8 @@ def _adafactor_leaf(idx, g_leaves, p_leaves, m, v: FactoredV, scale, lr, updates
         sq = sq + u.square().sum()
         us.append(u)
     # update clipping (the adafactor RMS trick), over the whole stacked leaf
+    for entry in dict.fromkeys(e for e in entries if e is not None):
+        sq = col.all_reduce_values(sq, mesh, entry)
     denom = torch.clamp(torch.sqrt(sq / float(np.prod(shape)) + 1e-12), min=1.0)
     m_out = m if momentum is None else torch.empty_like(m)
     neg_lr = -lr
@@ -326,8 +379,8 @@ def sgdm(
     def init(params):
         return SgdState(step=_step0(params), m=_zeros_like_tree(params, state_dtype))
 
-    def update(grads, state, params, norm=global_norm):
-        grads = _clip_by_global_norm(grads, clip_norm, norm)
+    def update(grads, state, params, placements=None):
+        grads = _clip_by_global_norm(grads, clip_norm, placements)
         step = state.step + 1
         lr = schedule(step)
 

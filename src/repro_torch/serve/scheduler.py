@@ -58,8 +58,10 @@ sampling draws from the gathered logits with one generator.  The
 resilience boundary recovers failures that every rank sees alike (the
 fault plan's); a rank that fails alone leaves the others waiting in a
 collective.  A MoE block's experts lie over "model" along the expert dim
-and run as the reference's ``ep_a2a`` (``models/moe.py``); the
-cross-attention families (ROADMAP queue 1 item 6c) raise on a mesh.
+and run as the reference's ``ep_a2a`` (``models/moe.py``).  A request's
+source extras run whole on every "data" rank with its prefill (the
+encoder, the projector); the slot's owner keeps its ``kv_src`` row and its
+block of each cross read state, which decode only reads.
 """
 
 from __future__ import annotations
@@ -482,7 +484,6 @@ class ServeEngine:
         if mesh is None:
             self.params = tree_to(params, self.device)
         else:
-            spmd.check_supported(cfg)
             self.rules = rules if rules is not None else dist_api.rules_for_mesh(mesh)
             self._param_specs = serve_param_specs(params, cfg, mesh, self.rules)
             blocks = distribute_tree(params, Placements(mesh, self._param_specs))

@@ -85,14 +85,6 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, aux_weight: float = 
     return train_step
 
 
-def check_mesh_ready(cfg: ModelConfig, optimizer: Optimizer) -> None:
-    """Raise for a model or an optimizer whose sharded path is not ported
-    yet (the cross-attention families, Adafactor)."""
-    spmd.check_supported(cfg)
-    if optimizer.not_on_mesh:
-        raise NotImplementedError(f"{optimizer.not_on_mesh}: {spmd.not_ported('6c')}")
-
-
 def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, rules,
                             aux_weight: float = 0.01):
     """train_step(state, batch) -> (state, metrics) on a mesh.
@@ -102,15 +94,13 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, 
     on every rank (each takes its rows).  The loss is ``make_loss_fn``'s,
     run inside ``distributed.spmd.region``; the transposes of the region's
     collectives deliver each gradient summed over the ranks and in its
-    parameter's own layout, and the clip norm sums each leaf over its
-    blocks, so the update equals the single-device step's.  Metrics come
-    back the same on every rank.  An optimizer that gives a reason in
-    ``not_on_mesh`` (Adafactor) raises here."""
-    check_mesh_ready(cfg, optimizer)
+    parameter's own layout, and the optimizer sums each leaf over its
+    blocks where it reduces one (the clip norm, Adafactor's statistics), so
+    the update equals the single-device step's.  Metrics come back the same
+    on every rank."""
     loss_fn = make_loss_fn(cfg, aux_weight)
     mesh, pspecs = placements.mesh, placements.specs.params
-    spec_list = tree_leaves(pspecs)
-    norm = lambda tree: sharding.global_norm(tree_leaves(tree), spec_list, mesh)
+    param_placements = sharding.Placements(mesh, pspecs)
 
     def train_step(state: TrainState, batch: Dict[str, Tensor]):
         b, n = batch["tokens"].shape
@@ -122,7 +112,7 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, 
         grads = tree_unflatten(state.params, list(torch.autograd.grad(loss, leaves)))
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params,
-                                                  norm=norm)
+                                                  placements=param_placements)
             params = apply_updates(state.params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = loss.detach()

@@ -444,21 +444,23 @@ def _sampled(params, mesh):
 
 
 def _refusals(mesh):
-    """The cross families' errors on the mesh, and the statuses of a MoE
-    model's request served on it (``"moe"``)."""
+    """The status and token count of a request served on the mesh by a MoE
+    model and by each cross family (its source in ``extras``)."""
     from repro_torch.models import lm_init
 
     errors = {}
+    rng = np.random.default_rng(3)
     for name, arch in (("moe", "qwen2-moe-a2.7b"), ("cross", "whisper-medium"),
                        ("vlm", "llama-3.2-vision-11b")):
         cfg = get_reduced(arch)
         params = lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
-        try:
-            eng = ServeEngine(params, cfg, max_slots=2, n_max=32, mesh=mesh, device="cpu")
-        except NotImplementedError as e:
-            errors[name] = str(e)
-            continue
-        rid = eng.submit(Request(tokens=_prompts(3, (7,), cfg.vocab)[0], max_new_tokens=3))
+        eng = ServeEngine(params, cfg, max_slots=2, n_max=32, mesh=mesh, device="cpu")
+        extras = ({"image_embeds": rng.normal(size=(1, cfg.n_image_tokens, cfg.vision_dim))}
+                  if cfg.family == "vlm" else
+                  {"audio_frames": rng.normal(size=(1, cfg.n_audio_ctx, cfg.d_model))}
+                  if cfg.family == "encdec" else {})
+        rid = eng.submit(Request(tokens=_prompts(3, (7,), cfg.vocab)[0], max_new_tokens=3,
+                                 extras={k: v.astype(np.float32) for k, v in extras.items()}))
         res = eng.run(return_results=True)[rid]
         errors[name] = (res.status.value, len(res.tokens))
     return errors
@@ -630,11 +632,11 @@ def test_codec_grid_on_2x2(runs):
 
 
 def test_what_a_serving_mesh_refuses(runs):
-    """The cross families raise on a serving mesh (item 6c); reduced
-    qwen2-moe serves a request on 2×2 (tests/test_torch_moe_mesh.py holds
-    its tokens and logits to the JAX package)."""
+    """Nothing of the zoo: reduced qwen2-moe, whisper-medium and
+    llama-3.2-vision-11b each serve a request on 2×2
+    (tests/test_torch_moe_mesh.py and tests/test_torch_cross_mesh.py hold
+    their tokens and logits to the JAX package)."""
     errors = runs["four"][0]["errors"]
-    assert errors["moe"] == ("ok", 3)
-    for name in ("cross", "vlm"):
-        assert "cross-attention" in errors[name] and "item 6c" in errors[name]
+    for name in ("moe", "cross", "vlm"):
+        assert errors[name] == ("ok", 3), (name, errors[name])
     assert get_backend("taylor").value_leaves == ("s0", "s1", "s2")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Runs chip_smoke.py's phases 16 (distributed training), 17 (serving on a
-mesh) and 18 (MoE on a mesh) alone on the card.
+mesh), 18 (MoE on a mesh) and 19 (the cross-attention families and
+Adafactor on a mesh) alone on the card.
 
 Builds the Taylor kernels from this checkout, then runs
 ``chip_smoke.phase_distributed``: the unsharded references in this
@@ -8,8 +9,10 @@ process, then 2 ranks (``gloo`` sharing one card, or ``nccl`` one card a
 rank) for tp 1×2, dp × fsdp 2×1, Taylor and SSD context parallelism, the
 elastic restore, the sharded serve engine's four parts, and expert
 parallelism (qwen2-moe-a2.7b training on 1×2 and 2×1, the int8 all-to-all
-payload, kimi-k2-1t-a32b's forward and engine on 1×2), with every check
-of the full script.  Prints the card's name and power limit first
+payload, kimi-k2-1t-a32b's forward and engine on 1×2), whisper-medium
+training (AdamW on 1×2, Adafactor on 2×1) and serving (2×1) and
+llama-3.2-vision-11b's forward and engine (1×2), with every check of the
+full script.  Prints the card's name and power limit first
 and each kernel's launches per rank last; exits non-zero on a failed
 check or without a CUDA device.
 
@@ -48,11 +51,12 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     out = chip_smoke.phase_distributed(torch, K)
-    print(f"phases 16-18 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
+    print(f"phases 16-19 took {time.perf_counter() - t0:.1f} s (phase 17's unsharded "
           f"engines {out['serve_refs_s']:.1f} s, phase 18's unsharded runs "
-          f"{out['moe_refs_s']:.1f} s of it)")
+          f"{out['moe_refs_s']:.1f} s, phase 19's {out['cross_refs_s']:.1f} s of it)")
     print(chip_smoke.serve_mesh_summary(out["serve"]))
     print(chip_smoke.moe_mesh_summary(out["moe"]))
+    print(chip_smoke.cross_mesh_summary(out["cross"]))
     for name in ("taylor_fwd", "taylor_bwd_dq", "taylor_bwd_dkv"):
         print(name, chip_smoke.dist_launches(out, name))
     return 0
