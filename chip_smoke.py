@@ -37,8 +37,14 @@ engine), then MoE on a mesh in the same ranks (phase 18: qwen2-moe-a2.7b
 trained with expert parallelism on 1×2 and dp × fsdp on 2×1, the int8
 all-to-all payload, kimi-k2-1t-a32b at published widths forwarding and
 serving with half its experts a rank, each against the unsharded run of
-the same function), and prints one JSON line describing every ported
-kernel followed by the device line.
+the same function), then the cross families and Adafactor on a mesh in
+the same ranks (phase 19), then the dry run against the card (phase 20:
+phase 7's step traced on meta tensors on a 1×1 abstract mesh against one
+real step, FLOPs equal and peak bytes within 2×, its roofline on the
+H100, phase 16 (a)'s ranks' collectives against the abstract mesh's
+prediction, one production cell of ``repro_torch.launch.dryrun``), and
+prints one JSON line describing every ported kernel followed by the
+device line.
 Any failed phase exits non-zero.  Needs a CUDA device.
 
     python3 chip_smoke.py
@@ -60,31 +66,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# Published peaks of one H100 SXM (dense): f32 on the CUDA cores, TF32 on the
-# tensor cores, HBM bandwidth.
-F32_FLOPS = 67e12
-TF32_FLOPS = 495e12
-HBM_BYTES = 3.35e12
-# TF32 products per operation of each tensor-core contraction of
-# csrc/taylor_fwd.cu, as it issues them: the f32 operand is split in two, and
-# bf16 q and k are exact in TF32, so the z2 update of bf16 keys takes one.
-FWD_TF32_PRODUCTS = {
-    "bfloat16": {"s2_read": 2, "z2_read": 2, "s2_update": 2, "z2_update": 1},
-    "float32": {"s2_read": 3, "z2_read": 3, "s2_update": 3, "z2_update": 3},
-}
-
-# The same for the backward's contractions (csrc/taylor_bwd.cu): pass 1's S2
-# and z2 reads and its state update, pass 2's carry read (one product for dk
-# and dv), dz2 read and carry update.  Only pass 1's z2 update takes one
-# product for bf16 inputs (A = k_e is exact); pass 2's dz2 update has
-# A = dden·q_e, which is not.
-BWD_TF32_PRODUCTS = {
-    "bfloat16": {"s2_read": 2, "z2_read": 2, "s2_update": 2, "z2_update": 1,
-                 "carry_read": 2, "dz2_read": 2, "ds2_update": 2, "dz2_update": 2},
-    "float32": dict.fromkeys(("s2_read", "z2_read", "s2_update", "z2_update", "carry_read",
-                              "dz2_read", "ds2_update", "dz2_update"), 3),
-}
 
 MAIN = dict(b=4, hk=3, g=3, n=2048, d=64, dv=64)  # phase 3's main-path launch
 TRAIN_ATTN = dict(MAIN, n=1024)  # each layer's attention launch in phase 7's step
@@ -174,8 +155,10 @@ INT8_FLIP_MARGIN = 0.2
 # Phase 12: the model zoo's dense and MoE decoders at their published widths
 # (random weights, seed 0, drawn on the card's generator).  Depth is cut
 # where the full model with its AdamW state would not fit on the card: a
-# full-depth f32 copy of granite-20b alone is 81 GB.
-ZOO_DEPTH = {"granite-20b": 4, "gemma-7b": 2, "qwen2-moe-a2.7b": 2}  # n_groups
+# full-depth f32 copy of granite-20b alone is 81 GB.  granite-20b runs 2
+# groups since phase 20 came (4 before): the script passed 1100 s of its
+# 1200 s limit.
+ZOO_DEPTH = {"granite-20b": 2, "gemma-7b": 2, "qwen2-moe-a2.7b": 2}  # n_groups
 ZOO_TRAIN_STEPS = {"qwen2-1.5b": 6, "granite-20b": 2, "qwen2-moe-a2.7b": 2}
 # The kernels at each model's training launch: (a), (c) and (e) at b = 4,
 # n = 1024, head dim 128; (f)'s reduced qwen2-1.5b (b = 4, 4 heads on 2 kv
@@ -408,83 +391,6 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def taylor_fwd_cost(bk, g, n, d, dv, chunk, itemsize, order=2):
-    """(operations, {contraction: operations}, bytes) of one forward:
-    intra-chunk tiles (the causal triangle only: (chunk + 1) / 2 keys per
-    row, for n a multiple of chunk), state reads and state updates; each
-    input read once and the output written once.  The contractions are those
-    that csrc/taylor_fwd.cu runs on the tensor cores (keys of
-    FWD_TF32_PRODUCTS), counted once each, and are part of the operations."""
-    sq, cube = (2 * d * d, 2 * d * d * dv) if order >= 2 else (0, 0)
-    lin = 2 * d * dv + 2 * d
-    tri = (chunk + 1) / 2                        # keys j <= i per row of a chunk
-    tensor = {"s2_read": bk * g * n * cube, "z2_read": bk * g * n * sq,
-              "s2_update": bk * n * cube, "z2_update": bk * n * sq}
-    ops = bk * (g * n * tri * 2 * (d + dv) + (g + 1) * n * lin) + sum(tensor.values())
-    nbytes = itemsize * (bk * g * n * d + bk * n * d + bk * n * dv + bk * g * n * dv)
-    return ops, tensor, nbytes
-
-
-def taylor_bwd_cost(bk, g, n, d, dv, chunk, itemsize, order=2):
-    """{kernel: (operations, {contraction: operations}, bytes)} of the
-    backward pair, from the loops of csrc/taylor_bwd.cu (chunk = its C),
-    counting every term once (not once per value tile): the causal triangle
-    of the C×C intra tiles ((C + 1) / 2 pairs per row, for n a multiple of
-    C), the den/dden rows, the first moments and the folds of the
-    contractions.  The contractions are those that csrc/taylor_bwd.cu runs
-    on the tensor cores (keys of BWD_TF32_PRODUCTS), counted once each (one
-    z2 product serves den and dq, one carry product dk and dv), and are part
-    of the operations.  Bytes: each input read once, each output written
-    once; den/dden are pass 1's outputs and pass 2's inputs, and not the
-    pair's."""
-    sq = 2 * d * d if order >= 2 else 0           # one d×d contraction
-    cube = 2 * d * d * dv if order >= 2 else 0    # one d×d×dv contraction
-    fold = 2 * d * dv if order >= 2 else 0        # one fold of a d×dv product
-    lin = 2 * d * dv
-    rows = g * n
-    tri = (chunk + 1) / 2                         # pairs j <= i per row of a chunk
-    dq_tensor = {"s2_read": bk * rows * cube, "z2_read": bk * rows * sq,
-                 "s2_update": bk * n * cube, "z2_update": bk * n * sq}
-    dq_ops = bk * (
-        rows * tri * (2 * d + 2 * dv + 2 * d)      # scores, dp, ds·K
-        + rows * (2 * d + 2 * dv)                  # den's q·z1, Σ dout·out
-        + rows * (lin + 2 * d)                     # dq: S1, z1 terms
-        + rows * (fold + (4 * d if order >= 2 else 0))  # folds: S2 read; z2 read (den, dq)
-        + n * (lin + d)                            # S1, z1 update
-    ) + sum(dq_tensor.values())
-    dkv_tensor = {"carry_read": bk * n * cube, "dz2_read": bk * n * sq,
-                  "ds2_update": bk * rows * cube, "dz2_update": bk * rows * sq}
-    dkv_ops = bk * (
-        n * (2 * lin + 2 * fold)                   # dS1 terms of dk, dv; the carry read's folds
-        + rows * tri * (2 * d + 2 * dv + 2 * dv + 2 * d)  # scores, Pᵀdnum, dp, dsᵀQ
-        + rows * (lin + 2 * d + dv)                # dS1, dz1, dS0 update
-    ) + sum(dkv_tensor.values())
-    f32 = 4
-    inputs = itemsize * bk * (g * n * d + n * d + n * dv + g * n * dv)  # q, k, v, dout
-    out_b = itemsize * bk * g * n * dv
-    rows_b = 2 * f32 * bk * g * n                                       # den, dden
-    dq_b = f32 * bk * g * n * d
-    dkdv_b = f32 * bk * n * (d + dv)
-    return {
-        "taylor_bwd_dq": (dq_ops, dq_tensor, inputs + out_b + dq_b + rows_b),
-        "taylor_bwd_dkv": (dkv_ops, dkv_tensor, inputs + rows_b + dkdv_b),
-        "pair": (dq_ops + dkv_ops, {**dq_tensor, **dkv_tensor},
-                 inputs + out_b + dq_b + dkdv_b),
-    }
-
-
-def bound_ms(flops, nbytes, tensor=None, products=None):
-    """(least ms on the card, what bounds it): the operations at their type's
-    peak against the bytes at HBM's rate.  The operations run at the f32
-    CUDA-core peak, except the ``tensor`` contractions ({name: operations}),
-    which take ``products[name]`` TF32 products each at the tensor-core peak."""
-    tensor = tensor or {}
-    t_ops = ((flops - sum(tensor.values())) / F32_FLOPS
-             + sum(f * products[k] for k, f in tensor.items()) / TF32_FLOPS)
-    t_bytes = nbytes / HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
 def rel_err(torch, out, ref) -> float:
     return float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
 
@@ -551,6 +457,9 @@ def fwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3]"):
     plain_ms = cuda_ms(
         torch, lambda: ref_mod.taylor_attention_ref(q[None], k[None], v[None]), 3
     )
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels.taylor_attention.cost import FWD_TF32_PRODUCTS, taylor_fwd_cost
+
     flops, tensor, nbytes = taylor_fwd_cost(
         bk, m["g"], m["n"], m["d"], m["dv"], K.TILES[qp.shape[-1]][1], q.element_size())
     products = FWD_TF32_PRODUCTS[dname]
@@ -671,6 +580,9 @@ def bwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3b]"):
         "pair": cuda_ms(torch, lambda: ref_mod.taylor_attention_bwd_ref(
             *b(q, k, v, dout, out)), 3),
     }
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels.taylor_attention.cost import BWD_TF32_PRODUCTS, taylor_bwd_cost
+
     cost = taylor_bwd_cost(bk, m["g"], m["n"], m["d"], m["dv"], K.BWD_CHUNK,
                            q.element_size())
     products = BWD_TF32_PRODUCTS[dname]
@@ -817,6 +729,11 @@ def phase_train(torch, K, cfg, make_task, adamw, cosine_warmup, train_state_init
                 make_train_step, make_loss_fn, loss_and_grads, tree_leaves):
     """Phase 7: full-width training steps on one fixed batch, through the
     kernels; then the kernel gradients against the torch recompute's."""
+    # phases 5-6's serving engines sit in reference cycles (an engine and its
+    # speculator): free them and their slot caches before the peak is read,
+    # whenever the collector would have run
+    gc.collect()
+    torch.cuda.empty_cache()
     tr = TRAIN
     batch = bigram_batch(torch, make_task, cfg)
     opt = adamw(cosine_warmup(tr["lr"], tr["warmup"], tr["steps"]))
@@ -3035,22 +2952,27 @@ def dist_train(torch, K, spec, cfg, mesh, dev, opt=None):
     ``dist_state``, the kernels' counts set to 0 just before.  Returns the
     state, placements and a summary (losses, ms and launches per step, GiB
     held after the state is built and peak GiB)."""
+    from repro_torch.distributed import collectives as col
+
     dist_peak(torch, dev, reset=True)
     state, step, pl, batch = dist_state(torch, spec, cfg, mesh, dev, opt)
     held = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
     K.taylor_fwd.launches = K.taylor_bwd.dq_launches = K.taylor_bwd.dkv_launches = 0
-    losses, times, per_step = [], [], []
-    for _ in range(spec["steps"]):
+    losses, times, per_step, records = [], [], [], []
+    for i in range(spec["steps"]):
         c0 = taylor_counters(K)
         dist_sync(torch, dev)
         t0 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
+        with col.recording() as log:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
         dist_sync(torch, dev)
         times.append(time.perf_counter() - t0)
         per_step.append(tuple(a - b for a, b in zip(taylor_counters(K), c0)))
+        if i == 1:  # step 2's collectives, for phase 20 (c)
+            records = [tuple(r) for r in log]
     out = dict(losses=losses, step_ms=[t * 1e3 for t in times], launches=per_step,
-               held_gib=held, peak_gib=dist_peak(torch, dev))
+               held_gib=held, peak_gib=dist_peak(torch, dev), records=records)
     return state, pl, out
 
 
@@ -4568,6 +4490,146 @@ def zoo_rows(zoo, name):
     return {case: dict(row[name], shape=row["shape"]) for case, row in zoo["cases"].items()}
 
 
+# Phase 20: the dry run against the card.  (a)'s peak ratio, predicted
+# over measured, must lie in [1 / PEAK_RATIO, PEAK_RATIO].
+PEAK_RATIO = 2.0
+DRYRUN_CELL = ("smollm-135m", "train_4k")  # (d): one production cell on the 16×16 pod
+
+
+def record_table(records):
+    """{(kind, site): [calls, result bytes]} of a rank's collective records."""
+    out = {}
+    for kind, nbytes, _, site in records:
+        row = out.setdefault((kind, site), [0, 0])
+        row[0] += 1
+        row[1] += nbytes
+    return out
+
+
+def phase_dryrun(torch, K, cfg, train, dist, smi):
+    """Phase 20: the analysis layer's predictions held to the card.  (a)
+    phase 7's step traced on a 1×1 ``AbstractMesh`` (FLOPs, peak live bytes)
+    against one real step of the same config under ``FlopCounterMode``; (b)
+    its roofline on the H100 beside phase 7's ms/step; (c) phase 16 (a)'s
+    rank programs traced on an abstract 1×2 mesh against the records each
+    rank made in its step 2; (d) one production cell of the dry run."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.flops import trace
+    from repro_torch.analysis.roofline import H100, roofline_report
+    from repro_torch.data import make_task
+    from repro_torch.distributed import api as dist_api
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh, abstract_production_mesh
+    from repro_torch.launch.train import make_sharded_state_and_step
+    from repro_torch.models.config import count_active_params
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train import make_train_step, train_state_init
+
+    out = {}
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+    # (a) phase 7's step: predicted on a 1×1 abstract mesh, then run once
+    tr = TRAIN
+    opt = adamw(cosine_warmup(tr["lr"], tr["warmup"], tr["steps"]))
+    batch = bigram_batch(torch, make_task, cfg)
+    shapes = {k_: torch.empty_like(x, device=meta) for k_, x in batch.items()}
+    t0 = time.perf_counter()
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    state, step, _, _ = make_sharded_state_and_step(cfg, opt, mesh,
+                                                    dist_api.rules_for_mesh(mesh), shapes,
+                                                    device=meta)
+    pred = trace(step, state, shapes)
+    del state
+    predict_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = train_state_init(torch.Generator(device="cuda").manual_seed(0), cfg, opt)
+    real_step = make_train_step(cfg, opt)
+    c0 = taylor_counters(K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, m = real_step(state, batch)
+        float(m["loss"])
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated()
+    launches = tuple(a - b for a, b in zip(taylor_counters(K), c0))
+    del state
+    real_flops = fc.get_total_flops()
+    ratio = pred.peak_bytes / real_peak
+    print(f"[20a] smollm-135m {cfg.dtype} remat={cfg.remat} AdamW b={tr['b']} n={tr['n']}: "
+          f"predicted (1x1 abstract mesh, traced in {predict_s:.1f} s) matmul FLOPs "
+          f"{pred.counts['matmul_flops']:.6e}, all FLOPs {pred.counts['flops']:.6e}, bytes "
+          f"{pred.counts['bytes']:.6e}; one real step under FlopCounterMode: {real_flops:.6e} "
+          f"FLOPs, launches fwd,dq,dkv {launches}")
+    print(f"[20a] peak bytes predicted {pred.peak_bytes} ({pred.peak_bytes / 2**30:.3f} GiB) vs "
+          f"measured {real_peak} ({real_peak / 2**30:.3f} GiB): ratio {ratio:.4f} "
+          f"(fails outside [{1 / PEAK_RATIO}, {PEAK_RATIO}]) on {smi}")
+    if real_flops != pred.counts["matmul_flops"]:
+        fail(f"[20a] the real step's FLOPs {real_flops} differ from the predicted "
+             f"{pred.counts['matmul_flops']}")
+    if launches != kernel_launches_per_step(torch, cfg):
+        fail(f"[20a] the real step launched {launches}, expected "
+             f"{kernel_launches_per_step(torch, cfg)}")
+    if not 1 / PEAK_RATIO <= ratio <= PEAK_RATIO:
+        fail(f"[20a] predicted peak bytes / measured = {ratio}")
+    out["a"] = dict(matmul_flops=pred.counts["matmul_flops"], flops=pred.counts["flops"],
+                    bytes=pred.counts["bytes"], real_flops=real_flops,
+                    peak_pred=pred.peak_bytes, peak_real=real_peak, peak_ratio=ratio,
+                    launches=launches)
+
+    # (b) the roofline on the H100 beside phase 7's measured step
+    model_flops = 6.0 * count_active_params(cfg) * tr["b"] * tr["n"]
+    rep = roofline_report(pred.counts, pred.records, 1, H100, model_flops=model_flops)
+    step_s = train["step_ms"] / 1e3
+    share = model_flops / (step_s * H100.peak_flops)
+    print(f"[20b] roofline on {H100.name}: compute {rep['compute_s'] * 1e3:.4f} ms, memory "
+          f"{rep['memory_s'] * 1e3:.4f} ms, collective {rep['collective_s'] * 1e3:.4f} ms; "
+          f"t_lower_bound {rep['t_lower_bound_s'] * 1e3:.4f} ms ({rep['dominant']}) vs phase "
+          f"7's {train['step_ms']:.1f} ms/step; model FLOPs {model_flops:.6e}, share of the "
+          f"bf16 peak (model_flops / (step s x {H100.peak_flops:.0f})) {share:.4%} on {smi}")
+    out["b"] = dict(t_lower_bound_ms=rep["t_lower_bound_s"] * 1e3, dominant=rep["dominant"],
+                    step_ms=train["step_ms"], model_flops=model_flops, peak_share=share)
+
+    # (c) phase 16 (a)'s rank programs on an abstract 1×2 mesh vs each rank's step 2
+    dcfg = dist_cfg(torch, DIST, "arch", DIST["ab_groups"])
+    dbatch = {k_: torch.empty_like(x, device=meta)
+              for k_, x in dist_batch(torch, DIST, dcfg, torch.device("cpu")).items()}
+    out["c"] = []
+    for r, rank_out in enumerate(dist["a"]):
+        mesh = AbstractMesh((1, DIST["world"]), ("data", "model"), (0, r))
+        state, step, _, _ = make_sharded_state_and_step(dcfg, dist_opt(DIST, dcfg), mesh,
+                                                        dist_api.rules_for_mesh(mesh), dbatch,
+                                                        device=meta)
+        want = record_table(tuple(x) for x in trace(step, state, dbatch).records)
+        got = record_table(rank_out["records"])
+        del state
+        bad = sorted(k_ for k_ in set(want) | set(got) if want.get(k_) != got.get(k_))
+        print(f"[20c] {DIST['arch']} x{DIST['ab_groups']} tp 1x2 rank {r}: predicted "
+              f"{sum(v[0] for v in want.values())} collectives, {sum(v[1] for v in want.values())} "
+              f"result bytes over {len(want)} (kind, site) rows; step 2 recorded "
+              f"{sum(v[0] for v in got.values())}, {sum(v[1] for v in got.values())}; rows that "
+              f"differ: {[(k_, want.get(k_), got.get(k_)) for k_ in bad[:5]]}")
+        if bad:
+            fail(f"[20c] rank {r}'s collectives differ from the abstract mesh's prediction")
+        out["c"].append(dict(calls=sum(v[0] for v in got.values()),
+                             bytes=sum(v[1] for v in got.values()), rows=len(got)))
+
+    # (d) one production cell
+    t0 = time.perf_counter()
+    rec, _ = dryrun.lower_cell(*DRYRUN_CELL, abstract_production_mesh())
+    print(f"[20d] {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]} x pod in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps({k_: v for k_, v in rec.items() if k_ != "roofline"})
+          + " roofline " + json.dumps({k_: v for k_, v in rec["roofline"].items()
+                                       if k_ not in ("collective_breakdown", "walker")}))
+    out["d"] = dict(fits_hbm=rec["fits_hbm"], peak=rec["hbm_peak_bytes_per_chip"],
+                    dominant=rec["roofline"]["dominant"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[20] phase 20 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     # phase 12 trains billion-parameter models next to what serving left
     # allocated: growable segments keep the allocator from fragmenting
@@ -4855,7 +4917,10 @@ def main() -> int:
     # ---- 19. the cross families and Adafactor on a mesh (phase 16's spawn) ----
     print(cross_mesh_summary(dist["cross"]))
 
-    # ---- 20. kernels line ----
+    # ---- 20. the dry run against the card ----
+    dry = phase_dryrun(torch, K, cfg, train, dist, smi)
+
+    # ---- 21. kernels line ----
     row = krows["bfloat16"]
     shape = dict(MAIN, dtype="bfloat16")
     src = "src/repro_torch/kernels/taylor_attention/"
@@ -4872,6 +4937,7 @@ def main() -> int:
             "hybrid_lm_apply": hybrid["lm_apply_launches"]["taylor_fwd"],
             f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"]["taylor_fwd"],
             "phase11_serving": spec["launches"],
+            "phase20_step": dry["a"]["launches"][0],
             **zoo_launches(zoo, "taylor_fwd"),
             **ssm_launches(ssm, "taylor_fwd"),
             **cross_launches(cross, "taylor_fwd"),
@@ -4899,6 +4965,7 @@ def main() -> int:
             "launches": train["launches"][name],
             "launches_by_path": {
                 "train_8_steps": train["launches"][name],
+                "phase20_step": dry["a"]["launches"][1 if name == "taylor_bwd_dq" else 2],
                 f"order1_train_{BASELINE_STEPS}_steps": base_launches["train"][name],
                 "hybrid_lm_apply": hybrid["lm_apply_launches"][name],
                 f"hybrid_train_{HYBRID_STEPS}_steps": hybrid["train_launches"][name],
@@ -4921,7 +4988,7 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 21. device line ----
+    # ---- 22. device line ----
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,7 @@ from repro_torch.core import (
     taylor_prefill_state,
     taylor_state_read,
 )
+from repro_torch.device import on_card
 from repro_torch.kernels.taylor_attention.kernel import MAX_HEAD_DIM
 from repro_torch.kernels.taylor_attention.ops import taylor_attention_kernel_trainable
 
@@ -130,7 +131,7 @@ class TaylorBackend(AttentionBackend):
     def resolve_impl(self, cfg, device: torch.device) -> str:
         if cfg.attn_impl != "auto":
             return cfg.attn_impl
-        if device.type == "cuda" and _kernel_fits(cfg):
+        if on_card(device) and _kernel_fits(cfg):
             return "cuda"
         return "torch"
 

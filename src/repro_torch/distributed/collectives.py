@@ -34,16 +34,32 @@ collectives' all-gather, which DTensor's redistribution calls, crashes
 under ``gloo`` with CUDA tensors.)  An axis of size 1 makes every call the
 identity.
 
-A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` or the
-single-rank ``launch.mesh.SingleMesh``.  ``calls`` counts the c10d calls
-this process made, by kind (the serve engine reports collectives per
-token from it); ``sent_bytes`` the bytes each all-to-all sent, by kind.
+A mesh here is a ``torch.distributed.device_mesh.DeviceMesh``, the
+single-rank ``launch.mesh.SingleMesh`` or an ``AbstractMesh``:
+one rank of a mesh that has no processes, over which every collective
+communicates nothing and returns a tensor of its result's shape (the dry
+run traces a rank's program on meta tensors that way).  ``calls`` counts
+the collectives this process issued (over an abstract mesh too), by kind
+(the serve engine reports collectives per token from it); ``sent_bytes``
+the bytes each all-to-all sent, by kind.
+
+``recording()`` collects a ``Record`` of every collective made while it is
+open, on any mesh, real or abstract, in any thread (the card runs the
+backward on a thread of its own): its kind, the bytes of its result on
+this rank, its group's size and its site.  The site is the stack of names
+that ``named`` pushes (the model's layer, the ``distributed.spmd`` hook:
+``"layer3/attn"``); a collective of a backward keeps the site of the
+forward call it transposes, with ``"/bwd"`` added.
+``analysis/collectives.py`` and ``analysis/roofline.py`` read records.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 from collections import Counter
-from typing import Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -53,6 +69,95 @@ Axis = Union[str, Tuple[str, ...]]
 
 calls: Counter = Counter()
 sent_bytes: Counter = Counter()
+
+
+class AbstractMesh:
+    """One rank, at ``coords``, of a ``shape`` mesh over ``axes`` that has no
+    processes.  It answers what a ``DeviceMesh`` answers of its shape and of
+    this rank's place; the collectives below communicate nothing over it
+    (their results hold no data: trace on meta tensors)."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 coords: Optional[Sequence[int]] = None):
+        self.mesh_shape = tuple(int(s) for s in shape)
+        self.mesh_dim_names = tuple(axes)
+        self.coords = tuple(coords) if coords is not None else (0,) * len(self.mesh_shape)
+        if not (len(self.mesh_shape) == len(self.mesh_dim_names) == len(self.coords)) or any(
+                not 0 <= c < s for c, s in zip(self.coords, self.mesh_shape)):
+            raise ValueError(f"bad abstract mesh: shape {shape}, axes {axes}, coords {coords}")
+
+    def size(self, dim: Optional[int] = None) -> int:
+        return math.prod(self.mesh_shape) if dim is None else self.mesh_shape[dim]
+
+    def get_local_rank(self, dim: int = 0) -> int:
+        return self.coords[dim]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.mesh_shape
+
+    def __repr__(self) -> str:
+        return (f"AbstractMesh({dict(zip(self.mesh_dim_names, self.mesh_shape))}, "
+                f"coords={self.coords})")
+
+
+class Record(NamedTuple):
+    """One collective as this rank saw it."""
+
+    kind: str    # "all-gather", "reduce-scatter", "all-reduce" or "all-to-all"
+    nbytes: int  # bytes of its result on this rank
+    group: int   # ranks in its group
+    site: str    # where it was called: the ``named`` stack, "/"-joined ("-" if empty)
+
+
+_LOGS: List[List[Record]] = []  # the open recordings
+_SITE: contextvars.ContextVar[Tuple[str, ...]] = contextvars.ContextVar(
+    "repro_torch_collective_site", default=())
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a list that receives a ``Record`` of each collective made until
+    the block ends."""
+    log: List[Record] = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+@contextlib.contextmanager
+def named(name: str):
+    """Within it, the collectives' site has ``name`` as its last part."""
+    token = _SITE.set(_SITE.get() + (name,))
+    try:
+        yield
+    finally:
+        _SITE.reset(token)
+
+
+def current_site() -> str:
+    return "/".join(_SITE.get()) or "-"
+
+
+def _communicate(kind: str, fn, result: Tensor, *args, mesh, axis: Axis,
+                 site: Optional[str]) -> None:
+    """Counts and records one collective of result ``result``, then runs
+    ``fn(result, *args, group=...)`` over ``axis``: nothing over an
+    ``AbstractMesh``."""
+    calls[kind.replace("-", "_")] += 1
+    if _LOGS:
+        rec = Record(kind, result.numel() * result.element_size(), axis_size(mesh, axis),
+                     current_site() if site is None else site)
+        for log in _LOGS:
+            log.append(rec)
+    if not isinstance(mesh, AbstractMesh):
+        fn(result, *args, group=axis_group(mesh, axis))
+
+
+def _bwd(site: str) -> str:
+    return site + "/bwd"
 
 
 def _names(axis: Axis) -> Tuple[str, ...]:
@@ -82,42 +187,44 @@ def axis_group(mesh, axis: Axis):
     return mesh[names]._flatten().get_group()
 
 
-def _gather(x: Tensor, dim: int, mesh, axis: Axis) -> Tensor:
+def _gather(x: Tensor, dim: int, mesh, axis: Axis, site: Optional[str] = None) -> Tensor:
     if x.dtype == torch.bool or (x.is_floating_point() and x.element_size() == 1):
-        return _gather(x.view(torch.uint8), dim, mesh, axis).view(x.dtype)  # bools, fp8: bytes
+        # bools, fp8: bytes
+        return _gather(x.view(torch.uint8), dim, mesh, axis, site).view(x.dtype)
     n = axis_size(mesh, axis)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + xt.shape[1:])
-    calls["all_gather"] += 1
-    dist.all_gather_into_tensor(out, xt, group=axis_group(mesh, axis))
+    _communicate("all-gather", dist.all_gather_into_tensor, out, xt, mesh=mesh, axis=axis,
+                 site=site)
     return out.movedim(0, dim)
 
 
-def _reduce_scatter(x: Tensor, dim: int, mesh, axis: Axis) -> Tensor:
+def _reduce_scatter(x: Tensor, dim: int, mesh, axis: Axis,
+                    site: Optional[str] = None) -> Tensor:
     n = axis_size(mesh, axis)
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
-    calls["reduce_scatter"] += 1
-    dist.reduce_scatter_tensor(out, xt, group=axis_group(mesh, axis))
+    _communicate("reduce-scatter", dist.reduce_scatter_tensor, out, xt, mesh=mesh, axis=axis,
+                 site=site)
     return out.movedim(0, dim)
 
 
-def _all_reduce(x: Tensor, mesh, axis: Axis) -> Tensor:
+def _all_reduce(x: Tensor, mesh, axis: Axis, site: Optional[str] = None) -> Tensor:
     x = x.clone()
-    calls["all_reduce"] += 1
-    dist.all_reduce(x, group=axis_group(mesh, axis))
+    _communicate("all-reduce", dist.all_reduce, x, mesh=mesh, axis=axis, site=site)
     return x
 
 
-def _all_to_all(x: Tensor, split_dim: int, concat_dim: int, mesh, axis: Axis) -> Tensor:
+def _all_to_all(x: Tensor, split_dim: int, concat_dim: int, mesh, axis: Axis,
+                site: Optional[str] = None) -> Tensor:
     n = axis_size(mesh, axis)
     xt = x.movedim(split_dim, 0)
     pieces = xt.reshape((n, xt.shape[0] // n) + xt.shape[1:]).contiguous()
     out = torch.empty_like(pieces)
-    calls["all_to_all"] += 1
     sent_bytes["all_to_all"] += pieces.numel() * pieces.element_size()
-    dist.all_to_all_single(out.view(torch.uint8), pieces.view(torch.uint8),
-                           group=axis_group(mesh, axis))
+    # as bytes (the record counts the same bytes)
+    _communicate("all-to-all", dist.all_to_all_single, out.view(torch.uint8),
+                 pieces.view(torch.uint8), mesh=mesh, axis=axis, site=site)
     # out[j] is rank j's piece for this rank: put the pieces side by side
     # along ``concat_dim`` in rank order
     out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)
@@ -134,27 +241,27 @@ def _slice(x: Tensor, dim: int, mesh, axis: Axis) -> Tensor:
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh, axis, grad):
-        ctx.args = (dim, mesh, axis, grad)
+        ctx.args = (dim, mesh, axis, grad, current_site())
         return _gather(x, dim, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        dim, mesh, axis, grad = ctx.args
+        dim, mesh, axis, grad, site = ctx.args
         if grad == "sum":
-            return _reduce_scatter(g, dim, mesh, axis), None, None, None, None
+            return _reduce_scatter(g, dim, mesh, axis, _bwd(site)), None, None, None, None
         return _slice(g, dim, mesh, axis).contiguous(), None, None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh, axis):
-        ctx.args = (dim, mesh, axis)
+        ctx.args = (dim, mesh, axis, current_site())
         return _reduce_scatter(x, dim, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        dim, mesh, axis = ctx.args
-        return _gather(g, dim, mesh, axis), None, None, None
+        dim, mesh, axis, site = ctx.args
+        return _gather(g, dim, mesh, axis, _bwd(site)), None, None, None
 
 
 class _AllReduce(torch.autograd.Function):
@@ -170,25 +277,26 @@ class _AllReduce(torch.autograd.Function):
 class _SumGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        ctx.args = (mesh, axis)
+        ctx.args = (mesh, axis, current_site())
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axis = ctx.args
-        return _all_reduce(g, mesh, axis), None, None
+        mesh, axis, site = ctx.args
+        return _all_reduce(g, mesh, axis, _bwd(site)), None, None
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split_dim, concat_dim, mesh, axis):
-        ctx.args = (split_dim, concat_dim, mesh, axis)
+        ctx.args = (split_dim, concat_dim, mesh, axis, current_site())
         return _all_to_all(x, split_dim, concat_dim, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        split_dim, concat_dim, mesh, axis = ctx.args
-        return _all_to_all(g, concat_dim, split_dim, mesh, axis), None, None, None, None
+        split_dim, concat_dim, mesh, axis, site = ctx.args
+        return (_all_to_all(g, concat_dim, split_dim, mesh, axis, _bwd(site)),
+                None, None, None, None)
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -205,13 +313,13 @@ class _ScaleGrad(torch.autograd.Function):
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh, axis):
-        ctx.args = (dim, mesh, axis)
+        ctx.args = (dim, mesh, axis, current_site())
         return _slice(x, dim, mesh, axis).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        dim, mesh, axis = ctx.args
-        return _gather(g, dim, mesh, axis), None, None, None
+        dim, mesh, axis, site = ctx.args
+        return _gather(g, dim, mesh, axis, _bwd(site)), None, None, None
 
 
 def _trivial(mesh, axis) -> bool:

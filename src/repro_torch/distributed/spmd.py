@@ -102,6 +102,11 @@ once.  ``moe_whole`` runs the dense and capacity paths (and ``ep_a2a``
 over an ep axis of one rank) on the whole batch on every rank, as GSPMD
 gives the single-device numbers: global capacity and positions, the aux
 loss from global means.
+
+Inside a region every hook names its collectives (``collectives.named``):
+``site`` by its kind, the others by their own names, under the layer that
+the model's forwards name with ``layer`` — so a record of
+``collectives.recording`` says ``"layer3/attn"`` or ``"layer3/attn/bwd"``.
 """
 
 from __future__ import annotations
@@ -118,6 +123,26 @@ from repro_torch.distributed import collectives as col
 from repro_torch.tree import tree_leaves
 
 Tensor = torch.Tensor
+
+
+def _named(name: str):
+    """Inside a region, the decorated hook's collectives have ``name`` as the
+    last part of their site (``collectives.named``)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if _REGION.get() is None:
+                return fn(*args, **kwargs)
+            with col.named(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
+def layer(name: str):
+    """Inside a region, names the collectives of one layer (``"layer3"``): the
+    model's forwards wrap each block in it."""
+    return col.named(name) if _REGION.get() is not None else contextlib.nullcontext()
 
 
 class Layout(NamedTuple):
@@ -171,6 +196,7 @@ def rows(x: Tensor) -> Tensor:
     return col.slice_values(x, 0, r.lay.mesh, r.lay.dp)
 
 
+@_named("all_rows")
 def all_rows(x: Tensor) -> Tensor:
     """The whole of a per-row tensor from this rank's rows (a collective
     where the batch splits over "dp"); else ``x``."""
@@ -267,6 +293,7 @@ def _split_axes(lay: Layout, seq_split: bool) -> Tuple[str, ...]:
     return lay.dp_names + ((lay.sp,) if seq_split and lay.sp else ())
 
 
+@_named("on_rows")
 def on_rows(tree):
     """Parameters read by compute on this rank's batch rows and the whole
     sequence (the embedding)."""
@@ -274,6 +301,7 @@ def on_rows(tree):
     return tree if r is None else _use_tree(r, tree, split=r.lay.dp_names)
 
 
+@_named("on_stream")
 def on_stream(tree):
     """Parameters read by compute on the residual stream's blocks (norms,
     the unembedding)."""
@@ -281,6 +309,7 @@ def on_stream(tree):
     return tree if r is None else _use_tree(r, tree, split=_split_axes(r.lay, True))
 
 
+@_named("to_stream")
 def to_stream(x: Tensor) -> Tensor:
     """The embedding's output ``[b_loc, n, d]`` -> the residual stream's
     blocks."""
@@ -309,6 +338,7 @@ def sequence(n: int):
         _REGION.reset(token)
 
 
+@_named("from_stream")
 def from_stream(x: Tensor) -> Tensor:
     """The stream's blocks -> its whole sequence on this rank's rows (the
     encoder's output, which every cross site reads whole).  Each rank's
@@ -329,6 +359,7 @@ def stream_block(x: Tensor) -> Tensor:
     return col.slice_values(x, 1, r.lay.mesh, r.lay.sp)
 
 
+@_named("mean_nll")
 def mean_nll(nll: Tensor) -> Tensor:
     """The mean over the whole batch of the per-token losses, from this
     rank's block of them."""
@@ -426,6 +457,13 @@ def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = No
     r = _REGION.get()
     if r is None:
         return fn(params, h, cfg, positions, state) if carry else fn(params, h, cfg, positions)
+    with col.named(kind):
+        return _site(r, kind, fn, params, h, cfg, positions, state, causal)
+
+
+def _site(r: _Region, kind: str, fn, params, h: Tensor, cfg, positions, state, causal: bool):
+    """``site`` inside a region."""
+    carry = state is not _NO_STATE
     lay = r.lay
     if (kind in ("attn", "mamba") and causal and cfg.attn_sharding == "cp"
             and lay.sp is not None and (lay.n // lay.size(lay.sp)) % cfg.attn_chunk == 0):
@@ -469,6 +507,7 @@ def site(kind: str, fn, params, h: Tensor, cfg, positions: Optional[Tensor] = No
     return _exit(y, lay, split is not None), state
 
 
+@_named("moe_rows")
 def moe_rows(fn, params, h: Tensor, pad):
     """A MoE block's routed experts under expert parallelism, on the normed
     residual's block ``h``: ``fn(params, x, mesh, dp, ep)`` runs on this
@@ -494,6 +533,7 @@ def moe_rows(fn, params, h: Tensor, pad):
     return (col.scatter(y, 1, lay.mesh, lay.sp) if lay.sp else y), aux
 
 
+@_named("moe_whole")
 def moe_whole(fn, params, h: Tensor):
     """A MoE block's routed experts on the whole batch: the stream's blocks
     gathered into ``x`` [b, n, d] on every rank, ``fn(params, x)`` with every

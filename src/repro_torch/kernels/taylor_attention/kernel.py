@@ -7,7 +7,10 @@ one shared library per source, loaded with ctypes) and count each launch
 (``taylor_fwd.launches``, ``taylor_bwd.dq_launches``,
 ``taylor_bwd.dkv_launches``); on CPU tensors they run the plain PyTorch
 versions of ``ref.py``.  A failed build or launch raises — nothing falls
-back to the plain version on the card.
+back to the plain version on the card.  The three kernels are the
+``torch.library`` ops ``repro_torch::taylor_fwd``, ``taylor_bwd_dq`` and
+``taylor_bwd_dkv``, each with a fake implementation (meta and fake tensors:
+shapes only, no launch, no count) and a flop formula from ``cost.py``.
 
 They replace the TPU kernels of ``repro/kernels/taylor_attention/``:
 ``kernel.py::_taylor_fwd_kernel`` (``csrc/taylor_fwd.cu``) and
@@ -27,7 +30,10 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.device import on_card
+from repro_torch.kernels.taylor_attention.cost import taylor_bwd_cost, taylor_fwd_cost
 from repro_torch.kernels.taylor_attention.ref import (
     taylor_attention_ref,
     taylor_bwd_dkv_ref,
@@ -140,10 +146,12 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True for all-CPU tensors, False for all-CUDA ones; raises otherwise."""
+    """True for all-CPU tensors, False for all-CUDA ones (or all-meta ones
+    inside ``device.card_trace``, which stand for CUDA ones); raises
+    otherwise."""
     if all(t.device.type == "cpu" for t in tensors):
         return True
-    if all(t.is_cuda for t in tensors):
+    if all(on_card(t.device) for t in tensors):
         return False
     raise ValueError("the Taylor kernels need all-CPU or all-CUDA tensors, got "
                      + ", ".join(str(t.device) for t in tensors))
@@ -156,6 +164,109 @@ def _check_cuda_inputs(what: str, *tensors: torch.Tensor) -> None:
     ):
         raise TypeError(f"{what} takes float32 or bfloat16 tensors of one dtype, got "
                         + ", ".join(str(t.dtype) for t in tensors))
+
+
+def _fwd_chunk(d: int) -> int:
+    """The forward's chunk at head dim ``d`` (the tile ``d`` pads up to)."""
+    return TILES[next((t for t in sorted(TILES) if t >= d), MAX_HEAD_DIM)][1]
+
+
+# ---------------------------------------------------------------------------
+# The kernels as ``torch.library`` ops.  Each op has three implementations:
+# CUDA (the ctypes launch, counted), CPU (the plain version of ``ref.py``)
+# and fake (shapes and dtypes only; it serves meta and fake tensors, so a
+# traced program allocates and launches nothing).  Each has a flop formula
+# from ``cost.py`` for ``torch.utils.flop_counter.FlopCounterMode``: the
+# kernels are reached through ctypes, which the counter cannot see into.
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("repro_torch::taylor_fwd", mutates_args=(), device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, alpha: float,
+            order: int) -> torch.Tensor:
+    return taylor_attention_ref(q[None], k[None], v[None], alpha=alpha, order=order)[0]
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, alpha, order):
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
+    out = launch_fwd(_library("taylor_fwd"), q, k, v, alpha, order)
+    taylor_fwd.launches += 1
+    return out
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, alpha, order):
+    return v.new_empty(q.shape[:3] + v.shape[-1:])
+
+
+@register_flop_formula(torch.ops.repro_torch.taylor_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, alpha, order, *args, **kwargs) -> int:
+    bk, g, n, d = q_shape
+    return round(taylor_fwd_cost(bk, g, n, d, v_shape[-1], _fwd_chunk(d), 0, order)[0])
+
+
+@torch.library.custom_op("repro_torch::taylor_bwd_dq", mutates_args=(), device_types="cpu")
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+           out: torch.Tensor, alpha: float, order: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return tuple(t[0] for t in taylor_bwd_dq_ref(
+        q[None], k[None], v[None], dout[None], out[None], alpha=alpha, order=order))
+
+
+@_dq_op.register_kernel("cuda")
+def _dq_cuda(q, k, v, dout, out, alpha, order):
+    ins = [t.contiguous() for t in (q, k, v, dout, out)]
+    grads = launch_bwd_dq(_library("taylor_bwd"), *ins, alpha, order)
+    taylor_bwd.dq_launches += 1
+    return grads
+
+
+@_dq_op.register_fake
+def _dq_fake(q, k, v, dout, out, alpha, order):
+    f32 = torch.float32
+    return (q.new_empty(q.shape, dtype=f32), q.new_empty(q.shape[:3], dtype=f32),
+            q.new_empty(q.shape[:3], dtype=f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.taylor_bwd_dq)
+def _dq_flops(q_shape, k_shape, v_shape, dout_shape, out_shape_, alpha, order, *args,
+              **kwargs) -> int:
+    bk, g, n, d = q_shape
+    cost = taylor_bwd_cost(bk, g, n, d, v_shape[-1], BWD_CHUNK, 0, order)
+    return round(cost["taylor_bwd_dq"][0])
+
+
+@torch.library.custom_op("repro_torch::taylor_bwd_dkv", mutates_args=(), device_types="cpu")
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+            den: torch.Tensor, dden: torch.Tensor, alpha: float, order: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dk, dv = taylor_bwd_dkv_ref(q[None], k[None], v[None], dout[None], den[None],
+                                dden[None], alpha=alpha, order=order)
+    return dk[0], dv[0]
+
+
+@_dkv_op.register_kernel("cuda")
+def _dkv_cuda(q, k, v, dout, den, dden, alpha, order):
+    ins = [t.contiguous() for t in (q, k, v, dout, den, dden)]
+    grads = launch_bwd_dkv(_library("taylor_bwd"), *ins, alpha, order)
+    taylor_bwd.dkv_launches += 1
+    return grads
+
+
+@_dkv_op.register_fake
+def _dkv_fake(q, k, v, dout, den, dden, alpha, order):
+    f32 = torch.float32
+    return k.new_empty(k.shape, dtype=f32), v.new_empty(v.shape, dtype=f32)
+
+
+@register_flop_formula(torch.ops.repro_torch.taylor_bwd_dkv)
+def _dkv_flops(q_shape, k_shape, v_shape, dout_shape, den_shape, dden_shape, alpha, order,
+               *args, **kwargs) -> int:
+    bk, g, n, d = q_shape
+    cost = taylor_bwd_cost(bk, g, n, d, v_shape[-1], BWD_CHUNK, 0, order)
+    return round(cost["taylor_bwd_dkv"][0])
 
 
 def taylor_fwd(
@@ -179,7 +290,8 @@ def taylor_fwd(
     multiples of its value tile and chunk (``ops._kernel_layout`` pads
     them), and all three tensors float32 or bfloat16 of one dtype; they
     are made contiguous and 16-byte aligned (the kernel loads 16 bytes at
-    a time) by a copy where they are not.
+    a time) by a copy where they are not.  Runs the op
+    ``repro_torch::taylor_fwd``.
 
     Returns:
       ``[bk, g, n, dv]`` in v's dtype.
@@ -190,21 +302,14 @@ def taylor_fwd(
         raise ValueError(f"order must be 1 or 2, got {order}")
     if k.shape != (bk, n, d) or v.shape[:2] != (bk, n):
         raise ValueError(f"shape mismatch: q {q.shape}, k {k.shape}, v {v.shape}")
-    if _on_cpu(q, k, v):
-        return taylor_attention_ref(
-            q[None], k[None], v[None], alpha=alpha, order=order
-        )[0]
-    _check_cuda_inputs("taylor_fwd", q, k, v)
-    if d not in TILES:
-        raise ValueError(f"head dim {d} not in the kernel's tiles {sorted(TILES)}")
-    dvt, chunk = TILES[d]
-    if n % chunk or dv % dvt:
-        raise ValueError(f"n={n} must be a multiple of {chunk} and dv={dv} of {dvt}")
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
-    out = launch_fwd(_library("taylor_fwd"), q, k, v, alpha, order)
-    taylor_fwd.launches += 1
-    return out
+    if not _on_cpu(q, k, v):
+        _check_cuda_inputs("taylor_fwd", q, k, v)
+        if d not in TILES:
+            raise ValueError(f"head dim {d} not in the kernel's tiles {sorted(TILES)}")
+        dvt, chunk = TILES[d]
+        if n % chunk or dv % dvt:
+            raise ValueError(f"n={n} must be a multiple of {chunk} and dv={dv} of {dvt}")
+    return _fwd_op(q, k, v, float(alpha), int(order))
 
 
 taylor_fwd.launches = 0
@@ -214,7 +319,7 @@ def launch_fwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                alpha: float, order: int) -> torch.Tensor:
     """Runs ``taylor_fwd_launch`` of ``lib`` (see ``bind``) on checked,
     contiguous, 16-byte aligned CUDA tensors; raises on a launch error.
-    Counts nothing: ``taylor_fwd`` is the counted entry."""
+    Counts nothing: the op's CUDA implementation is the counted entry."""
     bk, g, n, d = q.shape
     dv = v.shape[-1]
     out = torch.empty((bk, g, n, dv), dtype=v.dtype, device=v.device)
@@ -255,7 +360,8 @@ def _bwd_checks(q, k, v, dout, order, *more) -> bool:
 def launch_bwd_dq(lib: ctypes.CDLL, q, k, v, dout, out, alpha: float, order: int):
     """Runs ``taylor_bwd_dq_launch`` of ``lib`` (see ``bind``) on checked,
     contiguous CUDA tensors: ``(dq, den, dden)`` float32; raises on a launch
-    error.  Counts nothing: ``taylor_bwd_dq`` is the counted entry."""
+    error.  Counts nothing: the op's CUDA implementation is the counted
+    entry."""
     bk, g, n, d = q.shape
     dq = torch.zeros((bk, g, n, d), dtype=torch.float32, device=q.device)
     den = torch.empty((bk, g, n), dtype=torch.float32, device=q.device)
@@ -298,17 +404,13 @@ def taylor_bwd_dq(
     """Backward pass 1 (kernel layout): ``(dq, den, dden)`` float32.
 
     ``dq [bk, g, n, d]``; ``den`` (clamped) and ``dden`` ``[bk, g, n]`` feed
-    pass 2.  Counts its launch in ``taylor_bwd.dq_launches``."""
+    pass 2.  Runs the op ``repro_torch::taylor_bwd_dq``, whose CUDA
+    implementation counts its launch in ``taylor_bwd.dq_launches``."""
     if out.shape != dout.shape:
         raise ValueError(f"out {out.shape} and dout {dout.shape} differ in shape")
-    if _bwd_checks(q, k, v, dout, order, out):
-        return tuple(t[0] for t in taylor_bwd_dq_ref(
-            q[None], k[None], v[None], dout[None], out[None], alpha=alpha, order=order))
-    _check_cuda_inputs("taylor_bwd", q, out)
-    ins = [t.contiguous() for t in (q, k, v, dout, out)]
-    dq, den, dden = launch_bwd_dq(_library("taylor_bwd"), *ins, alpha, order)
-    taylor_bwd.dq_launches += 1
-    return dq, den, dden
+    if not _bwd_checks(q, k, v, dout, order, out):
+        _check_cuda_inputs("taylor_bwd", q, out)
+    return _dq_op(q, k, v, dout, out, float(alpha), int(order))
 
 
 def taylor_bwd_dkv(
@@ -316,21 +418,16 @@ def taylor_bwd_dkv(
     den: torch.Tensor, dden: torch.Tensor, *, alpha: float, order: int = 2,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward pass 2 (kernel layout): ``(dk [bk, n, d], dv [bk, n, dv])``
-    float32 from pass 1's ``den``/``dden``.  Counts its launch in
-    ``taylor_bwd.dkv_launches``."""
+    float32 from pass 1's ``den``/``dden``.  Runs the op
+    ``repro_torch::taylor_bwd_dkv``, whose CUDA implementation counts its
+    launch in ``taylor_bwd.dkv_launches``."""
     bk, g, n, d = q.shape
-    if _bwd_checks(q, k, v, dout, order, den, dden):
-        dk, dv_ = taylor_bwd_dkv_ref(q[None], k[None], v[None], dout[None], den[None],
-                                     dden[None], alpha=alpha, order=order)
-        return dk[0], dv_[0]
-    if den.dtype != torch.float32 or dden.dtype != torch.float32 or not (
-        den.shape == dden.shape == (bk, g, n)
+    if not _bwd_checks(q, k, v, dout, order, den, dden) and (
+        den.dtype != torch.float32 or dden.dtype != torch.float32
+        or not den.shape == dden.shape == (bk, g, n)
     ):
         raise ValueError("den and dden must be float32 [bk, g, n] (pass 1's rows)")
-    ins = [t.contiguous() for t in (q, k, v, dout, den, dden)]
-    dk, dv_ = launch_bwd_dkv(_library("taylor_bwd"), *ins, alpha, order)
-    taylor_bwd.dkv_launches += 1
-    return dk, dv_
+    return _dkv_op(q, k, v, dout, den, dden, float(alpha), int(order))
 
 
 def taylor_bwd(

@@ -9,6 +9,12 @@ is built only from ranks that exist: one that needs more ranks than the
 group has raises (``make_host_mesh`` shrinks first, as the reference
 does), and so does one that would leave ranks outside it.  Without a
 process group (one process) the mesh is the 1×1 ``SingleMesh``.
+
+``AbstractMesh`` (``distributed/collectives.py``) stands for one rank of a
+mesh that has no processes (rank (0, 0) of the 16×16 production mesh,
+say): the collectives over it communicate nothing and return tensors of
+their results' shapes.  The dry run (``launch/dryrun.py``) traces a rank's
+program on it.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import AbstractMesh
 
 
 class SingleMesh:
@@ -41,6 +48,19 @@ class SingleMesh:
 
     def __repr__(self) -> str:
         return f"SingleMesh({dict.fromkeys(self.mesh_dim_names, 1)})"
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """``make_production_mesh``'s shape and axes as an ``AbstractMesh`` (its
+    first rank)."""
+    return AbstractMesh(*_production_topology(multi_pod))
+
+
+def _production_topology(multi_pod: bool):
+    """(shape, axes) of the reference's production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 def world_size() -> int:
@@ -65,9 +85,7 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The reference's production topology: 16×16 = 256 ranks as ("data",
     "model"); multi-pod = 2×16×16 = 512 with a leading "pod" axis.  Raises
     with fewer ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, device)
+    return _mesh(*_production_topology(multi_pod), device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None):

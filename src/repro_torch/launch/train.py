@@ -53,6 +53,7 @@ from repro_torch.launch.mesh import (
     set_rank_device,
 )
 from repro_torch.models import lm_init
+from repro_torch.models.lm import init_generator
 from repro_torch.models.config import ModelConfig, count_params
 from repro_torch.optim import cosine_warmup, make_optimizer
 from repro_torch.train import TrainLoopConfig, make_train_step, run_training, train_state_init
@@ -71,7 +72,8 @@ def make_sharded_state_and_step(cfg: ModelConfig, optimizer, mesh, rules, batch_
     """The train state on ``mesh``, its step, and where both live.
 
     Every rank draws the same whole params from ``seed`` on ``device`` (a
-    CUDA generator on a card), so a sharded run starts from the weights of
+    CUDA generator on a card; on the meta device the shapes alone, which the
+    dry run traces), so a sharded run starts from the weights of
     an unsharded run of the same seed; each rank keeps its blocks
     (``param_specs``) and its blocks of a fresh optimizer state: the whole
     state's shapes (``optimizer.init`` of the whole params on the meta
@@ -91,8 +93,7 @@ def make_sharded_state_and_step(cfg: ModelConfig, optimizer, mesh, rules, batch_
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = lm_init(gen, cfg, device=device)
+    params = lm_init(init_generator(seed, device), cfg, device=device)
     pspecs = param_specs(params, mesh, rules)
     meta = tree_map(lambda p: torch.empty_like(p, device="meta"), params)
     oshapes = optimizer.init(meta)

@@ -18,7 +18,8 @@ Tensor = torch.Tensor
 def trunc_normal(gen: torch.Generator, shape, std: float, dtype=torch.float32) -> Tensor:
     """``std`` × a standard normal truncated to [-2, 2], drawn on ``gen``'s device."""
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not x.is_meta:  # a meta tensor has no values to draw (``lm.MetaDraws``)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (x * std).to(dtype)
 
 

@@ -115,6 +115,22 @@ def _encoder_kinds(cfg: ModelConfig) -> List[str]:
 # ---------------------------------------------------------------------------
 
 
+class MetaDraws:
+    """Stands for a ``torch.Generator`` on the meta device: ``lm_init`` with it
+    draws nothing and gives meta tensors of the params' shapes and dtypes
+    (the reference's ``eval_shape`` of its init; the dry run's state)."""
+
+    device = torch.device("meta")
+
+
+def init_generator(seed: int, device: torch.device):
+    """The generator that ``lm_init`` draws a model's weights with on
+    ``device``: a seeded ``torch.Generator`` there, ``MetaDraws`` on meta."""
+    if device.type == "meta":
+        return MetaDraws()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def lm_init(
     gen: torch.Generator,
     cfg: ModelConfig,
@@ -127,7 +143,8 @@ def lm_init(
     Args:
       gen: a seeded ``torch.Generator``.  Draws happen on its device: a
         CPU generator gives the same weights on every device, a CUDA one
-        draws billions of parameters on the card in seconds.
+        draws billions of parameters on the card in seconds; ``MetaDraws``
+        gives the shapes alone.
       cfg: model config.
       dtype: param dtype (default ``cfg.param_dtype``).
       device: ``None`` (the CUDA card; raises without one) or e.g. "cpu".
@@ -207,8 +224,9 @@ def _encode(params, frames: Tensor, cfg: ModelConfig) -> Tensor:
     block = _remat(block_apply, cfg)
     with spmd.sequence(m):  # on a mesh: the encoder's stream, "sp" against m
         x = spmd.to_stream(frames.to(dtype) + pe.to(dtype)[None])
-        for kind, p in zip(_encoder_kinds(cfg), enc["blocks"]):
-            x, _ = block(p, kind, x, cfg, None, None, False)
+        for i, (kind, p) in enumerate(zip(_encoder_kinds(cfg), enc["blocks"])):
+            with spmd.layer(f"encoder{i}"):
+                x, _ = block(p, kind, x, cfg, None, None, False)
         x = norm_apply(spmd.on_stream(enc["final_norm"]), x, cfg.norm, cfg.norm_eps)
         return spmd.from_stream(x)
 
@@ -277,8 +295,9 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
     kv_src = _kv_source(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     block = _remat(block_apply, cfg)
-    for kind, lcfg, p in _layers(params, cfg):
-        x, a = block(p, kind, x, lcfg, positions, kv_src)
+    for i, (kind, lcfg, p) in enumerate(_layers(params, cfg)):
+        with spmd.layer(f"layer{i}"):
+            x, a = block(p, kind, x, lcfg, positions, kv_src)
         aux = aux + a
     return _logits(params, x, cfg), aux
 
@@ -338,8 +357,9 @@ def lm_prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int):
     x = _embed_tokens(params, tokens, cfg, positions)
     kv_src = _kv_source(params, batch, cfg)
     states = []
-    for kind, lcfg, p in _layers(params, cfg):
-        x, c = block_prefill(p, kind, x, lcfg, n_max, positions, kv_src)
+    for i, (kind, lcfg, p) in enumerate(_layers(params, cfg)):
+        with spmd.layer(f"layer{i}"):
+            x, c = block_prefill(p, kind, x, lcfg, n_max, positions, kv_src)
         states.append(c)
     logits = _logits(params, x[:, -1:, :], cfg)[:, 0, :]
     return logits, _pack_caches(states, cfg, kv_src)
@@ -365,8 +385,10 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
         pos_t = torch.as_tensor(pos, device=token_t.device).reshape(-1)
     x_t = _embed_tokens(params, token_t, cfg, pos_t)
     new_states = []
-    for (kind, lcfg, p), c in zip(_layers(params, cfg), _split_caches(caches, cfg)):
-        x_t, c = block_decode(p, kind, x_t, c, lcfg, pos)
+    for i, ((kind, lcfg, p), c) in enumerate(zip(_layers(params, cfg),
+                                                 _split_caches(caches, cfg))):
+        with spmd.layer(f"layer{i}"):
+            x_t, c = block_decode(p, kind, x_t, c, lcfg, pos)
         new_states.append(c)
     logits = _logits(params, x_t, cfg)
     return logits, _pack_caches(new_states, cfg, caches.get("kv_src"))
@@ -432,8 +454,10 @@ def _chunk_hidden(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
     )  # [b, c]
     x = _embed_tokens(params, tokens, cfg, positions)
     new_states = []
-    for (kind, lcfg, p), cch in zip(_layers(params, cfg), _split_caches(caches, cfg)):
-        x, cch = block_prefill_chunk(p, kind, x, cch, lcfg, positions)
+    for i, ((kind, lcfg, p), cch) in enumerate(zip(_layers(params, cfg),
+                                                   _split_caches(caches, cfg))):
+        with spmd.layer(f"layer{i}"):
+            x, cch = block_prefill_chunk(p, kind, x, cch, lcfg, positions)
         new_states.append(cch)
     return x, _pack_caches(new_states, cfg, caches.get("kv_src"))
 

@@ -8,6 +8,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding, spmd
 from repro_torch.models import lm_apply, lm_init
 from repro_torch.models.config import ModelConfig
@@ -110,7 +111,7 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, 
         with spmd.region(lay, params, pspecs):
             loss, metrics = loss_fn(params, spmd.local_batch(batch, lay))
         grads = tree_unflatten(state.params, list(torch.autograd.grad(loss, leaves)))
-        with torch.no_grad():
+        with torch.no_grad(), col.named("optimizer"):
             updates, opt_state = optimizer.update(grads, state.opt_state, state.params,
                                                   placements=param_placements)
             params = apply_updates(state.params, updates)

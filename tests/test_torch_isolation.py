@@ -59,7 +59,11 @@ def test_training_modules_stand_alone():
             "repro_torch.configs.llama_3_2_vision_11b", "repro_torch.launch.train",
             "repro_torch.checkpoint.from_jax", "repro_torch.distributed.spmd",
             "repro_torch.distributed.collectives", "repro_torch.distributed.sharding",
-            "repro_torch.serve.scheduler"} <= mods
+            "repro_torch.serve.scheduler", "repro_torch.analysis.roofline",
+            "repro_torch.analysis.flops", "repro_torch.analysis.memory",
+            "repro_torch.analysis.collectives", "repro_torch.analysis.report",
+            "repro_torch.launch.dryrun",
+            "repro_torch.kernels.taylor_attention.cost"} <= mods
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
