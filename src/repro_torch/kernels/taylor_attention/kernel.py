@@ -11,6 +11,9 @@ back to the plain version on the card.  The three kernels are the
 ``torch.library`` ops ``repro_torch::taylor_fwd``, ``taylor_bwd_dq`` and
 ``taylor_bwd_dkv``, each with a fake implementation (meta and fake tensors:
 shapes only, no launch, no count) and a flop formula from ``cost.py``.
+Set-up spans (``repro_torch.spans.once``): ``kernels.first_call.<op>``
+around each CUDA implementation's first call, and inside it
+``kernels.build.<source>`` and ``kernels.bind.<source>``.
 
 They replace the TPU kernels of ``repro/kernels/taylor_attention/``:
 ``kernel.py::_taylor_fwd_kernel`` (``csrc/taylor_fwd.cu``) and
@@ -32,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch import spans
 from repro_torch.device import on_card
 from repro_torch.kernels.taylor_attention.cost import taylor_bwd_cost, taylor_fwd_cost
 from repro_torch.kernels.taylor_attention.ref import (
@@ -141,7 +145,10 @@ def bind(path: Path, name: str) -> ctypes.CDLL:
 
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        _libs[name] = bind(build(name)[name], name)
+        with spans.once(f"kernels.build.{name}"):
+            path = build(name)[name]
+        with spans.once(f"kernels.bind.{name}"):
+            _libs[name] = bind(path, name)
     return _libs[name]
 
 
@@ -191,7 +198,8 @@ def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, alpha: float,
 def _fwd_cuda(q, k, v, alpha, order):
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                for t in (q.contiguous(), k.contiguous(), v.contiguous()))
-    out = launch_fwd(_library("taylor_fwd"), q, k, v, alpha, order)
+    with spans.once("kernels.first_call.taylor_fwd"):
+        out = launch_fwd(_library("taylor_fwd"), q, k, v, alpha, order)
     taylor_fwd.launches += 1
     return out
 
@@ -218,7 +226,8 @@ def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor
 @_dq_op.register_kernel("cuda")
 def _dq_cuda(q, k, v, dout, out, alpha, order):
     ins = [t.contiguous() for t in (q, k, v, dout, out)]
-    grads = launch_bwd_dq(_library("taylor_bwd"), *ins, alpha, order)
+    with spans.once("kernels.first_call.taylor_bwd_dq"):
+        grads = launch_bwd_dq(_library("taylor_bwd"), *ins, alpha, order)
     taylor_bwd.dq_launches += 1
     return grads
 
@@ -250,7 +259,8 @@ def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tenso
 @_dkv_op.register_kernel("cuda")
 def _dkv_cuda(q, k, v, dout, den, dden, alpha, order):
     ins = [t.contiguous() for t in (q, k, v, dout, den, dden)]
-    grads = launch_bwd_dkv(_library("taylor_bwd"), *ins, alpha, order)
+    with spans.once("kernels.first_call.taylor_bwd_dkv"):
+        grads = launch_bwd_dkv(_library("taylor_bwd"), *ins, alpha, order)
     taylor_bwd.dkv_launches += 1
     return grads
 

@@ -15,6 +15,11 @@ Handles everything the raw kernels (``kernel.taylor_fwd``,
 require grad; ``taylor_attention_kernel_trainable`` is the training entry
 point, whose backward is the CUDA kernel pair inside its envelope and the
 torch recompute (``core/taylor_vjp.py``) outside it.
+
+The glue on each side of the kernels' ops is the spans ``attention.prep``
+(q/k LayerNorm, layouts, padding, casts) and ``attention.post`` (slicing
+and casts back) of ``repro_torch.spans``; neither encloses an op.  The
+LayerNorm's backward, which autograd runs, falls outside them.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.core.feature_map import TaylorConfig, layernorm_no_affine
 from repro_torch.kernels.taylor_attention.kernel import TILES, taylor_bwd, taylor_fwd
 
@@ -145,11 +151,13 @@ def taylor_attention_kernel(
 
 def _forward_kernel(q, k, v, alpha: float, order: int) -> torch.Tensor:
     """The forward kernel on pre-normalised q/k, in and out of its layout."""
-    qp, kp, vp, dims = _kernel_layout(q, k, v)
+    with spans.span("attention.prep"):
+        qp, kp, vp, dims = _kernel_layout(q, k, v)
     out = taylor_fwd(qp, kp, vp, alpha=_effective_alpha(alpha, dims), order=order)
-    out = out.reshape(dims.b, dims.hk, dims.g, dims.n_pad, dims.dv_pad)
-    out = out[:, :, :, : dims.n, : dims.dv]
-    return out.reshape(dims.b, dims.h, dims.n, dims.dv)
+    with spans.span("attention.post"):
+        out = out.reshape(dims.b, dims.hk, dims.g, dims.n_pad, dims.dv_pad)
+        out = out[:, :, :, : dims.n, : dims.dv]
+        return out.reshape(dims.b, dims.h, dims.n, dims.dv)
 
 
 def _kernel_bwd_ok(cfg: TaylorConfig, dims: KernelDims) -> bool:
@@ -201,22 +209,21 @@ class _TrainableKernel(torch.autograd.Function):
         elif ctx.backward == "torch" or not _kernel_bwd_ok(cfg, dims):
             return (*_bwd_torch(q, k, v, dout, cfg, ctx.chunk), None, None, None)
 
-        qp, kp, vp, _ = _kernel_layout(q, k, v)
-        # dout/out padded under the SAME contract as v: padded dout rows and
-        # columns are zero, so every gradient of a padded row vanishes.
-        dq, dk, dv = taylor_bwd(
-            qp, kp, vp,
-            _grouped_value_layout(dout.to(v.dtype), dims),
-            _grouped_value_layout(out, dims),
-            alpha=_effective_alpha(cfg.alpha, dims),
-            order=cfg.order,
-        )
-        dq = dq.reshape(dims.b, dims.hk, dims.g, dims.n_pad, dims.d_pad)
-        dq = dq[:, :, :, : dims.n, : dims.d].reshape(q.shape).to(q.dtype)
-        dk = dk.reshape(dims.b, dims.hk, dims.n_pad, dims.d_pad)
-        dk = dk[:, :, : dims.n, : dims.d].to(k.dtype)
-        dv = dv.reshape(dims.b, dims.hk, dims.n_pad, dims.dv_pad)
-        dv = dv[:, :, : dims.n, : dims.dv].to(v.dtype)
+        with spans.span("attention.prep"):
+            qp, kp, vp, _ = _kernel_layout(q, k, v)
+            # dout/out padded under the SAME contract as v: padded dout rows
+            # and columns are zero, so every gradient of a padded row vanishes.
+            doutp = _grouped_value_layout(dout.to(v.dtype), dims)
+            outp = _grouped_value_layout(out, dims)
+        dq, dk, dv = taylor_bwd(qp, kp, vp, doutp, outp,
+                                alpha=_effective_alpha(cfg.alpha, dims), order=cfg.order)
+        with spans.span("attention.post"):
+            dq = dq.reshape(dims.b, dims.hk, dims.g, dims.n_pad, dims.d_pad)
+            dq = dq[:, :, :, : dims.n, : dims.d].reshape(q.shape).to(q.dtype)
+            dk = dk.reshape(dims.b, dims.hk, dims.n_pad, dims.d_pad)
+            dk = dk[:, :, : dims.n, : dims.d].to(k.dtype)
+            dv = dv.reshape(dims.b, dims.hk, dims.n_pad, dims.dv_pad)
+            dv = dv[:, :, : dims.n, : dims.dv].to(v.dtype)
         return dq, dk, dv, None, None, None
 
 
@@ -262,6 +269,7 @@ def taylor_attention_kernel_trainable(
             "use taylor_attention_chunked"
         )
     if cfg.normalize_qk:
-        q = layernorm_no_affine(q).to(q.dtype)
-        k = layernorm_no_affine(k).to(k.dtype)
+        with spans.span("attention.prep"):
+            q = layernorm_no_affine(q).to(q.dtype)
+            k = layernorm_no_affine(k).to(k.dtype)
     return _TrainableKernel.apply(q, k, v, cfg, chunk, backward)

@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import spans
 from repro_torch.backends import state_backend
 from repro_torch.backends.state import CrossCache
 from repro_torch.device import resolve_device
@@ -299,7 +300,9 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
         with spmd.layer(f"layer{i}"):
             x, a = block(p, kind, x, lcfg, positions, kv_src)
         aux = aux + a
-    return _logits(params, x, cfg), aux
+    with spans.span("head"):  # the backward's head ends at x (spans.backward_end)
+        logits = _logits(params, spans.backward_end(x, "head.bwd"), cfg)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,10 @@ call returns new tensors.  The suite is the JAX package's:
 All fold in global-norm gradient clipping (``clip_norm``) and a
 learning-rate schedule (step -> lr).  Moments in bfloat16 are computed in
 float32 and rounded to nearest even when stored, as XLA's ``astype``.
+
+Spans (``repro_torch.spans``): ``optimizer.clip`` (the global norm and the
+scaled gradients), ``optimizer.update`` (the per-leaf update) and
+``optimizer.apply`` (``apply_updates``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding
 from repro_torch.models.convert import to_jax_layout
@@ -77,15 +82,17 @@ def _clip_scale(grads, clip_norm: Optional[float], placements=None) -> Optional[
 
 
 def _clip_by_global_norm(grads, clip_norm: Optional[float], placements=None):
-    scale = _clip_scale(grads, clip_norm, placements)
-    if scale is None:
-        return grads
-    return tree_map(lambda g: g * scale.to(g.dtype), grads)
+    with spans.span("optimizer.clip"):
+        scale = _clip_scale(grads, clip_norm, placements)
+        if scale is None:
+            return grads
+        return tree_map(lambda g: g * scale.to(g.dtype), grads)
 
 
 def apply_updates(params, updates):
     """params + updates, added in float32 and cast back to each param's dtype."""
-    return tree_map(lambda p, u: (p.float() + u.float()).to(p.dtype), params, updates)
+    with spans.span("optimizer.apply"):
+        return tree_map(lambda p, u: (p.float() + u.float()).to(p.dtype), params, updates)
 
 
 def _per_leaf(fn, n_out: int, params, *trees):
@@ -147,7 +154,8 @@ def adamw(
             u = -lr * ((m32 / c1) / ((v32 / c2).sqrt() + eps) + weight_decay * p.float())
             return u, m32.to(state_dtype), v32.to(state_dtype)
 
-        updates, m, v = _per_leaf(upd, 3, params, grads, state.m, state.v)
+        with spans.span("optimizer.update"):
+            updates, m, v = _per_leaf(upd, 3, params, grads, state.m, state.v)
         return updates, AdamState(step=step, m=m, v=v)
 
     return Optimizer(init=init, update=update)
@@ -258,7 +266,8 @@ def adafactor(
 
     def update(grads, state, params, placements=None):
         g_leaves, p_leaves = tree_leaves(grads), tree_leaves(params)
-        scale = _clip_scale(g_leaves, clip_norm, placements)
+        with spans.span("optimizer.clip"):  # the scale alone: each piece applies it
+            scale = _clip_scale(g_leaves, clip_norm, placements)
         step = state.step + 1
         lr = schedule(step)
         vs = tree_leaves(state.v)
@@ -266,14 +275,15 @@ def adafactor(
         mesh = None if placements is None else placements.mesh
         updates: List[Optional[Tensor]] = [None] * len(p_leaves)
         new_m, new_v = [], []
-        for idx, m, v in zip(tree_leaves(_stacking(params, cfg)), tree_leaves(state.m),
-                             zip(vs[0::3], vs[1::3], vs[2::3])):
-            spec = () if specs is None else tuple(specs[int(idx.flat[0])])
-            m, v = _adafactor_leaf(idx, g_leaves, p_leaves, m, FactoredV(*v), scale, lr,
-                                   updates, decay, eps, momentum, momentum_dtype,
-                                   weight_decay, spec, mesh)
-            new_m.append(m)
-            new_v.extend(v)
+        with spans.span("optimizer.update"):
+            for idx, m, v in zip(tree_leaves(_stacking(params, cfg)), tree_leaves(state.m),
+                                 zip(vs[0::3], vs[1::3], vs[2::3])):
+                spec = () if specs is None else tuple(specs[int(idx.flat[0])])
+                m, v = _adafactor_leaf(idx, g_leaves, p_leaves, m, FactoredV(*v), scale, lr,
+                                       updates, decay, eps, momentum, momentum_dtype,
+                                       weight_decay, spec, mesh)
+                new_m.append(m)
+                new_v.extend(v)
         return tree_unflatten(params, updates), AdafactorState(
             step=step, m=tree_unflatten(state.m, new_m), v=tree_unflatten(state.v, new_v))
 
@@ -389,7 +399,8 @@ def sgdm(
             m32 = momentum * m.float() + g32
             return -lr * m32, m32.to(state_dtype)
 
-        updates, m = _per_leaf(upd, 2, params, grads, state.m)
+        with spans.span("optimizer.update"):
+            updates, m = _per_leaf(upd, 2, params, grads, state.m)
         return updates, SgdState(step=step, m=m)
 
     return Optimizer(init=init, update=update)

@@ -7,6 +7,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding, spmd
@@ -52,7 +53,8 @@ def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01):
 
     def loss_fn(params, batch: Dict[str, Tensor]):
         logits, aux = lm_apply(params, batch, cfg)
-        nll = cross_entropy(logits, batch["labels"])
+        with spans.span("loss"):
+            nll = spans.backward_begin(cross_entropy(logits, batch["labels"]), "head.bwd")
         loss = nll + aux_weight * aux
         return loss, {"loss": nll, "aux_loss": aux}
 
@@ -63,23 +65,34 @@ def loss_and_grads(loss_fn, params, batch: Dict[str, Tensor]):
     """(loss, metrics, grads): ``torch.autograd.grad`` over the param leaves.
 
     The leaves are detached views that require grad, so ``params`` itself is
-    left as it is."""
+    left as it is.  The forward and backward are the spans ``train.forward``
+    and ``train.backward``, each counting the allocator's calls on the
+    params' device (``spans.span``)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    dev = leaves[0].device
+    with spans.span("train.forward", dev):
+        loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
+    with spans.span("train.backward", dev):
+        grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, aux_weight: float = 0.01):
-    """Returns train_step(state, batch) -> (state, metrics)."""
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    Its spans (``repro_torch.spans``): ``train.first_step`` (set-up) around
+    the process's first step; ``train.forward``, ``train.backward`` and
+    ``optimizer``, each counting the allocator's calls on the step's
+    device."""
     loss_fn = make_loss_fn(cfg, aux_weight)
 
     def train_step(state: TrainState, batch: Dict[str, Tensor]):
-        loss, metrics, grads = loss_and_grads(loss_fn, state.params, batch)
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-            params = apply_updates(state.params, updates)
+        with spans.once("train.first_step"):
+            loss, metrics, grads = loss_and_grads(loss_fn, state.params, batch)
+            with torch.no_grad(), spans.span("optimizer", loss.device):
+                updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+                params = apply_updates(state.params, updates)
         metrics = dict(metrics, total_loss=loss)
         return TrainState(state.step + 1, params, opt_state), metrics
 
@@ -98,7 +111,7 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, 
     parameter's own layout, and the optimizer sums each leaf over its
     blocks where it reduces one (the clip norm, Adafactor's statistics), so
     the update equals the single-device step's.  Metrics come back the same
-    on every rank."""
+    on every rank.  Its spans are ``make_train_step``'s."""
     loss_fn = make_loss_fn(cfg, aux_weight)
     mesh, pspecs = placements.mesh, placements.specs.params
     param_placements = sharding.Placements(mesh, pspecs)
@@ -108,13 +121,16 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer: Optimizer, placements, 
         lay = spmd.layout_for(mesh, rules, b, n, cfg.d_model)
         leaves = [p.detach().requires_grad_() for p in tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
-        with spmd.region(lay, params, pspecs):
-            loss, metrics = loss_fn(params, spmd.local_batch(batch, lay))
-        grads = tree_unflatten(state.params, list(torch.autograd.grad(loss, leaves)))
-        with torch.no_grad(), col.named("optimizer"):
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params,
-                                                  placements=param_placements)
-            params = apply_updates(state.params, updates)
+        dev = leaves[0].device
+        with spans.once("train.first_step"):
+            with spans.span("train.forward", dev), spmd.region(lay, params, pspecs):
+                loss, metrics = loss_fn(params, spmd.local_batch(batch, lay))
+            with spans.span("train.backward", dev):
+                grads = tree_unflatten(state.params, list(torch.autograd.grad(loss, leaves)))
+            with torch.no_grad(), spans.span("optimizer", dev), col.named("optimizer"):
+                updates, opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                                      placements=param_placements)
+                params = apply_updates(state.params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = loss.detach()
         return TrainState(state.step + 1, params, opt_state), metrics

@@ -63,7 +63,7 @@ def test_training_modules_stand_alone():
             "repro_torch.analysis.flops", "repro_torch.analysis.memory",
             "repro_torch.analysis.collectives", "repro_torch.analysis.report",
             "repro_torch.launch.dryrun",
-            "repro_torch.kernels.taylor_attention.cost"} <= mods
+            "repro_torch.kernels.taylor_attention.cost", "repro_torch.spans"} <= mods
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"

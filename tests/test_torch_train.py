@@ -338,18 +338,6 @@ def test_quickstart_trains_and_generates_on_cpu(capsys):
     assert "119,232 params" in out and "greedy :" in out
 
 
-def test_profile_script_reports_no_device_time_on_the_cpu(monkeypatch):
-    # The profile runs on the card only; its kernel grouping is host logic.
-    from repro_torch import profile_train
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        profile_train.main()
-    assert profile_train._group("void taylor_bwd_dkv_kernel<float, 64, 2>") == "taylor_bwd_dkv"
-    assert profile_train._group("sm90_xmma_gemm_bf16bf16_bf16f32") == "matmul"
-    assert profile_train._group("vectorized_elementwise_kernel") == "other"
-
-
 def test_wall_clock_budget_stops_and_saves(tmp_path, setup):
     _, cfg, _, _, params, task = setup
     opt = adamw(constant(1e-3))
