@@ -439,19 +439,23 @@ def padded_qk(torch, K, q, k, alpha=3.0):
 
 def fwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3]"):
     """The forward kernel against its plain version at shape ``m`` in
-    ``dname``: checked (fails on a disagreement), timed and bounded.  A head
-    dim outside ``K.TILES`` runs padded (``padded_qk``) against the plain
-    version at the true d, and its bound counts the true d.  Returns its
-    row."""
+    ``dname``: checked (fails on a disagreement, or where a second launch on
+    the same inputs gives other bits), timed and bounded; prints how many of
+    its launches took the tensor-core row pass.  A head dim outside
+    ``K.TILES`` runs padded (``padded_qk``) against the plain version at the
+    true d, and its bound counts the true d.  Returns its row."""
     dtype = getattr(torch, dname)
     bk = m["b"] * m["hk"]
     q, k, v = fwd_inputs(torch, m, dtype, gen, ln)
     qp, kp, alpha = padded_qk(torch, K, q, k)
+    counted = (K.taylor_fwd.launches, K.taylor_fwd.tensor_row_launches)
     out = K.taylor_fwd(qp, kp, v, alpha=alpha)
+    again = K.taylor_fwd(qp, kp, v, alpha=alpha)
     ref32 = ref_mod.taylor_attention_ref(q.float()[None], k.float()[None],
                                          v.float()[None], alpha=3.0)[0]
     torch.cuda.synchronize()
     errs, bad = fwd_errors(torch, out, ref32)
+    repeats = torch.equal(out.view(torch.uint8), again.view(torch.uint8))
     abs_err = float((out.float() - ref32.to(dtype).float()).abs().max())
     kernel_ms = cuda_ms(torch, lambda: K.taylor_fwd(qp, kp, v, alpha=alpha), 10)
     plain_ms = cuda_ms(
@@ -466,10 +470,13 @@ def fwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3]"):
     f32_ms, _ = bound_ms(flops, nbytes)
     tensor_ms, by = bound_ms(flops, nbytes, tensor, products)
     name = case_name(m, dname)
+    launches = K.taylor_fwd.launches - counted[0]
+    tensor_rows = K.taylor_fwd.tensor_row_launches - counted[1]
     print(f"{tag} taylor_fwd {name} {m}: "
           + " ".join(f"{k_}_err={e_:.3e}" for k_, e_ in errs.items())
           + (f" (tol {FWD_BF16_TOL}, excess {F32_TOL})" if "excess" in errs
              else f" (tol {F32_TOL})")
+          + f" repeats_bitwise={repeats} tensor_row_launches/launches={tensor_rows}/{launches}"
           + f" max_abs_err={abs_err:.3e} kernel_ms={kernel_ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={tensor_ms:.4f} ({by}; tensor cores, "
           f"TF32 products {products}; bound/kernel {tensor_ms / kernel_ms:.1%}) "
@@ -479,9 +486,12 @@ def fwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3]"):
           f"achieved_tflops={flops / kernel_ms / 1e9:.2f}")
     if bad:
         fail(f"taylor_fwd {name} disagrees with its plain version: {bad}")
+    if not repeats:
+        fail(f"taylor_fwd {name}: two launches on the same inputs differ")
     return dict(
         max_abs_err=abs_err, rel_err=errs["rel"], ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=tensor_ms, bound_by=by, bound_f32_cores_ms=f32_ms,
+        tensor_row_launches=tensor_rows, launches=launches,
     )
 
 

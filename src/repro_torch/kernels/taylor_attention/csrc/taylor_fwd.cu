@@ -20,13 +20,22 @@
 // bytes (~2000 operations per byte at the main path's D = DV = 64).  Those two D²·DV
 // contractions (with the z2 read and update, 94% of the operations at the main path's
 // shape) run on the tensor cores as split-precision TF32 mma.sync products.  The rest
-// stays as f32 FMAs on the CUDA cores: the causal C×C intra-chunk tile, the first
-// moments, the S1/z1/s0 updates.  chip_smoke.py prints two bounds: its bound_ms takes
-// the contractions at the TF32 tensor-core peak times the split products this kernel
-// issues for each (below) plus the rest at the f32 CUDA-core peak; a second bound takes
-// everything at the f32 CUDA-core peak.  The TF32 peak is wgmma's; the mma.sync products
-// used here issue at a lower rate, and the intra-chunk tile on the CUDA cores is the
-// largest remaining part (PERF.md has the breakdown).
+// stays as f32 FMAs on the CUDA cores: the first moments, the S1/z1/s0 updates, and the
+// causal C×C intra-chunk tile where D ≤ 64.  chip_smoke.py prints two bounds: its
+// bound_ms takes the contractions at the TF32 tensor-core peak times the split products
+// this kernel issues for each (below) plus the rest at the f32 CUDA-core peak; a second
+// bound takes everything at the f32 CUDA-core peak.  The TF32 peak is wgmma's; the
+// mma.sync products used here issue at a lower rate.
+//
+// The row pass: which head dims take which path.  Where D ≤ 64 (DVT ≥ 8, C = 128) all 256
+// threads walk their causal rows on the CUDA cores, DVT/4 threads a row, and that walk is
+// the largest part of the kernel at D = 64 (PERF.md).  Where D = 128 (DVT = 1, C = 64) a
+// thread a row would leave 192 of the 256 idle, with one warp on its scheduler walking 64
+// 128-wide dot products; there the tile runs on the tensor cores (intra_tile, all 8 warps,
+// the lower-triangle 16×8 tiles only) and four threads a row finish it (finish_rows).  It
+// is then bounded by the state read and update, which every value-column block repeats:
+// ~4096 mma.sync a chunk and head against the tile's ~320 (bf16), and by the synchronous
+// per-head query loads.
 //
 // The two contractions.  In both, the operand that holds f32 data and must be split is
 // the A operand (16 rows), split once per k-step and reused across all of a warp's
@@ -48,6 +57,9 @@
 //     summed over the chunk's C rows and stored back.
 //   * The read's results go through a small shared buffer (rn, rd) to the row threads,
 //     which add the intra-chunk and first-moment terms and write the output.
+//   * The intra-chunk tile at D = 128: S = Q·Kᵀ with A = the queries (split for f32
+//     inputs), B = the keys (split for f32 inputs; bf16 takes one product), p, the mask
+//     and v on the f32 accumulators; its two halves go through tn, td as the read's do.
 //
 // Why mma.sync and not wgmma: wgmma takes B only from shared memory (A from registers or
 // shared memory), so every operand that needs a split must be A, split in registers, and
@@ -80,7 +92,8 @@
 // the chunks itself, so nothing has to survive between blocks; the value dimension is
 // split across blocks (DVT columns each) so that each block's S2 slab fits.
 //
-// Left for later: the intra-chunk tile on the tensor cores, 96 blocks on 132 SMs at the
+// Left for later: the intra-chunk tile on the tensor cores at D ≤ 64, one z2 read per
+// (chunk, head) shared by the value-column blocks at D = 128, 96 blocks on 132 SMs at the
 // main path's shape, S2's symmetry (e ≤ f halves both contractions), wgmma with TMA
 // loads.
 //
@@ -107,19 +120,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 
 constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 
-// Loads W consecutive floats from shared memory; float4-wide when W is a multiple
-// of 4 (callers keep such addresses 16-byte aligned).
+// Loads W consecutive floats from shared memory, float4-wide (W is a multiple of 4;
+// callers keep the address 16-byte aligned).
 template <int W>
 __device__ __forceinline__ void load_vec(float* dst, const float* src) {
-  if constexpr (W % 4 == 0) {
+  static_assert(W % 4 == 0, "whole float4s");
 #pragma unroll
-    for (int x = 0; x < W; x += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(src + x);
-      dst[x] = t.x; dst[x + 1] = t.y; dst[x + 2] = t.z; dst[x + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int x = 0; x < W; ++x) dst[x] = src[x];
+  for (int x = 0; x < W; x += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src + x);
+    dst[x] = t.x; dst[x + 1] = t.y; dst[x + 2] = t.z; dst[x + 3] = t.w;
   }
 }
 
@@ -163,6 +172,9 @@ template <int D>
 struct Layout {
   static constexpr int DVT = Tiles<D>::DVT;
   static constexpr int C = Tiles<D>::C;
+  // The intra-chunk tile on the tensor cores where a block holds one value column;
+  // mirrored in kernel.py (TENSOR_ROWS).
+  static constexpr bool tensor_rows = DVT == 1;
   static constexpr int QS = D + 4;  // query row stride (floats)
   static constexpr int KST = D + 8; // key row stride (floats)
   static constexpr int s2 = 0;
@@ -175,7 +187,9 @@ struct Layout {
   static constexpr int q = v + round4(C * DVT);
   static constexpr int rn = q + C * QS;   // state read, numerator terms [C][DVT]
   static constexpr int rd = rn + C * DVT; // state read, denominator terms [C]
-  static constexpr int total = rd + C;    // floats
+  static constexpr int tn = rd + C;       // tensor-core tile, numerator halves [2][C]
+  static constexpr int td = tn + (tensor_rows ? 2 * C : 0);  // denominator halves [2][C]
+  static constexpr int total = td + (tensor_rows ? 2 * C : 0);  // floats
   static constexpr int bytes = total * 4;
 };
 
@@ -402,6 +416,216 @@ __device__ __forceinline__ void update_second_moments(float* s2, float* z2, cons
   }
 }
 
+// The causal C×C intra-chunk tile of one head on the tensor cores, where a block holds
+// one value column (DVT = 1):
+//   tn[part][i] = Σ_j p_ij·v_j,  td[part][i] = Σ_j p_ij,  p = 1 + s (+ s²/2), s = a·q_i·k_j,
+// over the key n-tiles j0 … j0+7 of the half `part`, j ≤ i.  S = Q·Kᵀ runs as mma.sync
+// products with A = the queries (split once per k-step for f32 inputs, reused across the
+// warp's n-tiles) and B = the keys; p, the causal mask and v are applied to the f32
+// accumulators.  Warp w takes the row strip (w % 4)·16 … and every other n-tile on or
+// below the diagonal, starting at w / 4: m + 1 tiles for strip m, the last of them on the
+// diagonal.  The 4 lanes of a row are added by shuffles; the two halves go to separate
+// buffers, which the row threads add in a fixed order, so the output repeats bit for bit.
+template <bool SPLIT, int D, int ORDER>
+__device__ __forceinline__ void intra_tile(const float* qs, const float* ks, const float* vs,
+                                           float a, float* tn, float* td) {
+  using L = Layout<D>;
+  constexpr int C = L::C, QS = L::QS, KST = L::KST, MT = C / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / 4, m = warp % 4;
+  const int r0 = m * 16;
+  float c[MT][4];
+#pragma unroll
+  for (int u = 0; u < MT; ++u)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) c[u][x] = 0.f;
+  const float* qa = qs + (r0 + g) * QS + t;
+  const float* kb = ks + (part * 8 + g) * KST + t;  // b0 of n-tile part + 2u at +16u·KST
+#pragma unroll 4
+  for (int s = 0; s < D / 8; ++s) {
+    const float* p = qa + s * 8;
+    Frag<4, SPLIT> af;
+    af.set(0, p[0]);
+    af.set(1, p[8 * QS]);
+    af.set(2, p[4]);
+    af.set(3, p[8 * QS + 4]);
+#pragma unroll
+    for (int u = 0; u < MT; ++u) {
+      if (u <= m) {
+        const float* bp = kb + u * 16 * KST + s * 8;
+        Frag<2, SPLIT> bf;
+        bf.set(0, bp[0]);
+        bf.set(1, bp[4]);
+        mma_split(c[u], af, bf);
+      }
+    }
+  }
+  float num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};  // rows r0 + g and r0 + g + 8
+#pragma unroll
+  for (int u = 0; u < MT; ++u) {
+    if (u <= m) {
+      const int j0 = (part + 2 * u) * 8 + 2 * t;
+      const float2 vv = *reinterpret_cast<const float2*>(vs + j0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float s = a * c[u][2 * h + x];
+          float p = 1.f + s;
+          if (ORDER >= 2) p += 0.5f * s * s;
+          if (j0 + x > r0 + g + 8 * h) p = 0.f;  // j > i: on the diagonal tile u = m only
+          num[h] += p * (x ? vv.y : vv.x);
+          den[h] += p;
+        }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      num[h] += __shfl_xor_sync(0xffffffffu, num[h], o);
+      den[h] += __shfl_xor_sync(0xffffffffu, den[h], o);
+    }
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tn[part * C + r0 + g + 8 * h] = num[h];
+      td[part * C + r0 + g + 8 * h] = den[h];
+    }
+  }
+}
+
+// The first moments of a row where the tile ran on the tensor cores (DVT = 1): (q·z1, q·S1),
+// four lanes a row, each over a quarter of e, added by shuffles.  Read before the state
+// read, so that these loads overlap the other warps' products.
+template <int D>
+__device__ __forceinline__ float2 first_moments(const float* qs, const float* s1,
+                                                const float* z1) {
+  using L = Layout<D>;
+  constexpr int C = L::C, QS = L::QS, LANES = kThreads / C;
+  static_assert(L::DVT == 1 && LANES == 4, "one value column, four lanes a row");
+  const int i = threadIdx.x / LANES, u = threadIdx.x % LANES;
+  float zl = 0.f, lin = 0.f;
+#pragma unroll
+  for (int x = 0; x < D / (4 * LANES); ++x) {
+    const int e = 4 * (u + LANES * x);
+    const float4 qv = *reinterpret_cast<const float4*>(qs + i * QS + e);
+    const float4 zv = *reinterpret_cast<const float4*>(z1 + e);
+    const float4 sv = *reinterpret_cast<const float4*>(s1 + e);
+    zl += qv.x * zv.x + qv.y * zv.y + qv.z * zv.z + qv.w * zv.w;
+    lin += qv.x * sv.x + qv.y * sv.y + qv.z * sv.z + qv.w * sv.w;
+  }
+#pragma unroll
+  for (int o = 1; o < LANES; o <<= 1) {
+    zl += __shfl_xor_sync(0xffffffffu, zl, o);
+    lin += __shfl_xor_sync(0xffffffffu, lin, o);
+  }
+  return make_float2(zl, lin);
+}
+
+// The row threads after the tensor-core tile (DVT = 1): the row's first lane adds the tile's
+// halves in a fixed order, the constant terms, the first moments fm = (q·z1, q·S1) and the
+// state read's terms, clamps, divides and stores the row's one value to out[i·DV].
+template <typename T, int D, int ORDER>
+__device__ __forceinline__ void finish_rows(const float* s0, const float* tn, const float* td,
+                                            const float* rn, const float* rd, float2 fm,
+                                            float count, float a, T* out, int DV) {
+  constexpr int C = Layout<D>::C, LANES = kThreads / C;
+  const int i = threadIdx.x / LANES;
+  if (threadIdx.x % LANES == 0) {
+    float den = td[i] + td[C + i] + count + a * fm.x;
+    float num = tn[i] + tn[C + i] + s0[0] + a * fm.y;
+    if constexpr (ORDER >= 2) {
+      const float half_a2 = 0.5f * a * a;
+      den += half_a2 * rd[i];
+      num += half_a2 * rn[i];
+    }
+    if (fabsf(den) < 1e-6f) den = 1e-6f;  // the TPU kernel's clamp
+    store(out + (long)i * DV, num * (1.f / den));
+  }
+}
+
+// The row threads where the tile stays on the CUDA cores (DVT ≥ 8, D ≤ 64): NVG threads a
+// row, VPT value columns each, walk the causal row j ≤ i against the chunk's keys, add the
+// constant, first-moment and state-read terms, clamp, divide and store to out[i·DV + col].
+template <typename T, int D, int ORDER>
+__device__ __forceinline__ void core_rows(const float* qs, const float* ks, const float* vs,
+                                          const float* s1, const float* z1, const float* s0,
+                                          const float* rn, const float* rd, float count,
+                                          float a, T* out, int DV) {
+  using L = Layout<D>;
+  constexpr int DVT = L::DVT, C = L::C, QS = L::QS, KST = L::KST;
+  constexpr int VPT = 4;                // value columns per thread
+  static_assert(DVT % VPT == 0, "whole value-column groups");
+  constexpr int NVG = DVT / VPT;        // value-column groups
+  constexpr int RPP = kThreads / NVG;   // query rows per pass
+  const int tid = threadIdx.x;
+  const float half_a2 = 0.5f * a * a;
+  const int vg = tid % NVG;
+  const int vcol = vg * VPT;
+  for (int r0 = 0; r0 < C; r0 += RPP) {
+    const int i = r0 + tid / NVG;
+    if (i < C) {
+      float qr[D];
+#pragma unroll
+      for (int f = 0; f < D; f += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(&qs[i * QS + f]);
+        qr[f] = t.x; qr[f + 1] = t.y; qr[f + 2] = t.z; qr[f + 3] = t.w;
+      }
+      float num[VPT];
+#pragma unroll
+      for (int x = 0; x < VPT; ++x) num[x] = 0.f;
+      float den = 0.f;
+
+      // intra-chunk: causal polynomial scores against this chunk's keys
+      for (int j = 0; j <= i; ++j) {
+        float s = 0.f;
+#pragma unroll
+        for (int f = 0; f < D; f += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(&ks[j * KST + f]);
+          s += qr[f] * t.x + qr[f + 1] * t.y + qr[f + 2] * t.z + qr[f + 3] * t.w;
+        }
+        s *= a;
+        float p = 1.f + s;
+        if (ORDER >= 2) p += 0.5f * s * s;
+        den += p;
+        float vv[VPT];
+        load_vec<VPT>(vv, vs + j * DVT + vcol);
+#pragma unroll
+        for (int x = 0; x < VPT; ++x) num[x] += p * vv[x];
+      }
+
+      // inter-chunk: constant and first moments
+      den += count;
+      float lin[VPT], zl = 0.f;
+#pragma unroll
+      for (int x = 0; x < VPT; ++x) lin[x] = 0.f;
+#pragma unroll
+      for (int e = 0; e < D; ++e) {
+        zl += qr[e] * z1[e];
+#pragma unroll
+        for (int x = 0; x < VPT; ++x) lin[x] += qr[e] * s1[e * DVT + vcol + x];
+      }
+      den += a * zl;
+#pragma unroll
+      for (int x = 0; x < VPT; ++x) num[x] += s0[vcol + x] + a * lin[x];
+
+      // inter-chunk: second moments, from the tensor-core read
+      if constexpr (ORDER >= 2) {
+        den += half_a2 * rd[i];
+#pragma unroll
+        for (int x = 0; x < VPT; ++x) num[x] += half_a2 * rn[i * DVT + vcol + x];
+      }
+
+      if (fabsf(den) < 1e-6f) den = 1e-6f;  // the TPU kernel's clamp
+      const float inv = 1.f / den;
+      T* op = out + (long)i * DV + vcol;
+#pragma unroll
+      for (int x = 0; x < VPT; ++x) store(op + x, num[x] * inv);
+    }
+  }
+}
+
 template <typename T, int D, int ORDER>
 __global__ void __launch_bounds__(kThreads, 1)  // one block per SM (shared memory)
 taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -410,9 +634,6 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using L = Layout<D>;
   constexpr int DVT = L::DVT, C = L::C, QS = L::QS, KST = L::KST;
   constexpr bool kSplit = std::is_same<T, float>::value;  // bf16 q, k are TF32-exact
-  constexpr int VPT = DVT >= 4 ? 4 : DVT;  // value columns per thread
-  constexpr int NVG = DVT / VPT;           // value-column groups
-  constexpr int RPP = kThreads / NVG;      // query rows per pass
 
   extern __shared__ __align__(16) float smem[];
   float* s2 = smem + L::s2;
@@ -425,6 +646,8 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* qs = smem + L::q;
   float* rn = smem + L::rn;
   float* rd = smem + L::rd;
+  float* tn = smem + L::tn;
+  float* td = smem + L::td;
 
   const int tid = threadIdx.x;
   const long bk = blockIdx.x;
@@ -433,7 +656,6 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bk * (long)N * D;
   const T* vb = v + bk * (long)N * DV;
   T* ob = out + bk * G * (long)N * DV;
-  const float half_a2 = 0.5f * a * a;
 
   for (int i = tid; i < L::k; i += kThreads) smem[i] = 0.f;  // all moments
 
@@ -448,72 +670,18 @@ taylor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < G; ++g) {
       load_rows<D>(qs, QS, qb + ((long)g * N + row0) * D, D, C);
       __syncthreads();
-      if constexpr (ORDER >= 2) read_second_moments<kSplit, D>(qs, s2, z2, rn, rd);
-
-      const int vg = tid % NVG;
-      const int vcol = vg * VPT;
-      for (int r0 = 0; r0 < C; r0 += RPP) {
-        const int i = r0 + tid / NVG;
-        if (i < C) {
-          float qr[D];
-#pragma unroll
-          for (int f = 0; f < D; f += 4) {
-            const float4 t = *reinterpret_cast<const float4*>(&qs[i * QS + f]);
-            qr[f] = t.x; qr[f + 1] = t.y; qr[f + 2] = t.z; qr[f + 3] = t.w;
-          }
-          float num[VPT];
-#pragma unroll
-          for (int x = 0; x < VPT; ++x) num[x] = 0.f;
-          float den = 0.f;
-
-          // intra-chunk: causal polynomial scores against this chunk's keys
-          for (int j = 0; j <= i; ++j) {
-            float s = 0.f;
-#pragma unroll
-            for (int f = 0; f < D; f += 4) {
-              const float4 t = *reinterpret_cast<const float4*>(&ks[j * KST + f]);
-              s += qr[f] * t.x + qr[f + 1] * t.y + qr[f + 2] * t.z + qr[f + 3] * t.w;
-            }
-            s *= a;
-            float p = 1.f + s;
-            if (ORDER >= 2) p += 0.5f * s * s;
-            den += p;
-            float vv[VPT];
-            load_vec<VPT>(vv, vs + j * DVT + vcol);
-#pragma unroll
-            for (int x = 0; x < VPT; ++x) num[x] += p * vv[x];
-          }
-
-          // inter-chunk: constant and first moments
-          den += count;
-          float lin[VPT], zl = 0.f;
-#pragma unroll
-          for (int x = 0; x < VPT; ++x) lin[x] = 0.f;
-#pragma unroll
-          for (int e = 0; e < D; ++e) {
-            zl += qr[e] * z1[e];
-#pragma unroll
-            for (int x = 0; x < VPT; ++x) lin[x] += qr[e] * s1[e * DVT + vcol + x];
-          }
-          den += a * zl;
-#pragma unroll
-          for (int x = 0; x < VPT; ++x) num[x] += s0[vcol + x] + a * lin[x];
-
-          // inter-chunk: second moments, from the tensor-core read
-          if constexpr (ORDER >= 2) {
-            den += half_a2 * rd[i];
-#pragma unroll
-            for (int x = 0; x < VPT; ++x) num[x] += half_a2 * rn[i * DVT + vcol + x];
-          }
-
-          if (fabsf(den) < 1e-6f) den = 1e-6f;  // the TPU kernel's clamp
-          const float inv = 1.f / den;
-          T* op = ob + ((long)g * N + row0 + i) * DV + v_off + vcol;
-#pragma unroll
-          for (int x = 0; x < VPT; ++x) store(op + x, num[x] * inv);
-        }
+      T* og = ob + ((long)g * N + row0) * DV + v_off;  // this head's chunk, value tile
+      if constexpr (L::tensor_rows) {
+        intra_tile<kSplit, D, ORDER>(qs, ks, vs, a, tn, td);
+        const float2 fm = first_moments<D>(qs, s1, z1);
+        if constexpr (ORDER >= 2) read_second_moments<kSplit, D>(qs, s2, z2, rn, rd);
+        else __syncthreads();  // tn and td are complete (at order 2 the read's barriers)
+        finish_rows<T, D, ORDER>(s0, tn, td, rn, rd, fm, count, a, og, DV);
+      } else {
+        if constexpr (ORDER >= 2) read_second_moments<kSplit, D>(qs, s2, z2, rn, rd);
+        core_rows<T, D, ORDER>(qs, ks, vs, s1, z1, s0, rn, rd, count, a, og, DV);
       }
-      __syncthreads();  // qs, rn and rd are rewritten for the next head
+      __syncthreads();  // qs, rn, rd (tn, td) are rewritten for the next head
     }
 
     // ---- absorb this chunk into the moments ----

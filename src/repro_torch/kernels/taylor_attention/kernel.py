@@ -5,7 +5,9 @@ layout (grouped, padded, pre-normalised).  On CUDA tensors they launch the
 kernels of ``csrc/`` (compiled with ``nvcc`` for ``sm_90a`` at first use,
 one shared library per source, loaded with ctypes) and count each launch
 (``taylor_fwd.launches``, ``taylor_bwd.dq_launches``,
-``taylor_bwd.dkv_launches``); on CPU tensors they run the plain PyTorch
+``taylor_bwd.dkv_launches``; ``taylor_fwd.tensor_row_launches`` counts the
+forward launches at a head dim of ``TENSOR_ROWS``, whose intra-chunk tile
+runs on the tensor cores); on CPU tensors they run the plain PyTorch
 versions of ``ref.py``.  A failed build or launch raises — nothing falls
 back to the plain version on the card.  The three kernels are the
 ``torch.library`` ops ``repro_torch::taylor_fwd``, ``taylor_bwd_dq`` and
@@ -59,6 +61,11 @@ NVCC_FLAGS = (
 # key, dv to a multiple of the value tile and n to a multiple of the chunk.
 TILES = {16: (16, 128), 32: (32, 128), 64: (8, 128), 128: (1, 64)}
 MAX_HEAD_DIM = max(TILES)
+# Head dims whose forward runs the causal intra-chunk tile on the tensor cores,
+# with all eight warps: those whose block holds one value column; mirrors
+# ``Layout<D>::tensor_rows`` (DVT == 1) in taylor_fwd.cu.  The others walk
+# their rows on the CUDA cores.
+TENSOR_ROWS = frozenset(d for d, (dvt, _) in TILES.items() if dvt == 1)
 BWD_CHUNK = 64
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -201,6 +208,8 @@ def _fwd_cuda(q, k, v, alpha, order):
     with spans.once("kernels.first_call.taylor_fwd"):
         out = launch_fwd(_library("taylor_fwd"), q, k, v, alpha, order)
     taylor_fwd.launches += 1
+    if q.shape[-1] in TENSOR_ROWS:
+        taylor_fwd.tensor_row_launches += 1
     return out
 
 
@@ -323,6 +332,7 @@ def taylor_fwd(
 
 
 taylor_fwd.launches = 0
+taylor_fwd.tensor_row_launches = 0
 
 
 def launch_fwd(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
