@@ -21,6 +21,10 @@ differ only where |den| < 1e-6).
 
 All math uses raw moments (scale factors applied at contraction time),
 matching ``core/taylor.py``.  q, k must already be LayerNorm'd.
+
+Spans (``repro_torch.spans``): ``attention.scan`` around the chunked
+forward (a remat rerun included) and ``attention.scan.bwd`` around the two
+passes.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import List
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.feature_map import TaylorConfig, poly_scores
 from repro_torch.core.taylor import (
     TaylorState,
@@ -217,12 +222,14 @@ class _ChunkedCore(torch.autograd.Function):
     def forward(ctx, q, k, v, cfg, chunk):
         ctx.cfg, ctx.chunk = cfg, chunk
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, cfg, chunk)
+        with spans.span("attention.scan"):
+            return _forward(q, k, v, cfg, chunk)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = _bwd_rule(ctx.cfg, ctx.chunk, q, k, v, dout)
+        with spans.span("attention.scan.bwd"):
+            dq, dk, dv = _bwd_rule(ctx.cfg, ctx.chunk, q, k, v, dout)
         return dq, dk, dv, None, None
 
 

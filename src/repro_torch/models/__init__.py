@@ -4,6 +4,7 @@ blocks, and the decoder-only, encoder-decoder and VLM assembly."""
 from repro_torch.models.config import (
     ModelConfig,
     MoEConfig,
+    SiteConfig,
     SSMConfig,
     count_active_params,
     count_params,
@@ -23,6 +24,7 @@ from repro_torch.models.lm import (
 __all__ = [
     "ModelConfig",
     "MoEConfig",
+    "SiteConfig",
     "SSMConfig",
     "count_active_params",
     "count_params",

@@ -2,7 +2,8 @@
 
 ``cfg.attention`` resolves to an ``AttentionBackend``
 (``repro_torch.backends``): this module owns the projections
-(wq ``[d, h, hd]``, wk/wv ``[d, hk, hd]``, wo ``[h, hd, d]``; with
+(wq ``[d, h, hd]``, wk/wv ``[d, hk, hd]``, wo ``[h, hd, d]``; at a hybrid
+site the first axis of wq/wk/wv is ``cfg.attention_width``; with
 ``qkv_bias`` a ``b`` of ``[h, hd]`` / ``[hk, hd]`` each, added before RoPE)
 and RoPE, and
 hands projected heads to the backend's ``apply`` / ``prefill`` /
@@ -25,12 +26,16 @@ from repro_torch.models.layers import apply_rope, dense_init
 Tensor = torch.Tensor
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+def attention_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+                   width: int = 0):
+    """Projections from ``width`` (default d_model: a hybrid site's attention
+    reads ``cfg.attention_width``) and back to d_model."""
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w = width or d
     return {
-        "wq": dense_init(gen, (d, h, hd), bias=cfg.qkv_bias, dtype=dtype),
-        "wk": dense_init(gen, (d, hk, hd), bias=cfg.qkv_bias, dtype=dtype),
-        "wv": dense_init(gen, (d, hk, hd), bias=cfg.qkv_bias, dtype=dtype),
+        "wq": dense_init(gen, (w, h, hd), bias=cfg.qkv_bias, dtype=dtype),
+        "wk": dense_init(gen, (w, hk, hd), bias=cfg.qkv_bias, dtype=dtype),
+        "wv": dense_init(gen, (w, hk, hd), bias=cfg.qkv_bias, dtype=dtype),
         "wo": dense_init(gen, (h, hd, d), in_axes=2, dtype=dtype),
     }
 
@@ -62,6 +67,17 @@ def _project_kv(params, x: Tensor, cfg: ModelConfig, positions: Optional[Tensor]
 
 def _out_proj(params, o: Tensor, x_dtype) -> Tensor:
     return torch.einsum("bhnk,hkd->bnd", o.to(x_dtype), params["wo"]["w"].to(x_dtype))
+
+
+def attention_heads(params, x: Tensor, cfg: ModelConfig, positions: Tensor):
+    """(q [b, h, n, hd], k, v [b, hk, n, hd]) of ``x`` [b, n, width], with
+    RoPE at ``positions``: the attention's part before its backend."""
+    return (_project_q(params, x, cfg, positions),) + _project_kv(params, x, cfg, positions)
+
+
+def attention_out(params, o: Tensor, dtype) -> Tensor:
+    """The output projection of the backend's ``o`` [b, h, n, hd] in ``dtype``."""
+    return _out_proj(params, o, dtype)
 
 
 def attention_apply(

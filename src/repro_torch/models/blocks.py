@@ -8,8 +8,11 @@ FFN), ``"mamba"`` (pre-norm Mamba2 / SSD, through the block-level ``"ssm"``
 backend of the registry) and ``"cross"`` (pre-norm self-attention, then
 pre-norm cross-attention to the source ``kv_src``, then the MLP; its decode
 cache is the pair ``(self cache, CrossCache)``, the second fixed at
-prefill).  Only ``block_apply`` returns the MoE load-balance loss; the
-serving paths drop it, as in the JAX package.  On a mesh the cross
+prefill).  A mamba layer at one of Zamba2's hybrid sites runs
+``hybrid_apply``: a shared block over the stream and the embeddings, through
+the site's own adapter and linear, adds to its mamba block's input.  Only
+``block_apply`` returns the MoE load-balance loss; the serving paths drop
+it, as in the JAX package.  On a mesh the cross
 attention runs through ``spmd.site("cross")``, which reads the source
 whole and carries the read state's block in serving.
 """
@@ -20,14 +23,22 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.backends import get_backend
+from repro_torch import spans
+from repro_torch.backends import get_backend, resolve_backend
 from repro_torch.backends.state import CrossCache
 from repro_torch.distributed import spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import BLOCK_KINDS, ModelConfig
-from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
+from repro_torch.models.layers import (
+    adapter_init,
+    dense_init,
+    mlp_apply,
+    mlp_init,
+    norm_apply,
+    norm_init,
+)
 
 Tensor = torch.Tensor
 
@@ -111,6 +122,57 @@ def block_apply(
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
+
+
+def shared_block_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+    """One shared block of the hybrid sites (``cfg.sites``): an RMSNorm and
+    attention over ``cfg.attention_width``, an RMSNorm and the gated MLP
+    over d_model, no biases."""
+    w, d = cfg.attention_width, cfg.d_model
+    return {
+        "norm1": norm_init(w, cfg.norm, dtype, device=gen.device),
+        "attn": attn.attention_init(gen, cfg, dtype, width=w),
+        "norm2": norm_init(d, cfg.norm, dtype, device=gen.device),
+        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, dtype),
+    }
+
+
+def site_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
+    """A hybrid site's own leaves: its adapter on the shared MLP's gate_up
+    and its d_model × d_model linear."""
+    d = cfg.d_model
+    return {
+        "adapter": adapter_init(gen, d, cfg.sites.adapter_rank, 2 * cfg.d_ff, dtype),
+        "linear": dense_init(gen, (d, d), dtype=dtype),
+    }
+
+
+def site_apply(shared, site, x: Tensor, x0: Tensor, cfg: ModelConfig,
+               positions: Tensor) -> Tensor:
+    """What a hybrid site adds to its mamba block's input: the shared block
+    over ``cat(x, x0)`` (no residual), through the site's linear.  Spans:
+    ``hybrid.pre`` (the concatenation, its norm, q/k/v and RoPE) and
+    ``hybrid.post`` (o, the norm, the adapted MLP and the linear); the
+    attention backend's call lies between them."""
+    with spans.span("hybrid.pre"):
+        h = norm_apply(shared["norm1"], torch.cat([x, x0], dim=-1), cfg.norm, cfg.norm_eps)
+        q, k, v = attn.attention_heads(shared["attn"], h, cfg, positions)
+    o = resolve_backend(cfg).apply(q, k, v, cfg, causal=True)
+    with spans.span("hybrid.post"):
+        y = attn.attention_out(shared["attn"], o, x.dtype)
+        y = norm_apply(shared["norm2"], y, cfg.norm, cfg.norm_eps)
+        y = mlp_apply(shared["mlp"], y, cfg.act, adapter=site["adapter"])
+        return y @ site["linear"]["w"].to(x.dtype)
+
+
+def hybrid_apply(params, shared, site, x: Tensor, x0: Tensor, cfg: ModelConfig,
+                 positions: Tensor) -> Tuple[Tensor, Tensor]:
+    """A mamba layer at a hybrid site: ``x + mamba(norm(x + s))``, ``s`` the
+    site's ``site_apply``; (x, a zero aux loss) as ``block_apply``."""
+    s = site_apply(shared, site, x, x0, cfg, positions)
+    h = norm_apply(params["norm1"], x + s, cfg.norm, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + _mamba(params["mamba"], h, cfg, positions), aux
 
 
 def _mamba_prefill(p, h: Tensor, cfg: ModelConfig, n_max: int):

@@ -13,7 +13,9 @@ uniform or per pattern position (``attention_schedule``: hybrid models such
 as the Based-style taylor + ``softmax_window`` interleave).  Families:
 ``"lm"`` (decoder-only), ``"encdec"`` (an ``encoder_pattern`` stack over
 stubbed audio frames, whisper-style) and ``"vlm"`` (a projector over stubbed
-vision-tower embeddings).
+vision-tower embeddings).  A stack of mamba blocks may carry Zamba2's hybrid
+sites (``SiteConfig``): shared attention blocks over the stream and the
+embeddings, each site with its own adapter and linear, in training only.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from repro_torch.core.feature_map import TaylorConfig
 
 BLOCK_KINDS = ("attn", "moe", "mamba", "shared_attn", "cross")
 FAMILIES = ("lm", "encdec", "vlm")
-ACTS = ("silu", "gelu", "geglu")
+ACTS = ("silu", "gelu", "geglu", "geglu_erf")
 NORMS = ("rmsnorm", "layernorm")
 POSITIONS = ("rope", "learned", "sinusoidal", "none")
 ATTN_IMPLS = ("auto", "torch", "cuda")
@@ -62,6 +64,28 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SiteConfig:
+    """Zamba2's hybrid sites over a stack of mamba blocks.
+
+    At each site a shared attention block runs before the mamba block of
+    its layer.  The sites take the ``n_blocks`` shared blocks in turn (site
+    j runs block ``j % n_blocks``).  A shared block reads ``cat(x, x0)``
+    (``attention_width`` = 2·d_model; x0 is the embedding output) through
+    an RMSNorm of that width, then attention, an RMSNorm(d_model) and a
+    gated MLP whose ``gate_up`` the site's own rank-``adapter_rank`` adapter
+    adds to.  It has no residual: its output passes through the site's own
+    d_model × d_model ``linear`` and is added to the input of the layer's
+    mamba block, before that block's norm::
+
+        x <- x + mamba(norm(x + linear_j(shared_{j % n_blocks}(x, x0))))
+    """
+
+    layer_ids: Tuple[int, ...]
+    n_blocks: int = 1
+    adapter_rank: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                    # "lm" | "encdec" | "vlm"
@@ -76,7 +100,9 @@ class ModelConfig:
     tail: Tuple[str, ...] = ()
 
     head_dim: int = 0              # 0 → d_model // n_heads
-    act: str = "silu"              # "silu" | "geglu" | "gelu" (tanh GELU)
+    # "silu" | "geglu" (tanh GELU) | "geglu_erf" (exact GELU), gated without
+    # biases; "gelu": the plain 2-matrix MLP with biases (tanh GELU)
+    act: str = "silu"
     norm: str = "rmsnorm"          # "rmsnorm" | "layernorm"
     norm_eps: float = 1e-6
     qkv_bias: bool = False
@@ -117,6 +143,9 @@ class ModelConfig:
 
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # Zamba2's hybrid sites (``SiteConfig``): shared blocks over the stream
+    # and the embeddings before chosen mamba layers; a port-only field
+    sites: Optional[SiteConfig] = None
 
     # --- encoder-decoder (whisper) ---
     n_encoder_groups: int = 0
@@ -165,6 +194,24 @@ class ModelConfig:
             raise ValueError(f"attn_window must be >= 1, got {self.attn_window}")
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, got {self.remat!r}")
+        if self.sites is not None:
+            self._check_sites()
+
+    def _check_sites(self) -> None:
+        s = self.sites
+        if set(self.pattern + self.tail) != {"mamba"} or self.family != "lm":
+            raise ValueError("hybrid sites sit in a decoder-only stack of mamba blocks")
+        ids = tuple(s.layer_ids)
+        if not ids or list(ids) != sorted(set(ids)) or not 0 <= ids[0] <= ids[-1] < self.n_layers:
+            raise ValueError(f"site layer ids must be increasing and below {self.n_layers}, "
+                             f"got {ids}")
+        if s.n_blocks < 1 or s.adapter_rank < 0:
+            raise ValueError(f"a site config needs n_blocks >= 1 and adapter_rank >= 0, got {s}")
+        if self.act not in ("silu", "geglu", "geglu_erf"):
+            raise ValueError(f"a site's MLP is gated: act {self.act!r}")
+        if self.n_heads * self.resolved_head_dim != self.attention_width:
+            raise ValueError("a site's heads span its input: n_heads * head_dim must equal "
+                             f"2 * d_model = {self.attention_width}")
 
     def _normalise_schedule(self) -> None:
         """Validate ``attention_schedule`` against the pattern and the
@@ -216,6 +263,17 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def attention_width(self) -> int:
+        """The width attention projects from: ``cat(x, x0)`` at hybrid sites,
+        the stream otherwise."""
+        return 2 * self.d_model if self.sites is not None else self.d_model
+
+    @property
+    def site_of_layer(self) -> dict:
+        """{layer index: site index} of the hybrid sites ({} without)."""
+        return {i: j for j, i in enumerate(self.sites.layer_ids)} if self.sites else {}
 
     @property
     def n_layers(self) -> int:
@@ -322,11 +380,12 @@ def _norm_params(cfg: ModelConfig) -> int:
     return cfg.d_model * (2 if cfg.norm == "layernorm" else 1)
 
 
-def _attn_params(cfg: ModelConfig) -> int:
-    """Params of one attention's projections (wq, wk, wv, wo and the qkv
-    biases)."""
+def _attn_params(cfg: ModelConfig, width: Optional[int] = None) -> int:
+    """Params of one attention's projections (wq, wk, wv from ``width``
+    (default d_model), wo back to d_model, and the qkv biases)."""
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    n = d * h * hd + 2 * d * hk * hd + h * hd * d
+    w = width or d
+    n = w * h * hd + 2 * w * hk * hd + h * hd * d
     if cfg.qkv_bias:
         n += h * hd + 2 * hk * hd
     return n
@@ -360,15 +419,27 @@ def _block_params(cfg: ModelConfig, kind: str) -> int:
     return n
 
 
+def _site_params(cfg: ModelConfig) -> Tuple[int, int]:
+    """(params of one shared block of the hybrid sites, params a site holds
+    of its own: the adapter and the linear)."""
+    d, w, r = cfg.d_model, cfg.attention_width, cfg.sites.adapter_rank
+    block = w + _attn_params(cfg, w) + d + _mlp_params(cfg, cfg.d_ff)
+    return block, d * r + r * 2 * cfg.d_ff + d * d
+
+
 def count_params(cfg: ModelConfig) -> int:
     """Exact parameter count of ``lm_init(cfg)``, from the shapes alone (the
     JAX package's ``count_params``, which traces its ``lm_init``).  The
     shared block's weights are counted once, however often it occurs; the
     encoder (encdec), the vision projector (vlm) and learned position tables
-    are counted with the rest."""
+    are counted with the rest; so is each of the hybrid sites' shared blocks,
+    once, and each site's own adapter and linear."""
     d = cfg.d_model
     own = lambda kinds: sum(_block_params(cfg, k) for k in kinds if k != "shared_attn")
     shared = _block_params(cfg, "shared_attn") if "shared_attn" in cfg.pattern + cfg.tail else 0
+    if cfg.sites is not None:
+        block, own_site = _site_params(cfg)
+        shared = cfg.sites.n_blocks * block + len(cfg.sites.layer_ids) * own_site
     embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
     n = embed + _norm_params(cfg) + cfg.n_groups * own(cfg.pattern) + own(cfg.tail) + shared
     if cfg.pos == "learned":
@@ -392,6 +463,6 @@ def count_active_params(cfg: ModelConfig) -> int:
     if cfg.moe is None:
         return full
     m = cfg.moe
-    mult = 3 if cfg.act in ("silu", "geglu") else 2
+    mult = 2 if cfg.act == "gelu" else 3
     n_moe_blocks = cfg.pattern.count("moe") * cfg.n_groups + cfg.tail.count("moe")
     return full - n_moe_blocks * (m.n_experts - m.top_k) * mult * cfg.d_model * m.d_ff_expert

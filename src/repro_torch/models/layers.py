@@ -100,10 +100,13 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
     return y.to(x.dtype)
 
 
+GATED = ("silu", "geglu", "geglu_erf")
+
+
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype=torch.float32):
-    """Gated MLP (silu, geglu: w_gate, w_up, w_down) or the plain 2-matrix
-    gelu MLP with biases (w_up, b_up, w_down, b_down)."""
-    if act in ("silu", "geglu"):
+    """Gated MLP (silu, geglu, geglu_erf: w_gate, w_up, w_down) or the plain
+    2-matrix gelu MLP with biases (w_up, b_up, w_down, b_down)."""
+    if act in GATED:
         return {
             "w_gate": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
             "w_up": dense_init(gen, (d, d_ff), dtype=dtype)["w"],
@@ -119,16 +122,32 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, act: str, dtype=torch.floa
     raise ValueError(act)
 
 
-def mlp_apply(params, x: Tensor, act: str) -> Tensor:
-    """The MLP in x's dtype; GELU in its tanh form (JAX's ``approximate=True``).
+def adapter_init(gen: torch.Generator, d: int, rank: int, out: int, dtype=torch.float32):
+    """A rank-``rank`` adapter ``x @ a @ b`` from d to ``out`` (a hybrid
+    site's, on its shared MLP's gate_up): a [d, rank], b [rank, out]."""
+    return {"a": dense_init(gen, (d, rank), dtype=dtype)["w"],
+            "b": dense_init(gen, (rank, out), dtype=dtype)["w"]}
 
+
+def mlp_apply(params, x: Tensor, act: str, adapter=None) -> Tensor:
+    """The MLP in x's dtype; GELU in its tanh form (JAX's ``approximate=True``)
+    except under "geglu_erf", the exact (erf) GELU.
+
+    ``adapter`` (a gated MLP's): ``adapter_init``'s pair, whose ``x @ a @ b``
+    [..., 2·d_ff] adds to the gate and up projections, the gate's half first.
     Weights with leading expert axes (``[E, d, d_ff]``, biases ``[E, 1,
     d_ff]``) broadcast against ``x`` as a batched product."""
     dtype = x.dtype
-    if act in ("silu", "geglu"):
+    if act in GATED:
         gate = x @ params["w_gate"].to(dtype)
         up = x @ params["w_up"].to(dtype)
-        g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
+        if adapter is not None:
+            ab = (x @ adapter["a"].to(dtype)) @ adapter["b"].to(dtype)
+            gate, up = gate + ab[..., :gate.shape[-1]], up + ab[..., gate.shape[-1]:]
+        if act == "silu":
+            g = F.silu(gate)
+        else:
+            g = F.gelu(gate, approximate="tanh" if act == "geglu" else "none")
         return (g * up) @ params["w_down"].to(dtype)
     if act == "gelu":
         h = F.gelu(x @ params["w_up"].to(dtype) + params["b_up"].to(dtype), approximate="tanh")

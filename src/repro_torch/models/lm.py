@@ -16,7 +16,11 @@ vlm, ``"encoder"`` {"blocks": [...], "final_norm": ..., and under
 pattern holds ``"shared_attn"`` blocks: that block's one set of weights,
 used by every occurrence, whose ``"blocks"`` entries are ``None``.  So
 every tree walk, the optimizer and ``count_params`` see each shared leaf
-once, and autograd sums its gradient over the occurrences.)  Each layer runs under
+once, and autograd sums its gradient over the occurrences.  Zamba2's hybrid
+sites (``cfg.sites``) add ``"shared_blocks"``, the list of the sites' shared
+blocks, held once each in the same way, and ``"sites"``, each site's own
+adapter and linear; ``lm_apply`` keeps the embedding output for them, and
+they run in training only.)  Each layer runs under
 its run's config view (``ModelConfig.layer_cfg`` of the backend that
 ``attention_schedule`` gives its pattern position; the tail under the
 default), in one plain loop over the layers.  Decode caches keep the JAX
@@ -59,6 +63,9 @@ from repro_torch.models.blocks import (
     block_init,
     block_prefill,
     block_prefill_chunk,
+    hybrid_apply,
+    shared_block_init,
+    site_init,
 )
 from repro_torch.models.config import ModelConfig, schedule_runs
 from repro_torch.models.layers import (
@@ -102,6 +109,13 @@ def _layers(params, cfg: ModelConfig):
     order; each shared_attn occurrence gets the one ``params["shared"]``."""
     return [(kind, lcfg, params["shared"] if kind == "shared_attn" else p)
             for (kind, lcfg), p in zip(_layer_cfgs(cfg), params["blocks"])]
+
+
+def _no_sites(cfg: ModelConfig, where: str) -> None:
+    """Zamba2's hybrid sites run in training on one device: raises for
+    ``where``, another path."""
+    if cfg.sites is not None:
+        raise NotImplementedError(f"{cfg.name}: hybrid sites do not run {where}")
 
 
 def _encoder_kinds(cfg: ModelConfig) -> List[str]:
@@ -164,6 +178,10 @@ def lm_init(
     }
     if "shared_attn" in cfg.pattern + cfg.tail:
         params["shared"] = block_init(gen, "shared_attn", cfg, dtype)
+    if cfg.sites is not None:
+        params["shared_blocks"] = [shared_block_init(gen, cfg, dtype)
+                                   for _ in range(cfg.sites.n_blocks)]
+        params["sites"] = [site_init(gen, cfg, dtype) for _ in cfg.sites.layer_ids]
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab, d, dtype)
     if cfg.pos == "learned":
@@ -296,9 +314,19 @@ def lm_apply(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor
     kv_src = _kv_source(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     block = _remat(block_apply, cfg)
+    sites = cfg.site_of_layer
+    if sites:
+        if spmd.in_region():
+            _no_sites(cfg, "on a mesh")
+        x0, hybrid = x, _remat(hybrid_apply, cfg)  # the sites read the embeddings
     for i, (kind, lcfg, p) in enumerate(_layers(params, cfg)):
         with spmd.layer(f"layer{i}"):
-            x, a = block(p, kind, x, lcfg, positions, kv_src)
+            if i in sites:
+                j = sites[i]
+                x, a = hybrid(p, params["shared_blocks"][j % cfg.sites.n_blocks],
+                              params["sites"][j], x, x0, lcfg, positions)
+            else:
+                x, a = block(p, kind, x, lcfg, positions, kv_src)
         aux = aux + a
     with spans.span("head"):  # the backward's head ends at x (spans.backward_end)
         logits = _logits(params, spans.backward_end(x, "head.bwd"), cfg)
@@ -355,6 +383,7 @@ def _pack_caches(states: List[Any], cfg: ModelConfig, kv_src: Optional[Tensor] =
 def lm_prefill(params, batch: Dict[str, Tensor], cfg: ModelConfig, n_max: int):
     """Prompt pass (``batch`` carries the family's source extras).  Returns
     (logits of the last position [b, vocab], caches)."""
+    _no_sites(cfg, "in serving")
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_tokens(params, tokens, cfg, positions)
@@ -383,6 +412,7 @@ def lm_decode_step(params, token_t: Tensor, caches, pos, cfg: ModelConfig):
     Returns:
       ``(logits [b, vocab] f32, new caches)``; ``caches`` is not modified.
     """
+    _no_sites(cfg, "in serving")
     pos_t = None
     if cfg.pos in ("learned", "sinusoidal"):  # [b] or [1]
         pos_t = torch.as_tensor(pos, device=token_t.device).reshape(-1)
@@ -450,6 +480,7 @@ def lm_verify_chunk(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
 def _chunk_hidden(params, tokens: Tensor, caches, pos0, cfg: ModelConfig):
     """The chunk-advance body: hidden states ``[b, c, d]`` and new caches,
     each layer under its run's config."""
+    _no_sites(cfg, "in serving")
     b, c = tokens.shape
     positions = (
         torch.as_tensor(pos0, dtype=torch.int32, device=tokens.device).expand(b)[:, None]
@@ -473,6 +504,7 @@ def lm_init_caches(cfg: ModelConfig, batch: int, n_max: int, device=None):
     Mamba2 hybrid gives a tuple of different state types; a cross block's
     is the pair of its self state and a zero ``CrossCache`` of the source
     length."""
+    _no_sites(cfg, "in serving")
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     n_src = cfg.n_source_tokens

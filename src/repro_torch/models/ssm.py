@@ -9,7 +9,8 @@ is computed chunk by chunk, like the chunked Taylor scan: within a chunk
 the decay-weighted scores are quadratic, across chunks the state carries.
 
 Block layout (Mamba2 paper): in_proj → [z | x | B | C | dt]; a short causal
-depthwise conv on (x, B, C); SSD; gated RMSNorm(y ⊙ silu(z)); out_proj.
+depthwise conv on (x, B, C); SSD; gated RMSNorm(y ⊙ silu(z)), taken per B/C
+group with eps ``cfg.norm_eps``; out_proj.
 
 The numerics are the JAX package's: the conv accumulates in the activation
 dtype, the SSD runs in float32, and the decode state keeps ``ssd`` in
@@ -26,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.config import ModelConfig, SSMConfig
 from repro_torch.models.layers import dense_init, norm_apply, norm_init, trunc_normal
 
@@ -159,11 +161,24 @@ def _ssd_inputs(params, x: Tensor, cfg: ModelConfig):
     return z, xbc_raw, xs, dt, A, B, C
 
 
-def _ssd_output(params, y: Tensor, xs: Tensor, z: Tensor, dtype) -> Tensor:
+def gate_norm(params, y: Tensor, cfg: ModelConfig) -> Tensor:
+    """RMSNorm (eps ``cfg.norm_eps``) of the gated SSD output ``y`` [...,
+    d_inner], taken over each B/C group's share of d_inner on its own (the
+    grouped norm of Mamba2 and of Zamba2's RMSNormGated); with one group,
+    ``norm_apply``'s RMSNorm."""
+    groups = cfg.ssm.n_groups
+    if groups == 1:
+        return norm_apply(params, y, "rmsnorm", cfg.norm_eps)
+    x = y.float().unflatten(-1, (groups, -1))
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    return (x.flatten(-2) * params["scale"].float()).to(y.dtype)
+
+
+def _ssd_output(params, y: Tensor, xs: Tensor, z: Tensor, cfg: ModelConfig, dtype) -> Tensor:
     """The D skip, the gated RMSNorm and out_proj on the SSD output."""
     y = y + xs.float() * params["D"][:, None]
     y = y.reshape(z.shape).to(dtype)
-    y = norm_apply(params["gate_norm"], y * F.silu(z), "rmsnorm")
+    y = gate_norm(params["gate_norm"], y * F.silu(z), cfg)
     return y @ params["out_proj"]["w"].to(dtype)
 
 
@@ -174,15 +189,17 @@ def mamba_apply(params, x: Tensor, cfg: ModelConfig, chunk: int = 128) -> Tensor
     Under ``attn_sharding="cp"`` inside a sharding context, ``x`` is this
     rank's sequence block (``distributed/spmd.py``): the SSD runs the
     decay-weighted context parallelism of ``core/ssd_context_parallel.py``
-    and the causal conv reads the previous block's last inputs."""
+    and the causal conv reads the previous block's last inputs.  The span
+    ``mamba`` (``repro_torch.spans``) covers it, remat reruns included."""
     if x.shape[1] % chunk != 0:
         chunk = x.shape[1]  # single-chunk fallback (tests / odd shapes)
-    seq_ax = _cp_axis(cfg)
-    if seq_ax is not None:
-        return _mamba_apply_cp(params, x, cfg, chunk, *seq_ax)
-    z, _, xs, dt, A, B, C = _ssd_inputs(params, x, cfg)
-    y = _ssd_chunked(xs, dt, A, B, C, chunk)
-    return _ssd_output(params, y, xs, z, x.dtype)
+    with spans.span("mamba"):
+        seq_ax = _cp_axis(cfg)
+        if seq_ax is not None:
+            return _mamba_apply_cp(params, x, cfg, chunk, *seq_ax)
+        z, _, xs, dt, A, B, C = _ssd_inputs(params, x, cfg)
+        y = _ssd_chunked(xs, dt, A, B, C, chunk)
+        return _ssd_output(params, y, xs, z, cfg, x.dtype)
 
 
 def _cp_axis(cfg: ModelConfig):
@@ -225,7 +242,7 @@ def _mamba_apply_cp(params, x: Tensor, cfg: ModelConfig, chunk: int, mesh, axis)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y = ssd_cp_local(xs, dt, A, B, C, mesh, axis, chunk)
-    return _ssd_output(params, y, xs, z, x.dtype)
+    return _ssd_output(params, y, xs, z, cfg, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +281,7 @@ def mamba_prefill(params, h: Tensor, cfg: ModelConfig) -> Tuple[Tensor, MambaCac
     n = h.shape[1]
     chunk = cfg.attn_chunk if n % cfg.attn_chunk == 0 else n
     y, state = _ssd_chunked(xs, dt, A, B, C, chunk, return_state=True)
-    return _ssd_output(params, y, xs, z, h.dtype), MambaCache(conv=conv_tail, ssd=state)
+    return _ssd_output(params, y, xs, z, cfg, h.dtype), MambaCache(conv=conv_tail, ssd=state)
 
 
 def mamba_decode_step(params, x_t: Tensor, cache: MambaCache,
@@ -295,4 +312,4 @@ def mamba_decode_step(params, x_t: Tensor, cache: MambaCache,
     h = cache.ssd * a_t[..., None, None] + torch.einsum("bhn,bhp->bhpn", Bh,
                                                         xs * dt[..., None])
     y = torch.einsum("bhn,bhpn->bhp", Ch, h)
-    return _ssd_output(params, y, xs, z, dtype), MambaCache(conv=conv_state, ssd=h)
+    return _ssd_output(params, y, xs, z, cfg, dtype), MambaCache(conv=conv_state, ssd=h)

@@ -59,6 +59,10 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[..., tuple]
     state_layout: Callable[[Any], Any] = _same
+    # ``update_in_place(grads, state, params) -> state``: ``update`` and
+    # ``apply_updates`` written into ``params`` and the state's own tensors,
+    # leaf by leaf, with the same arithmetic (a donated step); AdamW's only
+    update_in_place: Optional[Callable[..., Any]] = None
 
 
 def global_norm(tree) -> Tensor:
@@ -139,8 +143,8 @@ def adamw(
         return AdamState(step=_step0(params), m=_zeros_like_tree(params, state_dtype),
                          v=_zeros_like_tree(params, state_dtype))
 
-    def update(grads, state, params, placements=None):
-        grads = _clip_by_global_norm(grads, clip_norm, placements)
+    def leaf_update(state):
+        """(the incremented step, ``(p, g, m, v) -> (update, m, v)`` at it)."""
         step = state.step + 1
         lr = schedule(step)
         s = step.to(torch.float32)
@@ -154,11 +158,30 @@ def adamw(
             u = -lr * ((m32 / c1) / ((v32 / c2).sqrt() + eps) + weight_decay * p.float())
             return u, m32.to(state_dtype), v32.to(state_dtype)
 
+        return step, upd
+
+    def update(grads, state, params, placements=None):
+        grads = _clip_by_global_norm(grads, clip_norm, placements)
+        step, upd = leaf_update(state)
         with spans.span("optimizer.update"):
             updates, m, v = _per_leaf(upd, 3, params, grads, state.m, state.v)
         return updates, AdamState(step=step, m=m, v=v)
 
-    return Optimizer(init=init, update=update)
+    def update_in_place(grads, state, params):
+        """``update`` then ``apply_updates``, each leaf written into its
+        param and moments as it is done: no second copy of either."""
+        with spans.span("optimizer.clip"):
+            scale = _clip_scale(grads, clip_norm)
+        step, upd = leaf_update(state)
+        with spans.span("optimizer.update"):
+            for p, g, m, v in zip(*map(tree_leaves, (params, grads, state.m, state.v))):
+                u, m_new, v_new = upd(p, g if scale is None else g * scale.to(g.dtype), m, v)
+                m.copy_(m_new)
+                v.copy_(v_new)
+                p.copy_((p.float() + u.float()).to(p.dtype))
+        return AdamState(step=step, m=state.m, v=state.v)
+
+    return Optimizer(init=init, update=update, update_in_place=update_in_place)
 
 
 # ---------------------------------------------------------------------------

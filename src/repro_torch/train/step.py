@@ -78,21 +78,34 @@ def loss_and_grads(loss_fn, params, batch: Dict[str, Tensor]):
     return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer, aux_weight: float = 0.01):
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, aux_weight: float = 0.01,
+                    donate: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
+
+    ``donate``: the step writes the new params and optimizer state into the
+    tensors of the state it is given (``optimizer.update_in_place``), as a
+    JAX step jitted with ``donate_argnums`` reuses its state's buffers; the
+    state passed in is then spent.  A state's params and moments are then
+    held once, not twice, across the optimizer.
 
     Its spans (``repro_torch.spans``): ``train.first_step`` (set-up) around
     the process's first step; ``train.forward``, ``train.backward`` and
     ``optimizer``, each counting the allocator's calls on the step's
     device."""
     loss_fn = make_loss_fn(cfg, aux_weight)
+    if donate and optimizer.update_in_place is None:
+        raise ValueError("a donated step needs an optimizer with update_in_place (adamw)")
 
     def train_step(state: TrainState, batch: Dict[str, Tensor]):
         with spans.once("train.first_step"):
             loss, metrics, grads = loss_and_grads(loss_fn, state.params, batch)
             with torch.no_grad(), spans.span("optimizer", loss.device):
-                updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-                params = apply_updates(state.params, updates)
+                if donate:
+                    params = state.params
+                    opt_state = optimizer.update_in_place(grads, state.opt_state, params)
+                else:
+                    updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+                    params = apply_updates(state.params, updates)
         metrics = dict(metrics, total_loss=loss)
         return TrainState(state.step + 1, params, opt_state), metrics
 

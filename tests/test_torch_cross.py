@@ -178,6 +178,9 @@ def test_configs_counts_and_the_registry():
         for ours, theirs in ((get_config(arch), j_get_config(arch)),
                              (get_reduced(arch), j_get_reduced(arch))):
             for f in dataclasses.fields(ours):
+                if f.name == "sites" and not hasattr(theirs, f.name):
+                    assert ours.sites is None  # the port's Zamba2 sites field
+                    continue
                 a, b = getattr(ours, f.name), getattr(theirs, f.name)
                 if not dataclasses.is_dataclass(a):
                     assert a == b, f.name

@@ -134,9 +134,18 @@ def assert_caches_close(tc, jc):
             assert rel(a, b) < TOL, (name, rel(a, b))
 
 
+# fields of the port's config that the JAX package's lacks, at the value
+# every architecture of its registry has (Zamba2's hybrid sites)
+PORT_ONLY = {"sites": None}
+
+
 def same_fields(ours, theirs):
-    """Every field of the port's config equals the JAX config's."""
+    """Every field of the port's config equals the JAX config's; a field the
+    JAX config lacks holds ``PORT_ONLY``'s value."""
     for f in dataclasses.fields(ours):
+        if f.name in PORT_ONLY and not hasattr(theirs, f.name):
+            assert getattr(ours, f.name) == PORT_ONLY[f.name], f.name
+            continue
         a, b = getattr(ours, f.name), getattr(theirs, f.name)
         if dataclasses.is_dataclass(a):
             assert dataclasses.asdict(a) == {k: v for k, v in dataclasses.asdict(b).items()
