@@ -552,10 +552,12 @@ def bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn, dkv_fn):
 
 def bwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3b]"):
     """Both backward kernels against their plain versions at shape ``m`` in
-    ``dname``: checked to BWD_TOL (fails on a disagreement), timed and
-    bounded.  A head dim outside ``K.TILES`` runs padded (``padded_qk``),
-    dq and dk sliced back to the true d, against the plain versions at the
-    true d.  Returns {kernel: row} for dq, dkv and the pair."""
+    ``dname``: checked to BWD_TOL (fails on a disagreement, or where the
+    checked launches' tensor-row counts are not all of them at a head dim of
+    ``K.TENSOR_ROWS`` and none elsewhere), timed and bounded.  A head dim
+    outside ``K.TILES`` runs padded (``padded_qk``), dq and dk sliced back to
+    the true d, against the plain versions at the true d.  Returns {kernel:
+    row} for dq, dkv and the pair."""
     bk = m["b"] * m["hk"]
     q, k, v, dout = bwd_inputs(torch, m, getattr(torch, dname), gen, ln)
     qp, kp, alpha = padded_qk(torch, K, q, k)
@@ -572,8 +574,14 @@ def bwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3b]"):
         return dk[..., :d], dv
 
     out = K.taylor_fwd(qp, kp, v, alpha=alpha)
+    tb = K.taylor_bwd
+    counters = lambda: (tb.dq_launches, tb.dq_tensor_row_launches, tb.dkv_launches,
+                        tb.dkv_tensor_row_launches)
+    counted = counters()
     errs, abs_err, bad, (den, dden) = bwd_check(torch, ref_mod, q, k, v, dout, out, dq_fn,
                                                 dkv_fn)
+    dq_n, dq_rows, dkv_n, dkv_rows = (a_ - b_ for a_, b_ in zip(counters(), counted))
+    tensor_rows = qp.shape[-1] in K.TENSOR_ROWS
     b = lambda *x: [t[None] for t in x]
     ms = {  # the kernels alone, on inputs already in their layout
         "taylor_bwd_dq": cuda_ms(torch, lambda: K.taylor_bwd_dq(qp, kp, v, dout, out,
@@ -598,7 +606,8 @@ def bwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3b]"):
     products = BWD_TF32_PRODUCTS[dname]
     name = case_name(m, dname)
     print(f"{tag} taylor_bwd {name} {m}: rel_err against float64 " +
-          " ".join(f"{k_}={e:.3e}" for k_, e in errs.items()) + f" (tol {BWD_TOL})")
+          " ".join(f"{k_}={e:.3e}" for k_, e in errs.items()) + f" (tol {BWD_TOL})"
+          f" tensor_row_launches/launches dq={dq_rows}/{dq_n} dkv={dkv_rows}/{dkv_n}")
     row = {}
     for kname in ("taylor_bwd_dq", "taylor_bwd_dkv", "pair"):
         flops, tensor, nbytes = cost[kname]
@@ -615,6 +624,9 @@ def bwd_case(torch, K, ref_mod, ln, gen, m, dname, tag="[3b]"):
                           max_abs_err=abs_err.get(kname))
     if bad:
         fail(f"taylor_bwd {name} disagrees with its plain version: {bad}")
+    if (dq_rows, dkv_rows) != ((dq_n, dkv_n) if tensor_rows else (0, 0)):
+        fail(f"taylor_bwd {name}: tensor-row launches dq {dq_rows}/{dq_n}, "
+             f"dkv {dkv_rows}/{dkv_n}")
     return row
 
 

@@ -30,9 +30,9 @@
 // update) and pass 2 about (G+1)·N·2D²·DV (one carry read, G carry updates), against
 // O(N·G·(D+DV)) bytes.  Those D²·DV contractions, and the D² ones on z2/dz2, run on the
 // tensor cores as split-precision TF32 mma.sync products (tf32_mma.cuh), in the scheme
-// of taylor_fwd.cu; the rest stays as f32 FMAs on the CUDA cores: the causal C×C
-// intra-chunk tiles (scores, dp, ds·K, Pᵀ·dnum, dsᵀ·Q), the den/dden row pass, the first
-// moments and the folds below.
+// of taylor_fwd.cu, and so do the causal C×C intra-chunk tiles where D = 128 (below); the
+// rest stays as f32 FMAs on the CUDA cores: the den/dden row pass, the first moments, the
+// folds below, and where D ≤ 64 the intra-chunk tiles (scores, dp, ds·K, Pᵀ·dnum, dsᵀ·Q).
 //
 // The contractions.  In each, the f32 operand (the state, the carry, or a product made
 // in registers) is the A operand (16 rows), split once per k-step into hi and lo and
@@ -69,6 +69,26 @@
 //   buffers in shared memory; dS2 and dz2 are symmetric (built from (Q⊗Q)ᵀ) up to the
 //   rounding of the split products, as S2 and z2 are.
 //
+// The intra-chunk tiles where D = 128 (Dims<D>::tensor_rows, DVT = 1).  With one value
+// column a block, a thread a row of the C×C tile would walk 64 128-wide dot products, and
+// the CUDA-core tile took about 40% of pass 1 and half of pass 2 at G = 48 (PERF.md).
+// There both passes compute S = Q·Kᵀ on the tensor cores with all 8 warps over the 16×8
+// tiles on or below the diagonal only (score_mma, as taylor_fwd.cu's intra_tile: A = Q,
+// B = K, bf16 one product, f32 split), and work on the f32 accumulators:
+//   * pass 1 takes the den pass's Σ_j p_ij from them (two halves, added by the row threads
+//     in a fixed order), keeps them in registers until dnum and dden are known, turns them
+//     into ds and stores ds to buf; then fold_dq runs ds·K as (Kᵀ·dsᵀ)[d, i] (A = Kᵀ, split
+//     for f32; B = dsᵀ, split: 2 products for bf16, 3 for f32) in the S2 read's accumulator
+//     layout, with the S2 and z2 reads and the first-moment terms, so that dq gets one
+//     atomic an element from a block instead of two;
+//   * pass 2 takes dv's Σ_{i ≥ j} p_ij·dnum_i from them as column sums, stores ds to buf,
+//     and dsT_q runs dsᵀ·Q (A = dsᵀ, split; B = Q) from zero for each head and adds it to
+//     dk's chunk accumulators, which hold the carry's first-moment terms from the start and
+//     are added to dk once a chunk.
+//   Every product keeps the split scheme's f32 accuracy; buf's row stride is C + 4 in pass
+//   1 and C + 8 in pass 2, so that the ds fragments load without bank conflicts.  Where
+//   D ≤ 64 (8 to 32 value columns a block) the tiles stay on the CUDA cores, as they were.
+//
 // What the design does about the TPU design's assumptions:
 //   * Sequential chunk axis.  The TPU grid carries S2 (pass 1) and dS2 (pass 2) across an
 //     "arbitrary" grid axis in VMEM, and pass 2 flips the chunk index in its index maps.
@@ -98,14 +118,19 @@
 //     pads D and DV with zero columns.  Every gradient of a padded row or column is then
 //     a sum of products with a zero factor, so it comes out exactly zero.
 //
-// Shared memory (one block per SM): 228,384 of 232,448 bytes at D = 64.  The rows that a
-// fragment walks across (B of a read: Q in pass 1, K in pass 2) sit at a row stride of
-// D + 4 floats, the rows it walks down (B of an update: K in pass 1, Q in pass 2) at
-// D + 8, so that every B load is free of bank conflicts; the score tile's threads walk
-// the D + 4 operand.
+// Shared memory (one block per SM): 228,384 of 232,448 bytes at D = 64, 222,992 at
+// D = 128.  The rows that a fragment walks across (B of a read: Q in pass 1, K in pass 2)
+// sit at a row stride of D + 4 floats, the rows it walks down (B of an update: K in pass
+// 1, Q in pass 2) at D + 8, so that every B load is free of bank conflicts; the score
+// tile's threads walk the D + 4 operand.  At D = 128 ds·K's Kᵀ and dsᵀ·Q's Q walk down
+// the D + 8 rows without conflicts; score_mma walks across both operands, and loads the
+// D + 8 one (K in pass 1, Q in pass 2) with two-way conflicts, as the forward's tile does
+// its keys.
 //
-// Left for later: the intra-chunk tiles on the tensor cores, 96 blocks on 132 SMs at the
-// main path's shape, tile 0's value-independent tail, wgmma with TMA loads for bf16.
+// Left for later: the intra-chunk tiles on the tensor cores at D ≤ 64; at D = 128 the 128
+// value-column blocks that each redo the score tile, the full dout·out rows and the query
+// loads; 96 blocks on 132 SMs at the main path's shape, tile 0's value-independent tail,
+// wgmma with TMA loads for bf16.
 //
 // Interface: plain C functions, loaded with ctypes.  They launch on the caller's stream,
 // allocate nothing (the caller owns all inputs, outputs and the den/dden scratch) and
@@ -205,15 +230,23 @@ template <int D>
 struct Dims {
   static constexpr int DVT = VTile<D>::DVT;
   static constexpr int C = kChunk;
+  // The causal C×C tiles on the tensor cores where a block holds one value column; mirrored
+  // in kernel.py (TENSOR_ROWS), as taylor_fwd.cu's Layout<D>::tensor_rows.
+  static constexpr bool tensor_rows = DVT == 1;
   static constexpr int QS1 = D + 4, KS1 = D + 8;  // pass 1 row strides: Q read, K absorbed
   static constexpr int QS2 = D + 8, KS2 = D + 4;  // pass 2: Q absorbed, K read
   static constexpr int XS = D + 8;                // the q and k slots
   static constexpr int BS = C + 1;                // padded score/ds row stride
+  // The ds row strides of each pass: BS on the CUDA cores; on the tensor cores C + 4 in
+  // pass 1 (B of ds·K, rows g apart) and C + 8 in pass 2 (A of dsᵀ·Q, rows t apart), so
+  // that those fragment loads are free of bank conflicts.
+  static constexpr int BS1 = tensor_rows ? C + 4 : BS;
+  static constexpr int BS2 = tensor_rows ? C + 8 : BS;
   static constexpr int RS = D + 4;                // rq / rk row stride
   static constexpr int DG = D / kGroups;          // d columns per thread in (row, group) phases
   static constexpr int NVB = DVT >= 8 ? DVT / 8 : 1;  // 8-column value blocks
   static constexpr int NT = C / kRowGroups / 8;  // n-tiles of a warp's rows in the reads
-  static constexpr bool kRows = DVT >= 8;         // rq / rk in shared memory (else atomics)
+  static constexpr bool kRows = !tensor_rows;     // rq / rk in shared memory (else atomics)
 };
 
 // Shared-memory layout (float offsets).  The state (or carry) comes first, so one loop
@@ -234,10 +267,11 @@ struct Layout {
   static constexpr int den = dnum + round4(M::C * M::DVT);     // [C]
   static constexpr int dden = den + M::C;                      // [C]
   static constexpr int dv = dden + M::C;                       // [C][DVT] (pass 2)
-  static constexpr int buf = dv + round4(M::C * M::DVT);       // [C][BS] scores / ds
-  static constexpr int r = buf + round4(M::C * M::BS);         // rq / rk [C][RS]
+  static constexpr int buf = dv + round4(M::C * M::DVT);       // [C][BS2] scores / ds
+  static constexpr int r = buf + round4(M::C * M::BS2);        // rq / rk [C][RS]
   static constexpr int rd = r + (M::kRows ? M::C * M::RS : 0); // q·z2·q parts [kParts][C]
-  static constexpr int total = rd + kParts * M::C;
+  static constexpr int td = rd + kParts * M::C;                // tile row sums [2][C] (pass 1)
+  static constexpr int total = td + (M::tensor_rows ? 2 * M::C : 0);
   static constexpr int bytes = total * 4;
 };
 
@@ -248,6 +282,7 @@ static_assert(Layout<128>::bytes <= 232448, "smem over budget at D=128");
 static_assert(kGroups * kChunk == kThreads, "row phases map kGroups threads per row");
 static_assert(kChunk % (8 * kRowGroups) == 0 && kWarps % kRowGroups == 0,
               "the reads deal whole n-tiles of rows and whole parts to the warps");
+static_assert(Dims<128>::BS2 >= Dims<128>::BS1, "buf holds either pass's rows");
 
 template <int ORDER>
 __device__ __forceinline__ float poly(float s) {
@@ -505,73 +540,50 @@ __device__ __forceinline__ void read_z2(const float* qs, const float* z2, float*
     }
 }
 
-// Pass 1, one head's chunk, once dnum and dden are known: dq's second-moment terms.
-// T[(d,v), i] = Σ_e S2[d,e,v]·q_ie (A = the slab's rows (d,v), B = Q), folded as
+// Pass 1, one head's chunk, once dnum and dden are known, where DVT ≥ 8 (DVT = 1 takes
+// fold_dq): dq's second-moment terms.  T[(d,v), i] = Σ_e S2[d,e,v]·q_ie (A = the slab's
+// rows (d,v): two values of d × 8 of v, the lane's g is v; B = Q), folded as
 // dq[i,d] = a²·(Σ_v dnum_iv·T[(d,v), i] + dden_i·u[d][i]), the last term on the lead tile
-// only.  Where DVT ≥ 8 an A tile is two values of d × 8 of v (the lane's g is v), the
-// sum over v goes through sum_over_g, and the result to rq[i][d] (the lead's u is read
-// there first).  Where DVT = 1 an A tile is 16 values of d read as S2[e][d], the lead
-// redoes the z2 product beside it, and the result goes by atomics into dqh (this head's
-// dq rows of the chunk).
+// only: the sum over v goes through sum_over_g, and the result to rq[i][d] (the lead's u
+// is read there first).
 template <bool SPLIT_Q, int D>
 __device__ __forceinline__ void read_s2_dq(const float* qs, const float* s2,
-                                           const float* z2, const float* dnum,
-                                           const float* dden, float* rq, float* dqh,
+                                           const float* dnum, const float* dden, float* rq,
                                            float a2, bool lead) {
   using M = Dims<D>;
+  static_assert(M::kRows, "rq in shared memory");
   constexpr int DVT = M::DVT, QS = M::QS1, RS = M::RS, NT = M::NT, C = M::C;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4, part = warp / kRowGroups;
   const int r0 = (warp % kRowGroups) * (C / kRowGroups);
   const float* qb = qs + (r0 + g) * QS + t;
   float c[NT][4];
-  if constexpr (M::kRows) {
 #pragma unroll 1
-    for (int ep = part; ep < D / 2; ep += kParts) {
-      float x[NT][2][2] = {};
+  for (int ep = part; ep < D / 2; ep += kParts) {
+    float x[NT][2][2] = {};
 #pragma unroll
-      for (int vb = 0; vb < M::NVB; ++vb) {
-        const int vc = vb * 8 + g;
-        tile_product<SPLIT_Q, D / 8, NT, QS>(s2 + (2 * ep * D + t) * DVT + vc, D * DVT,
-                                              4 * DVT, 8 * DVT, qb, c);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int i = r0 + 2 * t + 8 * nt;
-          const float dn0 = dnum[i * DVT + vc], dn1 = dnum[(i + 1) * DVT + vc];
-          x[nt][0][0] += dn0 * c[nt][0];
-          x[nt][0][1] += dn0 * c[nt][2];
-          x[nt][1][0] += dn1 * c[nt][1];
-          x[nt][1][1] += dn1 * c[nt][3];
-        }
-      }
+    for (int vb = 0; vb < M::NVB; ++vb) {
+      const int vc = vb * 8 + g;
+      tile_product<SPLIT_Q, D / 8, NT, QS>(s2 + (2 * ep * D + t) * DVT + vc, D * DVT,
+                                            4 * DVT, 8 * DVT, qb, c);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const float s = sum_over_g(x[nt], g);
-        if (g < 4) {
-          const int i = r0 + 2 * t + 8 * nt + (g & 1), d = 2 * ep + (g >> 1);
-          float& r = rq[i * RS + d];
-          r = a2 * (s + (lead ? dden[i] * r : 0.f));
-        }
+        const int i = r0 + 2 * t + 8 * nt;
+        const float dn0 = dnum[i * DVT + vc], dn1 = dnum[(i + 1) * DVT + vc];
+        x[nt][0][0] += dn0 * c[nt][0];
+        x[nt][0][1] += dn0 * c[nt][2];
+        x[nt][1][0] += dn1 * c[nt][1];
+        x[nt][1][1] += dn1 * c[nt][3];
       }
     }
-  } else {
-    float cz[NT][4] = {};
-#pragma unroll 1
-    for (int dt = part; dt < D / 16; dt += kParts) {
-      const int d = dt * 16 + g;
-      tile_product<SPLIT_Q, D / 8, NT, QS>(s2 + t * D + d, 8, 4 * D, 8 * D, qb, c);
-      if (lead) tile_product<SPLIT_Q, D / 8, NT, QS>(z2 + t * D + d, 8, 4 * D, 8 * D, qb, cz);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = r0 + 2 * t + 8 * nt + h;
-          const float dn = dnum[i], dd = lead ? dden[i] : 0.f;
-#pragma unroll
-          for (int u = 0; u < 2; ++u)
-            atomicAdd(dqh + i * D + d + 8 * u,
-                      a2 * (dn * c[nt][2 * u + h] + dd * cz[nt][2 * u + h]));
-        }
+    for (int nt = 0; nt < NT; ++nt) {
+      const float s = sum_over_g(x[nt], g);
+      if (g < 4) {
+        const int i = r0 + 2 * t + 8 * nt + (g & 1), d = 2 * ep + (g >> 1);
+        float& r = rq[i * RS + d];
+        r = a2 * (s + (lead ? dden[i] * r : 0.f));
+      }
     }
   }
 }
@@ -684,6 +696,257 @@ __device__ __forceinline__ void read_carry(const float* ks, const float* vs, con
   __syncthreads();  // rk and dv_s hold the carry read
 }
 
+// ---- the causal C×C tiles on the tensor cores, where DVT = 1 ----
+//
+// S = Q·Kᵀ of one head's chunk as taylor_fwd.cu's intra_tile computes it: A = the queries
+// (split for f32 inputs), B = the keys, over the 16×8 tiles on or below the diagonal only.
+// Warp w takes the row strip m = w % 4 and every other key n-tile from w / 4: c[u] holds
+// n-tile w / 4 + 2u for u ≤ m (the last on the diagonal), so that c[u][2h + x] is s_ij / a
+// at i = 16m + g + 8h, j = 8(w / 4 + 2u) + 2t + x.  p, ds and the mask are applied to these
+// accumulators; ds goes to the second product through buf, where the lanes' roles differ.
+constexpr int kStrips = kChunk / 16;
+static_assert(kWarps == 2 * kStrips, "two warps a row strip");
+
+template <bool SPLIT, int D, int QS, int KS>
+__device__ __forceinline__ void score_mma(const float* qs, const float* ks,
+                                          float (&c)[kStrips][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / 4, m = warp % 4;
+#pragma unroll
+  for (int u = 0; u < kStrips; ++u)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) c[u][x] = 0.f;
+  const float* qa = qs + (m * 16 + g) * QS + t;
+  const float* kb = ks + (part * 8 + g) * KS + t;  // b0 of n-tile part + 2u at +16u·KS
+#pragma unroll 4
+  for (int s = 0; s < D / 8; ++s) {
+    const float* p = qa + s * 8;
+    Frag<4, SPLIT> af;
+    af.set(0, p[0]);
+    af.set(1, p[8 * QS]);
+    af.set(2, p[4]);
+    af.set(3, p[8 * QS + 4]);
+#pragma unroll
+    for (int u = 0; u < kStrips; ++u) {
+      if (u <= m) {
+        const float* bp = kb + u * 16 * KS + s * 8;
+        Frag<2, SPLIT> bf;
+        bf.set(0, bp[0]);
+        bf.set(1, bp[4]);
+        mma_split(c[u], af, bf);
+      }
+    }
+  }
+}
+
+// Pass 1: the den pass's intra term Σ_{j ≤ i} p_ij, p = poly(a·s), from score_mma's tiles:
+// the lane's columns, then the row's 4 lanes by shuffles, into td[w / 4][i], one half of
+// the key n-tiles each, which the row threads add in a fixed order.
+template <int ORDER>
+__device__ __forceinline__ void intra_row_sums(const float (&c)[kStrips][4], float a,
+                                               float* td) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / 4, m = warp % 4;
+  float den[2] = {0.f, 0.f};  // rows 16m + g and 16m + g + 8
+#pragma unroll
+  for (int u = 0; u < kStrips; ++u) {
+    if (u <= m) {
+      const int j0 = (part + 2 * u) * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)  // j > i: on the diagonal tile u = m only
+          if (j0 + x <= m * 16 + g + 8 * h) den[h] += poly<ORDER>(a * c[u][2 * h + x]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+    if (t == 0) td[part * kChunk + m * 16 + g + 8 * h] = den[h];
+  }
+}
+
+// ds = (dnum_i·v_j (+ dden_i on the lead tile))·poly'(a·s)·a on score_mma's tiles, 0 where
+// j > i, stored to buf[i][j] (row stride BS) for the second product.  With DV (pass 2), also
+// dv's intra term Σ_{i ≥ j} p_ij·dnum_i: the lane's two rows, then the 8 lanes g of each
+// column by shuffles, added to dv_s[j] by shared atomics (one for each row strip).
+template <int ORDER, int BS, bool DV>
+__device__ __forceinline__ void ds_tiles(const float (&c)[kStrips][4], const float* dnum,
+                                         const float* dden, const float* vs, float a,
+                                         bool lead, float* buf, float* dv_s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, part = warp / 4, m = warp % 4;
+  float dn[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = m * 16 + g + 8 * h;
+    dn[h] = dnum[i];
+    dd[h] = lead ? dden[i] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kStrips; ++u) {
+    if (u <= m) {
+      const int j0 = (part + 2 * u) * 8 + 2 * t;
+      float col[2] = {0.f, 0.f};
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float vj = vs[j0 + x];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = m * 16 + g + 8 * h;
+          const float s = a * c[u][2 * h + x];
+          const bool causal = j0 + x <= i;
+          if (DV && causal) col[x] += poly<ORDER>(s) * dn[h];
+          buf[i * BS + j0 + x] = causal ? (dn[h] * vj + dd[h]) * dpoly<ORDER>(s) * a : 0.f;
+        }
+      }
+      if constexpr (DV) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) col[x] += __shfl_xor_sync(0xffffffffu, col[x], o);
+          if (g == 0) atomicAdd(dv_s + j0 + x, col[x]);
+        }
+      }
+    }
+  }
+}
+
+// Pass 1, one head's chunk, where DVT = 1, once ds is in buf: every term of dq in one
+// accumulator layout, added to dqh (this head's dq rows of the chunk) by one atomic an
+// element:
+//   dq[i,d] = Σ_j ds_ij·k_jd + a·dnum_i·S1[d] + a²·dnum_i·T[d,i]
+//             + (lead tile) a·dden_i·z1[d] + a²·dden_i·u[d,i],
+// T[d,i] = Σ_e S2[d,e]·q_ie and u the same on z2 (A = 16 values of d read as S2[e][d],
+// symmetric; B = Q; order 2 only), and ds·K as (Kᵀ·dsᵀ)[d,i] (A = 16 values of d of Kᵀ,
+// split for f32 inputs; B = dsᵀ, f32 and split), over the k-steps j ≤ the n-tile's last
+// row.  Warp w takes the query n-tiles w % 2, +2, +4, +6 (rows 16 apart: 16 and 20 k-steps
+// of ds·K) and the d-tiles w / 2 and w / 2 + 4.
+template <bool SPLIT, int D, int ORDER>
+__device__ __forceinline__ void fold_dq(const float* qs, const float* ks, const float* buf,
+                                        const float* s2, const float* z2, const float* s1,
+                                        const float* z1, const float* dnum, const float* dden,
+                                        float* dqh, float a, bool lead) {
+  using M = Dims<D>;
+  static_assert(M::tensor_rows && kRowGroups == 2, "one value column a block, two row sets");
+  constexpr int QS = M::QS1, KS = M::KS1, BS = M::BS1, C = M::C, NT = C / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, rg = warp % kRowGroups, part = warp / kRowGroups;
+  const float a2 = a * a;
+  const float* qb = qs + (8 * rg + g) * QS + t;  // n-tile nt: rows 8·rg + 16·nt
+  float c[NT][4] = {}, cz[NT][4] = {}, ck[NT][4];
+#pragma unroll 1
+  for (int dt = part; dt < D / 16; dt += kParts) {
+    const int d = dt * 16 + g;
+    if constexpr (ORDER >= 2) {
+      tile_product<SPLIT, D / 8, NT, 2 * QS>(s2 + t * D + d, 8, 4 * D, 8 * D, qb, c);
+      if (lead) tile_product<SPLIT, D / 8, NT, 2 * QS>(z2 + t * D + d, 8, 4 * D, 8 * D, qb, cz);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) ck[nt][x] = 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < C; j0 += 8) {
+      if (j0 <= 8 * rg + 16 * (NT - 1)) {
+        const float* kp = ks + (j0 + t) * KS + d;
+        Frag<4, SPLIT> af;
+        af.set(0, kp[0]);
+        af.set(1, kp[8]);
+        af.set(2, kp[4 * KS]);
+        af.set(3, kp[4 * KS + 8]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int i0 = 8 * rg + 16 * nt;
+          if (j0 <= i0) {
+            const float* bp = buf + (i0 + g) * BS + j0 + t;
+            Frag<2, true> bf;
+            bf.set(0, bp[0]);
+            bf.set(1, bp[4]);
+            mma_split(ck[nt], af, bf);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 8 * rg + 16 * nt + 2 * t + h;
+        const float dn = dnum[i], dd = lead ? dden[i] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int dc = d + 8 * u;
+          float x = ck[nt][2 * u + h] + a * (dn * s1[dc] + dd * z1[dc]);
+          if constexpr (ORDER >= 2) x += a2 * (dn * c[nt][2 * u + h] + dd * cz[nt][2 * u + h]);
+          atomicAdd(dqh + i * D + dc, x);
+        }
+      }
+  }
+}
+
+// Pass 2, where DVT = 1: the chunk's dk in the accumulator layout of dsT_q.  Warp w holds
+// the key strips w % 2 and 3 − w % 2 (16 rows each: 8 + 2 or 6 + 4 k-steps of i ≥ the
+// strip's first row) and the 4 n-tiles of t from (w / 2)·32; for_dk calls f(si, nt, e, j, t)
+// for each element acc[si][nt][e] of this lane, at key row j and column t.
+template <typename F>
+__device__ __forceinline__ void for_dk(F f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, rg = warp % 2, n0 = (warp / 2) * 32;
+#pragma unroll
+  for (int si = 0; si < 2; ++si)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          f(si, nt, 2 * h + x, 16 * (si ? 3 - rg : rg) + g + 8 * h, n0 + 8 * nt + 2 * t + x);
+}
+
+// Pass 2, one head's chunk, where DVT = 1, once ds is in buf: dk[j,t] += Σ_{i ≥ j} ds_ij·q_it
+// on the tensor cores, added to acc (for_dk's layout): A = dsᵀ (f32, split once per k-step
+// and reused across the 4 n-tiles), B = Q (split for f32 inputs).  Each head's product is
+// taken from zero and added to acc once, as update_tile does for the same reason: summed
+// onto acc, every split product of all G heads would round at the chunk's whole dk, which
+// at G = 48 put dk past chip_smoke.py's BWD_TOL (1.6e-5 bf16, 2.2e-5 f32).
+template <bool SPLIT, int D>
+__device__ __forceinline__ void dsT_q(const float* buf, const float* qs,
+                                      float (&acc)[2][4][4]) {
+  using M = Dims<D>;
+  static_assert(M::tensor_rows, "one value column a block");
+  constexpr int QS = M::QS2, BS = M::BS2, C = M::C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, rg = warp % 2, n0 = (warp / 2) * 32;
+#pragma unroll
+  for (int si = 0; si < 2; ++si) {
+    const int j0 = 16 * (si ? 3 - rg : rg);
+    float c[4][4] = {};
+#pragma unroll 2
+    for (int i0 = j0; i0 < C; i0 += 8) {
+      const float* ap = buf + (i0 + t) * BS + j0 + g;
+      Frag<4, true> af;
+      af.set(0, ap[0]);
+      af.set(1, ap[8]);
+      af.set(2, ap[4 * BS]);
+      af.set(3, ap[4 * BS + 8]);
+      const float* bp = qs + (i0 + t) * QS + n0 + g;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        Frag<2, SPLIT> bf;
+        bf.set(0, bp[8 * nt]);
+        bf.set(1, bp[4 * QS + 8 * nt]);
+        mma_split(c[nt], af, bf);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[si][nt][x] += c[nt][x];
+  }
+}
+
 // ---------------------------------------------------------------------------------
 // Pass 1: dq, den, dden.
 // ---------------------------------------------------------------------------------
@@ -697,7 +960,7 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int N, int DV, float a) {
   using L = Layout<D>;
   using M = Dims<D>;
-  constexpr int DVT = M::DVT, C = M::C, QS = M::QS1, KS = M::KS1, BS = M::BS, DG = M::DG;
+  constexpr int DVT = M::DVT, C = M::C, QS = M::QS1, KS = M::KS1, BS = M::BS1, DG = M::DG;
   constexpr bool kSplit = std::is_same<T, float>::value;  // bf16 q, k are TF32-exact
 
   extern __shared__ __align__(16) float smem[];
@@ -714,6 +977,7 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* buf = smem + L::buf;
   float* rq = smem + L::r;
   float* rd = smem + L::rd;
+  float* td = smem + L::td;
 
   const int tid = threadIdx.x;
   const long bk = blockIdx.x;
@@ -743,7 +1007,13 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const long grow0 = (long)g * N + row0;  // this head's first row of the chunk
       load_rows<T, D, QS>(qs, qb + grow0 * D);
       __syncthreads();
-      score_tile<D, QS, KS>(buf, qs, ks, a);
+      [[maybe_unused]] float sc[kStrips][4];  // where DVT = 1: the score tiles, to the ds step
+      if constexpr (M::tensor_rows) {
+        score_mma<kSplit, D, QS, KS>(qs, ks, sc);
+        intra_row_sums<ORDER>(sc, a, td);
+      } else {
+        score_tile<D, QS, KS>(buf, qs, ks, a);
+      }
       if constexpr (ORDER >= 2) read_z2<kSplit, D>(qs, z2, rd, rq, lead);
       __syncthreads();
 
@@ -752,7 +1022,11 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int i = tid / kGroups, part = tid % kGroups;
         const float* qi = qs + i * QS;
         float intra = 0.f, lin = 0.f, rowdot = 0.f;
-        for (int j = part; j <= i; j += kGroups) intra += poly<ORDER>(buf[i * BS + j]);
+        if constexpr (M::tensor_rows) {
+          if (part == 0) intra = td[i] + td[C + i];  // the tile's halves, in a fixed order
+        } else {
+          for (int j = part; j <= i; j += kGroups) intra += poly<ORDER>(buf[i * BS + j]);
+        }
         for (int e = part; e < D; e += kGroups) lin += qi[e] * z1[e];
         const T* dor = dob + (grow0 + i) * DV;
         const T* orow = ob + (grow0 + i) * DV;
@@ -782,46 +1056,52 @@ taylor_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dnum[i * DVT + x] = to_f32(dor[v_off + x]) / dn;
       }
       __syncthreads();
-      scores_to_ds<D, ORDER>(buf, dnum, dden_s, vs, a, lead);
-      if constexpr (ORDER >= 2)
-        read_s2_dq<kSplit, D>(qs, s2, z2, dnum, dden_s, rq, dqb + grow0 * D, a2, lead);
-      __syncthreads();
+      if constexpr (M::tensor_rows) {
+        ds_tiles<ORDER, BS, false>(sc, dnum, dden_s, vs, a, lead, buf, nullptr);
+        __syncthreads();
+        fold_dq<kSplit, D, ORDER>(qs, ks, buf, s2, z2, s1, z1, dnum, dden_s, dqb + grow0 * D,
+                                  a, lead);
+      } else {
+        scores_to_ds<D, ORDER>(buf, dnum, dden_s, vs, a, lead);
+        if constexpr (ORDER >= 2) read_s2_dq<kSplit, D>(qs, s2, dnum, dden_s, rq, a2, lead);
+        __syncthreads();
 
-      // ---- dq rows: thread (row i, DG columns from d0) ----
-      {
-        const int i = tid % C, d0 = (tid / C) * DG;
-        float acc[DG];
+        // ---- dq rows: thread (row i, DG columns from d0) ----
+        {
+          const int i = tid % C, d0 = (tid / C) * DG;
+          float acc[DG];
 #pragma unroll
-        for (int dd = 0; dd < DG; ++dd) acc[dd] = 0.f;
-        // intra-chunk: Σ_j ds_ij k_j (ds is 0 above the diagonal)
-        for (int j = 0; j < C; ++j) {
-          const float w = buf[i * BS + j];
-          float kv[DG];
-          load_vec<DG>(kv, ks + j * KS + d0);
+          for (int dd = 0; dd < DG; ++dd) acc[dd] = 0.f;
+          // intra-chunk: Σ_j ds_ij k_j (ds is 0 above the diagonal)
+          for (int j = 0; j < C; ++j) {
+            const float w = buf[i * BS + j];
+            float kv[DG];
+            load_vec<DG>(kv, ks + j * KS + d0);
 #pragma unroll
-          for (int dd = 0; dd < DG; ++dd) acc[dd] += w * kv[dd];
+            for (int dd = 0; dd < DG; ++dd) acc[dd] += w * kv[dd];
+          }
+          // earlier chunks: a·Σ_v S1[d,v] dnum_v (the S2 and z2 terms are in rq)
+          float dn[DVT];
+          load_vec<DVT>(dn, dnum + i * DVT);
+#pragma unroll
+          for (int dd = 0; dd < DG; ++dd) acc[dd] += a * dot<DVT>(s1 + (d0 + dd) * DVT, dn);
+          if (lead) {  // value-independent, once
+            const float ddi = dden_s[i];
+#pragma unroll
+            for (int dd = 0; dd < DG; ++dd) acc[dd] += a * ddi * z1[d0 + dd];
+          }
+          if constexpr (ORDER >= 2) {
+            float r[DG];
+            load_vec<DG>(r, rq + i * M::RS + d0);
+#pragma unroll
+            for (int dd = 0; dd < DG; ++dd) acc[dd] += r[dd];
+          }
+          float* dqr = dqb + (grow0 + i) * D + d0;
+#pragma unroll
+          for (int dd = 0; dd < DG; ++dd) atomicAdd(dqr + dd, acc[dd]);
         }
-        // earlier chunks: a·Σ_v S1[d,v] dnum_v (the S2 and z2 terms are in rq)
-        float dn[DVT];
-        load_vec<DVT>(dn, dnum + i * DVT);
-#pragma unroll
-        for (int dd = 0; dd < DG; ++dd) acc[dd] += a * dot<DVT>(s1 + (d0 + dd) * DVT, dn);
-        if (lead) {  // value-independent, once
-          const float ddi = dden_s[i];
-#pragma unroll
-          for (int dd = 0; dd < DG; ++dd) acc[dd] += a * ddi * z1[d0 + dd];
-        }
-        if constexpr (ORDER >= 2 && M::kRows) {
-          float r[DG];
-          load_vec<DG>(r, rq + i * M::RS + d0);
-#pragma unroll
-          for (int dd = 0; dd < DG; ++dd) acc[dd] += r[dd];
-        }
-        float* dqr = dqb + (grow0 + i) * D + d0;
-#pragma unroll
-        for (int dd = 0; dd < DG; ++dd) atomicAdd(dqr + dd, acc[dd]);
       }
-      __syncthreads();  // qs, buf, dnum, rq and rd are reused by the next head
+      __syncthreads();  // qs, buf, dnum, rq, rd and td are reused by the next head
     }
 
     // ---- absorb this chunk's keys/values into the state ----
@@ -844,7 +1124,7 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float a) {
   using L = Layout<D>;
   using M = Dims<D>;
-  constexpr int DVT = M::DVT, C = M::C, QS = M::QS2, KS = M::KS2, BS = M::BS, DG = M::DG;
+  constexpr int DVT = M::DVT, C = M::C, QS = M::QS2, KS = M::KS2, BS = M::BS2, DG = M::DG;
   constexpr bool kSplit = std::is_same<T, float>::value;
 
   extern __shared__ __align__(16) float smem[];
@@ -894,7 +1174,9 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // before this chunk's own queries are added to it ----
     if constexpr (ORDER >= 2)
       read_carry<kSplit, D>(ks, vs, ds2, dz2, dv_s, rk, dkb + row0 * D, lead);
-    float dk_acc[DG];
+    // ---- the carry's first-moment terms: dv, and dk's start (dk_acc; where DVT = 1, dka
+    // in dsT_q's layout) ----
+    [[maybe_unused]] float dk_acc[DG], dka[2][4][4];
     {
       const float* kj = ks + j * KS;
       float vj[DVT], dv_acc[DVT], carry[DG] = {};
@@ -907,15 +1189,21 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int t = t0 + tt;
         float row[DVT];
         load_vec<DVT>(row, ds1 + t * DVT);
-        float dkt = carry[tt] + dot_reg<DVT>(row, vj);
 #pragma unroll
         for (int x = 0; x < DVT; ++x) dv_acc[x] += kj[t] * row[x];
-        if (lead) dkt += dz1[t];  // value-independent, once
-        dk_acc[tt] = dkt;
+        if constexpr (!M::tensor_rows) {
+          float dkt = carry[tt] + dot_reg<DVT>(row, vj);
+          if (lead) dkt += dz1[t];  // value-independent, once
+          dk_acc[tt] = dkt;
+        }
       }
 #pragma unroll
       for (int x = 0; x < DVT; ++x) atomicAdd(dv_s + j * DVT + x, dv_acc[x]);
     }
+    if constexpr (M::tensor_rows)
+      for_dk([&](int si, int nt, int e, int jj, int t) {
+        dka[si][nt][e] = ds1[t] * vs[jj] + (lead ? dz1[t] : 0.f);
+      });
 
     for (int g = 0; g < G; ++g) {
       const long grow0 = (long)g * N + row0;
@@ -927,36 +1215,44 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       for (int i = tid; i < C; i += kThreads) dden_s[i] = ddenb[grow0 + i];
       __syncthreads();
-      score_tile<D, QS, KS>(buf, qs, ks, a);
-      __syncthreads();
+      if constexpr (M::tensor_rows) {
+        float sc[kStrips][4];
+        score_mma<kSplit, D, QS, KS>(qs, ks, sc);
+        ds_tiles<ORDER, BS, true>(sc, dnum, dden_s, vs, a, lead, buf, dv_s);
+        __syncthreads();
+        dsT_q<kSplit, D>(buf, qs, dka);
+      } else {
+        score_tile<D, QS, KS>(buf, qs, ks, a);
+        __syncthreads();
 
-      // ---- intra-chunk dv: Σ_{i ≥ j} p_ij dnum_i (rows split over the groups) ----
-      {
-        float acc[DVT];
+        // ---- intra-chunk dv: Σ_{i ≥ j} p_ij dnum_i (rows split over the groups) ----
+        {
+          float acc[DVT];
 #pragma unroll
-        for (int x = 0; x < DVT; ++x) acc[x] = 0.f;
-        for (int i = grp; i < C; i += kGroups) {
-          if (i < j) continue;
-          const float p = poly<ORDER>(buf[i * BS + j]);
-          float dn[DVT];
-          load_vec<DVT>(dn, dnum + i * DVT);
+          for (int x = 0; x < DVT; ++x) acc[x] = 0.f;
+          for (int i = grp; i < C; i += kGroups) {
+            if (i < j) continue;
+            const float p = poly<ORDER>(buf[i * BS + j]);
+            float dn[DVT];
+            load_vec<DVT>(dn, dnum + i * DVT);
 #pragma unroll
-          for (int x = 0; x < DVT; ++x) acc[x] += p * dn[x];
+            for (int x = 0; x < DVT; ++x) acc[x] += p * dn[x];
+          }
+#pragma unroll
+          for (int x = 0; x < DVT; ++x) atomicAdd(dv_s + j * DVT + x, acc[x]);
         }
-#pragma unroll
-        for (int x = 0; x < DVT; ++x) atomicAdd(dv_s + j * DVT + x, acc[x]);
-      }
-      __syncthreads();
-      scores_to_ds<D, ORDER>(buf, dnum, dden_s, vs, a, lead);
-      __syncthreads();
+        __syncthreads();
+        scores_to_ds<D, ORDER>(buf, dnum, dden_s, vs, a, lead);
+        __syncthreads();
 
-      // ---- intra-chunk dk: Σ_i ds_ij q_i (ds is 0 where i < j) ----
-      for (int i = 0; i < C; ++i) {
-        const float w = buf[i * BS + j];
-        float qv[DG];
-        load_vec<DG>(qv, qs + i * QS + t0);
+        // ---- intra-chunk dk: Σ_i ds_ij q_i (ds is 0 where i < j) ----
+        for (int i = 0; i < C; ++i) {
+          const float w = buf[i * BS + j];
+          float qv[DG];
+          load_vec<DG>(qv, qs + i * QS + t0);
 #pragma unroll
-        for (int tt = 0; tt < DG; ++tt) dk_acc[tt] += w * qv[tt];
+          for (int tt = 0; tt < DG; ++tt) dk_acc[tt] += w * qv[tt];
+        }
       }
 
       // ---- this head's queries into the carry (for earlier chunks) ----
@@ -973,9 +1269,15 @@ taylor_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int i = tid; i < C * DVT; i += kThreads)
       dvb[(row0 + i / DVT) * DV + v_off + i % DVT] = dv_s[i];
-    float* dkr = dkb + (row0 + j) * D + t0;
+    if constexpr (M::tensor_rows) {
+      for_dk([&](int si, int nt, int e, int jj, int t) {
+        atomicAdd(dkb + (row0 + jj) * D + t, dka[si][nt][e]);
+      });
+    } else {
+      float* dkr = dkb + (row0 + j) * D + t0;
 #pragma unroll
-    for (int tt = 0; tt < DG; ++tt) atomicAdd(dkr + tt, dk_acc[tt]);
+      for (int tt = 0; tt < DG; ++tt) atomicAdd(dkr + tt, dk_acc[tt]);
+    }
   }
 }
 

@@ -5,11 +5,13 @@ layout (grouped, padded, pre-normalised).  On CUDA tensors they launch the
 kernels of ``csrc/`` (compiled with ``nvcc`` for ``sm_90a`` at first use,
 one shared library per source, loaded with ctypes) and count each launch
 (``taylor_fwd.launches``, ``taylor_bwd.dq_launches``,
-``taylor_bwd.dkv_launches``; ``taylor_fwd.tensor_row_launches`` counts the
-forward launches at a head dim of ``TENSOR_ROWS``, whose intra-chunk tile
-runs on the tensor cores); on CPU tensors they run the plain PyTorch
-versions of ``ref.py``.  A failed build or launch raises — nothing falls
-back to the plain version on the card.  The three kernels are the
+``taylor_bwd.dkv_launches``; ``taylor_fwd.tensor_row_launches``,
+``taylor_bwd.dq_tensor_row_launches`` and
+``taylor_bwd.dkv_tensor_row_launches`` count the launches at a head dim of
+``TENSOR_ROWS``, whose intra-chunk tiles run on the tensor cores); on CPU
+tensors they run the plain PyTorch versions of ``ref.py``.  A failed build
+or launch raises — nothing falls back to the plain version on the card.
+The three kernels are the
 ``torch.library`` ops ``repro_torch::taylor_fwd``, ``taylor_bwd_dq`` and
 ``taylor_bwd_dkv``, each with a fake implementation (meta and fake tensors:
 shapes only, no launch, no count) and a flop formula from ``cost.py``.
@@ -61,10 +63,10 @@ NVCC_FLAGS = (
 # key, dv to a multiple of the value tile and n to a multiple of the chunk.
 TILES = {16: (16, 128), 32: (32, 128), 64: (8, 128), 128: (1, 64)}
 MAX_HEAD_DIM = max(TILES)
-# Head dims whose forward runs the causal intra-chunk tile on the tensor cores,
+# Head dims whose kernels run the causal intra-chunk tiles on the tensor cores,
 # with all eight warps: those whose block holds one value column; mirrors
-# ``Layout<D>::tensor_rows`` (DVT == 1) in taylor_fwd.cu.  The others walk
-# their rows on the CUDA cores.
+# ``Layout<D>::tensor_rows`` in taylor_fwd.cu and ``Dims<D>::tensor_rows`` in
+# taylor_bwd.cu (both DVT == 1).  The others walk their rows on the CUDA cores.
 TENSOR_ROWS = frozenset(d for d, (dvt, _) in TILES.items() if dvt == 1)
 BWD_CHUNK = 64
 
@@ -238,6 +240,8 @@ def _dq_cuda(q, k, v, dout, out, alpha, order):
     with spans.once("kernels.first_call.taylor_bwd_dq"):
         grads = launch_bwd_dq(_library("taylor_bwd"), *ins, alpha, order)
     taylor_bwd.dq_launches += 1
+    if q.shape[-1] in TENSOR_ROWS:
+        taylor_bwd.dq_tensor_row_launches += 1
     return grads
 
 
@@ -271,6 +275,8 @@ def _dkv_cuda(q, k, v, dout, den, dden, alpha, order):
     with spans.once("kernels.first_call.taylor_bwd_dkv"):
         grads = launch_bwd_dkv(_library("taylor_bwd"), *ins, alpha, order)
     taylor_bwd.dkv_launches += 1
+    if q.shape[-1] in TENSOR_ROWS:
+        taylor_bwd.dkv_tensor_row_launches += 1
     return grads
 
 
@@ -425,7 +431,8 @@ def taylor_bwd_dq(
 
     ``dq [bk, g, n, d]``; ``den`` (clamped) and ``dden`` ``[bk, g, n]`` feed
     pass 2.  Runs the op ``repro_torch::taylor_bwd_dq``, whose CUDA
-    implementation counts its launch in ``taylor_bwd.dq_launches``."""
+    implementation counts its launch in ``taylor_bwd.dq_launches`` (and in
+    ``taylor_bwd.dq_tensor_row_launches`` at a head dim of ``TENSOR_ROWS``)."""
     if out.shape != dout.shape:
         raise ValueError(f"out {out.shape} and dout {dout.shape} differ in shape")
     if not _bwd_checks(q, k, v, dout, order, out):
@@ -440,7 +447,8 @@ def taylor_bwd_dkv(
     """Backward pass 2 (kernel layout): ``(dk [bk, n, d], dv [bk, n, dv])``
     float32 from pass 1's ``den``/``dden``.  Runs the op
     ``repro_torch::taylor_bwd_dkv``, whose CUDA implementation counts its
-    launch in ``taylor_bwd.dkv_launches``."""
+    launch in ``taylor_bwd.dkv_launches`` (and in
+    ``taylor_bwd.dkv_tensor_row_launches`` at a head dim of ``TENSOR_ROWS``)."""
     bk, g, n, d = q.shape
     if not _bwd_checks(q, k, v, dout, order, den, dden) and (
         den.dtype != torch.float32 or dden.dtype != torch.float32
@@ -486,3 +494,5 @@ def taylor_bwd(
 
 taylor_bwd.dq_launches = 0
 taylor_bwd.dkv_launches = 0
+taylor_bwd.dq_tensor_row_launches = 0
+taylor_bwd.dkv_tensor_row_launches = 0
